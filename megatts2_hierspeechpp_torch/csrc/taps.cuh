@@ -1,0 +1,79 @@
+// Shared pieces of the anti-aliased SnakeBeta kernels.
+//
+// Filter taps of the x2 kaiser-sinc resampler (ops/resample.py,
+// kaiser_sinc_filter1d(0.25, 0.3, 12)), as float32 literals. They equal
+// ops/snake.py:_polyphase_taps(); tests/test_torch_kernels.py checks it.
+//
+//   u[2p]   = sum_i kUpEven[i] * x[clamp(p - 3 + i)]     i = 0..5
+//   u[2p+1] = sum_i kUpOdd[i]  * x[clamp(p - 2 + i)]     i = 0..5
+//   y[t]    = sum_k kDown[k]   * s(u[clamp(2t + k - 5)]) k = 0..11
+//
+// x indices clamp to [0, T-1] and u indices to [0, 2T-1]: that is the
+// replicate padding the composed op applies before each resampler, so the
+// kernels match it at the sequence edges too.
+#pragma once
+
+static __constant__ float kUpEven[6] = {
+    4.057933111e-03f, -5.108692870e-02f, 2.571452260e-01f,
+    8.864195943e-01f, -1.153147519e-01f, 1.877892762e-02f};
+static __constant__ float kUpOdd[6] = {
+    1.877892762e-02f, -1.153147519e-01f, 8.864195943e-01f,
+    2.571452260e-01f, -5.108692870e-02f, 4.057933111e-03f};
+static __constant__ float kDown[12] = {
+    2.028966555e-03f, 9.389463812e-03f, -2.554346435e-02f,
+    -5.765737593e-02f, 1.285726130e-01f, 4.432097971e-01f,
+    4.432097971e-01f, 1.285726130e-01f, -5.765737593e-02f,
+    -2.554346435e-02f, 9.389463812e-03f, 2.028966555e-03f};
+
+__device__ __forceinline__ int clampi(int v, int lo, int hi) {
+  return v < lo ? lo : (v > hi ? hi : v);
+}
+
+// Stages of one channel chunk of an anti-aliased snake over the output
+// window [w0, w0 + n). Shared-memory rows are [row][kChunk], one channel per
+// lane, so a warp reads and writes 32 consecutive floats.
+//
+//   xs: (n + 12) rows, x at clamp(w0 - 6 + r)
+//   us: (2n + 10) rows, s(u) at clamp(2 w0 - 5 + r)
+//
+// stage_x fills xs, stage_u fills us from xs, down_at(r) returns the output
+// at w0 + r from us.
+constexpr int kChunk = 32;
+
+__device__ __forceinline__ void stage_x(float* xs, const float* xb, int w0,
+                                        int n, int T, int C, int c, bool cok,
+                                        int row0, int row_step) {
+  for (int r = row0; r < n + 12; r += row_step) {
+    const int p = clampi(w0 - 6 + r, 0, T - 1);
+    xs[r * kChunk + (threadIdx.x & 31)] = cok ? xb[(size_t)p * C + c] : 0.f;
+  }
+}
+
+__device__ __forceinline__ void stage_u(float* us, const float* xs, int w0,
+                                        int n, int T, float alpha,
+                                        float inv_beta, int row0,
+                                        int row_step) {
+  const int lane = threadIdx.x & 31;
+  for (int r = row0; r < 2 * n + 10; r += row_step) {
+    const int j = clampi(2 * w0 - 5 + r, 0, 2 * T - 1);
+    const int base = (j >> 1) - (w0 - 6);  // row of x[j / 2] in xs
+    float u = 0.f;
+    if (j & 1) {
+#pragma unroll
+      for (int i = 0; i < 6; ++i) u += kUpOdd[i] * xs[(base - 2 + i) * kChunk + lane];
+    } else {
+#pragma unroll
+      for (int i = 0; i < 6; ++i) u += kUpEven[i] * xs[(base - 3 + i) * kChunk + lane];
+    }
+    const float s = sinf(u * alpha);
+    us[r * kChunk + lane] = u + s * s * inv_beta;
+  }
+}
+
+__device__ __forceinline__ float down_at(const float* us, int r) {
+  const int lane = threadIdx.x & 31;
+  float v = 0.f;
+#pragma unroll
+  for (int k = 0; k < 12; ++k) v += kDown[k] * us[(2 * r + k) * kChunk + lane];
+  return v;
+}

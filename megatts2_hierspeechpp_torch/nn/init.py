@@ -1,0 +1,57 @@
+"""Seeded weight initialisation for runs without a checkpoint
+(chip_smoke.py).
+
+One explicit torch.Generator per call, on the CPU, so the weights depend only
+on the seed and the module structure. The scales are chosen so that the
+full-width vocoder + SpeechSR give a waveform of realistic amplitude, neither
+vanishing nor saturating the tanh (peak about 0.1-0.3; the reference's
+N(0, 0.01) weight-norm init gives about 1e-4, unit gain everywhere
+saturates):
+
+  weight  N(0, (GAIN / fan_in)^2): weight-norm, transposed and k > 1 convs
+          N(0, 1 / fan_in): 1x1 convs and linear layers
+  weight-norm weight_g = ||weight_v||, so the effective weight is weight_v
+  bias 0; snake alpha / beta 0 (log scale: alpha = beta = 1)
+
+fan_in is Cin*K for a conv and Cin*K/stride for a transposed conv.
+"""
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from megatts2_hierspeechpp_torch.nn.activations import SnakeBeta
+from megatts2_hierspeechpp_torch.nn.conv import (
+    Conv1d,
+    WNConv1d,
+    WNConvTranspose1d,
+)
+
+
+@torch.no_grad()
+def init_weights(module: nn.Module, seed: int) -> None:
+    gen = torch.Generator().manual_seed(seed)
+    gain = 0.5
+
+    def normal_(p, std):
+        p.copy_(torch.randn(p.shape, generator=gen) * std)
+
+    for m in module.modules():
+        if isinstance(m, WNConv1d):
+            normal_(m.weight_v, gain * m.weight_v[0].numel() ** -0.5)
+            m.weight_g.copy_(m.weight_v.pow(2).sum(dim=(1, 2), keepdim=True).sqrt())
+        elif isinstance(m, WNConvTranspose1d):
+            cin, _, k = m.weight_v.shape
+            normal_(m.weight_v, gain * (cin * k / m.stride) ** -0.5)
+            m.weight_g.copy_(m.weight_v.pow(2).sum(dim=(1, 2), keepdim=True).sqrt())
+        elif isinstance(m, (Conv1d, nn.Linear)):
+            g = gain if m.weight.dim() == 3 and m.weight.shape[-1] > 1 else 1.0
+            normal_(m.weight, g * m.weight[0].numel() ** -0.5)
+        elif isinstance(m, SnakeBeta):
+            m.alpha.zero_()
+            m.beta.zero_()
+            continue
+        else:
+            continue
+        if m.bias is not None:
+            m.bias.zero_()

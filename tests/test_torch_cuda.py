@@ -1,0 +1,81 @@
+"""The port's CUDA kernels against their plain versions, on a card. Skips
+without one. Imports only torch and the port, so it runs where JAX is not
+installed:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
+
+Tolerance: atol 1e-5, rtol 1e-4 for the snake; 1e-4 for the conv kernels
+(accumulation order over k*C terms)."""
+import numpy as np
+import pytest
+import torch
+
+from megatts2_hierspeechpp_torch.ops import amp_triple, ampblock, cuda_lib, snake
+
+DIL = (1, 3, 5)
+
+
+@pytest.fixture()
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _rand(rng, dev, *shape, scale=1.0):
+    return torch.from_numpy(
+        (rng.standard_normal(shape) * scale).astype(np.float32)).to(dev)
+
+
+def _block_ws(rng, dev, k, c):
+    pos = lambda: torch.exp(_rand(rng, dev, 3, c, scale=0.2))
+    w = lambda: _rand(rng, dev, 3, k, c, c, scale=(c * k) ** -0.5)
+    b = lambda: _rand(rng, dev, 3, c, scale=0.05)
+    return (pos(), pos(), w(), b(), pos(), pos(), w(), b())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t", [1, 7, 300])
+def test_kernels_match_plain(dev, t):
+    """Every T >= 1 runs the kernels (no short-T fallback); each wrapper
+    call counts once."""
+    rng = np.random.default_rng(t)
+    c = 48
+    x = _rand(rng, dev, 2, t, c)
+    a, be = torch.exp(_rand(rng, dev, c, scale=0.3)), torch.exp(_rand(rng, dev, c, scale=0.3))
+    ws = _block_ws(rng, dev, 7, c)
+    post = (torch.exp(_rand(rng, dev, c, scale=0.2)),
+            torch.exp(_rand(rng, dev, c, scale=0.2)),
+            _rand(rng, dev, 7, c, scale=0.1 * (7 * c) ** -0.5))
+    cuda_lib.reset_launches()
+    with torch.inference_mode():
+        torch.testing.assert_close(snake.fused_aa_snakebeta(x, a, be),
+                                   snake.composed_snakebeta(x, a, be),
+                                   atol=1e-5, rtol=1e-4)
+        torch.testing.assert_close(ampblock.fused_ampblock(x, *ws, 7, DIL),
+                                   ampblock.composed_ampblock(x, *ws, 7, DIL),
+                                   atol=1e-4, rtol=1e-4)
+        for p in (None, post):
+            torch.testing.assert_close(
+                amp_triple.fused_amp_triple(x, [ws] * 3, (7,) * 3, (DIL,) * 3, p),
+                amp_triple.composed_triple(x, [ws] * 3, (7,) * 3, (DIL,) * 3, p),
+                atol=1e-4, rtol=1e-4)
+    torch.cuda.synchronize()
+    assert cuda_lib.LAUNCHES == {"aa_snakebeta": 1, "ampblock": 1,
+                                 "amp_triple": 2}
+
+
+@pytest.mark.cuda
+def test_kernel_backward_is_plain_gradient(dev):
+    """The autograd.Function backward equals autograd of the plain version."""
+    rng = np.random.default_rng(0)
+    c, t = 16, 64
+    x = _rand(rng, dev, 1, t, c).requires_grad_()
+    ws = [w.requires_grad_() for w in _block_ws(rng, dev, 3, c)]
+    cot = _rand(rng, dev, 1, t, c)
+    got = torch.autograd.grad(ampblock.fused_ampblock(x, *ws, 3, DIL), [x, *ws], cot)
+    want = torch.autograd.grad(ampblock.composed_ampblock(x, *ws, 3, DIL), [x, *ws], cot)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, atol=1e-4, rtol=1e-4)
