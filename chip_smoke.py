@@ -9,15 +9,27 @@ Phases, in order; any failure exits non-zero:
   1. the card's name and power limit (nvidia-smi);
   2. build the CUDA kernels from csrc/ (nvcc, sm_90a) and report seconds;
   3. each kernel against its plain PyTorch version on the card, at the
-     shapes the serving path gives it, with CUDA-event timings of both;
-  4. the serving path at the published HierSpeech++ widths with seeded
-     random weights: one 3 s prompt, three requests of 100/250/500 frames
-     (2/5/10 s) through vocoder + SpeechSR-48k, checking each output and the
-     per-request kernel call counts (every shape is warmed up first);
-  5. one 500-frame request under torch.profiler: device time by kernel
-     group, the device's idle share, peak memory, the top kernels;
-  6. the 100-frame request once more on the CPU (plain versions), held
-     against the card's waveform before peak normalisation.
+     shapes the serving path gives it, with CUDA-event timings of both; the
+     PLM decode kernel at full width (d 276, 4 layers, 1024 bins) at T = 500,
+     1 and 37, its codes held by the teacher-forced check;
+  4. the decode half (`synthesize`) at the published HierSpeech++ widths
+     with seeded random weights: one 3 s prompt, three requests of
+     100/250/500 frames (2/5/10 s) through vocoder + SpeechSR-48k, checking
+     each output and the per-request kernel call counts (every shape is
+     warmed up first);
+  5. the whole zero-shot path (`tts`: text -> TTV -> PLM greedy decode ->
+     w2v / f0 -> vocoder -> SpeechSR-48k) at the published widths: the same
+     prompt and three Mandarin texts of 2/5/10 s at a read-speech syllable
+     rate, whose length_scale is chosen by the duration pre-pass to land
+     near 100/250/500 frames; each output, the kernel calls (slice-1 counts
+     plus one plm_decode), ms per request, and ms per stage from a second
+     run of the public stages one by one under CUDA events;
+  6. the 500-frame synthesize and tts requests under torch.profiler: device
+     time by kernel group, the device's idle share, peak memory, the top
+     kernels;
+  7. the 100-frame synthesize and tts requests once more on the CPU (plain
+     versions; the tts run takes the card's prosody codes), held against
+     the card's waveform before peak normalisation.
 Then one JSON line with every kernel's numbers, and last the device line.
 
 Float32 throughout, TF32 off. Without CUDA it exits non-zero before
@@ -35,7 +47,16 @@ import numpy as np
 
 T_FRAMES = 500          # frames of the longest request; kernel shapes derive from it
 REQUEST_FRAMES = (100, 250, 500)
-EXPECTED_CALLS = {"aa_snakebeta": 19, "ampblock": 6, "amp_triple": 5}
+EXPECTED_CALLS = {"aa_snakebeta": 19, "ampblock": 6, "amp_triple": 5,
+                  "plm_decode": 0}
+TTS_CALLS = dict(EXPECTED_CALLS, plm_decode=1)
+PLM_T = (500, 1, 37)    # decode lengths of phase 3; the first is the main path's
+TF_MARGIN = 1e-4        # teacher-forced gap, x max|logits|
+# Mandarin read speech: 5.18 syllables/s (Pellegrino, Coupe & Marsico 2011,
+# "A cross-language perspective on speech information rate", Language
+# 87(3), Table 2); a prosodic phrase break ("sp") every 8 syllables
+SYLLABLES_PER_S = 5.18
+PHRASE_SYLLABLES = 8
 CPU_TOL = 1e-3          # card vs CPU, 48 kHz waveform before normalisation
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
 F32_FLOPS_PER_S = 67e12     # H100 SXM data sheet, non-tensor float32
@@ -47,6 +68,8 @@ SOURCES = {
                  "megatts2_hierspeechpp_tpu/ops/pallas_ampblock.py:151"),
     "amp_triple": ("megatts2_hierspeechpp_torch/csrc/triple_epilogue.cu",
                    "megatts2_hierspeechpp_tpu/ops/pallas_amp_triple.py:60"),
+    "plm_decode": ("megatts2_hierspeechpp_torch/csrc/plm_decode.cu",
+                   "megatts2_hierspeechpp_tpu/ops/pallas_plm_decode.py:59"),
 }
 
 
@@ -166,6 +189,61 @@ def kernel_phase(torch, dev):
     return results
 
 
+def plm_work(model, t: int):
+    """(bytes, flops) of one greedy decode of t tokens: every weight and the
+    input latent read once, the codes written once; 2 flops per weight of
+    every matrix per token, plus q.k and p.v over the cache."""
+    n_bytes = 4.0 * (sum(p.numel() for p in model.parameters()) + t * 256 + t)
+    mats = sum(p.numel() for n, p in model.named_parameters()
+               if p.dim() == 2 and not n.startswith("pc_embedding"))
+    d, n_layers = model.predict_layer.weight.shape[1], len(model.plm.layers)
+    return n_bytes, 2.0 * mats * t + n_layers * 4.0 * d * t * (t + 1) / 2
+
+
+def plm_phase(torch, dev):
+    """The decode kernel against the plain greedy loop at the published
+    width. A near-tie flip changes every later step, so the fail condition
+    is the teacher-forced check: under the plain forward on [go, codes[:-1]],
+    each of the kernel's codes has a logit within TF_MARGIN x max|logits| of
+    its row's max. Exact agreement with the plain decode is reported."""
+    from megatts2_hierspeechpp_torch.models.plm import (
+        ProsodyLM, teacher_forced_gap)
+    from megatts2_hierspeechpp_torch.ops.plm_decode import (
+        plain_decode, plm_decode_greedy)
+
+    model = ProsodyLM(seed=99, device=dev)
+    w = model.packed()
+    gen = torch.Generator().manual_seed(5)
+    lines = []
+    for t in PLM_T:
+        tc = torch.randn(1, t, 256, generator=gen).to(dev)
+        with torch.inference_mode():
+            codes = plm_decode_greedy(w, tc, model.go_id)
+            ref = plain_decode(w, tc, model.go_id)
+            gap, scale = teacher_forced_gap(model, tc, codes)
+            agree = (codes == ref).float().mean().item()
+            ms = time_ms(torch, lambda: plm_decode_greedy(w, tc, model.go_id), 5)
+            plain_ms = time_ms(torch, lambda: plain_decode(w, tc, model.go_id),
+                               2 if t > 100 else 5)
+        ok = bool(math.isfinite(gap) and gap <= TF_MARGIN * scale
+                  and codes.shape == (1, t)
+                  and bool(((codes >= 0) & (codes < 1024)).all()))
+        b_ms, b_by = bound_ms(*plm_work(model, t))
+        line = {"phase": "kernel", "name": "plm_decode",
+                "shape": f"T={t} d=276 L=4 H=4 F=1104 bins=1024",
+                "max_abs_err": gap, "max_abs_ref": scale,
+                "tolerance": f"teacher-forced gap <= {TF_MARGIN:g} x max|logits|",
+                "agreement_with_plain": agree, "ok": ok, "ms": ms,
+                "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+                "bound_ms_weights_per_token": 1e3 * t * 4.0 * sum(
+                    p.numel() for p in model.parameters()) / HBM_BYTES_PER_S}
+        print(json.dumps(line), flush=True)
+        if not ok:
+            fail(f"plm_decode T={t}: teacher-forced gap {gap} > {TF_MARGIN} x {scale}")
+        lines.append(line)
+    return lines
+
+
 def request_inputs(t: int):
     """w2v ~ N(0, 1) (1, T, 1024) and a 100-250 Hz log-f0 contour at 4T."""
     rng = np.random.default_rng(t)
@@ -189,15 +267,22 @@ def prompt_audio() -> np.ndarray:
 
 
 def build_pipeline(torch, device):
+    from megatts2_hierspeechpp_torch.data import text as frontend
     from megatts2_hierspeechpp_torch.infer.pipeline import TTSPipeline
+    from megatts2_hierspeechpp_torch.models.plm import ProsodyLM
     from megatts2_hierspeechpp_torch.models.speechsr import SpeechSR
+    from megatts2_hierspeechpp_torch.models.ttv import TTVModel
     from megatts2_hierspeechpp_torch.models.vocoder import HierVocoder
 
-    # configs/hierspeechpp.json widths: HierVocoder defaults; SpeechSR-48k
+    # configs/hierspeechpp.json widths: HierVocoder defaults; SpeechSR-48k;
+    # TTVModel and ProsodyLM defaults (the reference's depths and widths)
     voc = HierVocoder(seed=1234, device=device)
     sr = SpeechSR(upsample_initial_channel=32, rate_num=3, rate_den=1,
                   seed=4321, device=device)
-    return TTSPipeline(voc, sr, device)
+    ttv = TTVModel(n_vocab=frontend.N_VOCAB, n_tone=frontend.N_TONE,
+                   n_language=frontend.N_LANGUAGE, seed=2345, device=device)
+    plm = ProsodyLM(seed=3456, device=device)
+    return TTSPipeline(voc, sr, device, ttv=ttv, plm=plm)
 
 
 def path_phase(torch, dev):
@@ -239,10 +324,129 @@ def path_phase(torch, dev):
     return dict(cuda_lib.LAUNCHES), pipe, prompt, audio, inputs
 
 
+def tts_text(rng, seconds: float) -> str:
+    """Seeded Mandarin phone string of `seconds` of read speech: syllables
+    (initial + toned final) at SYLLABLES_PER_S, two-syllable words ("#1",
+    stripped by the frontend), an "sp" phrase break every PHRASE_SYLLABLES
+    syllables, "sil" at both ends."""
+    from megatts2_hierspeechpp_torch.data.text import FINALS, INITIALS
+
+    n_syl = round(seconds * SYLLABLES_PER_S)
+    words = []
+    for i in range(n_syl):
+        if i and i % PHRASE_SYLLABLES == 0:
+            words.append("sp")
+        elif i and i % 2 == 0:
+            words.append("#1")
+        words.append(f"{rng.choice(INITIALS)} {rng.choice(FINALS)}"
+                     f"{rng.integers(1, 6)}")
+    return "sil " + " ".join(words) + " sil"
+
+
+def tts_requests(pipe, prompt):
+    """Three texts of 2/5/10 s of speech (tts_text), each with the
+    length_scale that the duration pre-pass puts within 5 % of its target
+    frame count (bisection on a log scale)."""
+    rng = np.random.default_rng(11)
+    reqs = []
+    for f in REQUEST_FRAMES:
+        text = tts_text(rng, f / 50)
+        lo, hi = 0.02, 50.0
+        for _ in range(40):
+            ls = math.sqrt(lo * hi)
+            n = pipe.duration(text, prompt, ls)
+            if abs(n - f) <= 0.05 * f:
+                break
+            lo, hi = (ls, hi) if n < f else (lo, ls)
+        else:
+            fail(f"no length_scale gives {f} frames (last {n} at {ls})")
+        reqs.append((f, text, ls, n))
+    return reqs
+
+
+def event_ms(torch, fn):
+    """(fn(), its ms between CUDA events), the device idle at the start and
+    synchronised at the end."""
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def tts_stages(torch, pipe, prompt, text, ls):
+    """ms of each stage of one tts request, the public stages called one by
+    one as `tts` calls them: duration pre-pass, acoustic (of which the PLM
+    decode, timed alone on the same latent), vocoder (render at 16 kHz) and
+    SpeechSR on its output."""
+    from megatts2_hierspeechpp_torch.models.plm import decode
+
+    ms = {}
+    n, ms["duration_ms"] = event_ms(torch, lambda: pipe.duration(text, prompt, ls))
+    ac, ms["acoustic_ms"] = event_ms(torch, lambda: pipe.acoustic(text, prompt, n, ls))
+    _, ms["decode_ms"] = event_ms(torch, lambda: decode(pipe.plm, ac.x_frame))
+    wav, ms["vocode_ms"] = event_ms(torch, lambda: pipe.render(
+        prompt, ac.w2v, ac.frame_mask, ac.lf0, output_sr=16000))
+    with torch.inference_mode():
+        _, ms["sr_ms"] = event_ms(torch, lambda: pipe.speechsr(wav[None, :, None]))
+    return ms
+
+
+def tts_phase(torch, pipe, prompt):
+    """The whole zero-shot path, three requests near 100/250/500 frames, each
+    shape warmed up first; then each request's stages timed one by one."""
+    from megatts2_hierspeechpp_torch.data.text import process_text
+    from megatts2_hierspeechpp_torch.ops import cuda_lib
+
+    reqs = tts_requests(pipe, prompt)
+    for _, text, ls, _ in reqs:
+        pipe.tts(text, prompt=prompt, length_scale=ls, output_sr=48000)
+    torch.cuda.synchronize()
+    cuda_lib.reset_launches()
+    before = dict(cuda_lib.LAUNCHES)
+    lines = []
+    for f, text, ls, n in reqs:
+        t0 = time.perf_counter()
+        out = pipe.tts(text, prompt=prompt, length_scale=ls, output_sr=48000)
+        ms = 1e3 * (time.perf_counter() - t0)  # ends with a device-to-host copy
+        counts = {k: cuda_lib.LAUNCHES[k] - before[k] for k in before}
+        before = dict(cuda_lib.LAUNCHES)
+        peak = float(np.abs(out).max())
+        line = {"phase": "tts", "target_frames": f, "frames": n,
+                "phones": len(process_text(text)[0]),
+                "syllables_per_s": SYLLABLES_PER_S, "length_scale": ls,
+                "samples": int(out.shape[0]), "ms": ms,
+                "audio_s_per_s": (out.shape[0] / 48000) / (ms / 1e3),
+                "peak": peak, "calls": counts}
+        lines.append(line)
+        problem = (
+            f"{n} frames, outside 10 % of {f}" if abs(n - f) > 0.1 * f else
+            f"{out.shape[0]} samples, expected {960 * n}"
+            if out.shape != (960 * n,) else
+            "non-finite output" if not np.isfinite(out).all() else
+            f"peak {peak}, expected 0.999" if abs(peak - 0.999) > 1e-5 else
+            f"kernel calls {counts}, expected {TTS_CALLS}"
+            if counts != TTS_CALLS else None)
+        if problem:
+            print(json.dumps(line), flush=True)
+            fail(f"tts T={n}: {problem}")
+    launches = dict(cuda_lib.LAUNCHES)
+    for line, (_, text, ls, _) in zip(lines, reqs):
+        line["stages_ms"] = tts_stages(torch, pipe, prompt, text, ls)
+        print(json.dumps(line), flush=True)
+    return launches, reqs
+
+
 GROUPS = (  # (group, substrings of kernel names), first match wins
+    ("plm_decode (ours)", ("plm_decode_kernel",)),
     ("aa_snakebeta (ours)", ("aa_snakebeta_kernel",)),
     ("snake_conv (ours)", ("snake_conv_kernel",)),
     ("triple_epilogue (ours)", ("triple_avg_kernel", "triple_post_kernel")),
+    # cuDNN runs a small-batch LSTM as one cell kernel and one gemv per step
+    ("LSTM cells + gemv", ("RNN", "rnn", "LSTM", "lstm", "gemv")),
     ("cuDNN/cuBLAS conv+gemm", ("conv", "cudnn", "xmma", "gemm", "sgemm",
                                 "cutlass", "implicit")),
     ("fft", ("fft",)),
@@ -252,20 +456,18 @@ GROUPS = (  # (group, substrings of kernel names), first match wins
 )
 
 
-def profile_phase(torch, pipe, prompt, inputs):
-    """Device time of one 500-frame request by kernel group (torch.profiler),
-    the device's idle share of the request's wall time, peak memory, and the
-    12 kernels that take the most device time."""
+def profile_phase(torch, label, frames, request):
+    """Device time of one request by kernel group (torch.profiler), the
+    device's idle share of the request's wall time, peak memory, and the 12
+    kernels that take the most device time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    t = REQUEST_FRAMES[-1]
-    w2v, mask, lf0 = (torch.from_numpy(a) for a in inputs[t])
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        pipe.synthesize(prompt, w2v, mask, lf0, output_sr=48000)
+        request()
         wall_ms = 1e3 * (time.perf_counter() - t0)
     per_name = {}
     for ev in prof.events():
@@ -279,7 +481,8 @@ def profile_phase(torch, pipe, prompt, inputs):
         groups[g] = groups.get(g, 0.0) + ms
     device_ms = sum(groups.values())
     top = sorted(per_name.items(), key=lambda kv: -kv[1][0])[:12]
-    line = {"phase": "profile", "frames": t, "wall_ms": wall_ms,
+    line = {"phase": "profile", "path": label, "frames": frames,
+            "wall_ms": wall_ms,
             "device_kernel_ms": device_ms if device_ms else "not measured",
             "device_idle_share": (1 - device_ms / wall_ms) if device_ms
             else "not measured",
@@ -290,19 +493,45 @@ def profile_phase(torch, pipe, prompt, inputs):
     print(json.dumps(line), flush=True)
 
 
-def cpu_phase(torch, pipe, prompt, audio, inputs):
+def cpu_phase(torch, pipe, cpu_pipe, prompt, cpu_prompt, inputs):
     t = REQUEST_FRAMES[0]
     w2v, mask, lf0 = (torch.from_numpy(a) for a in inputs[t])
     card = pipe.render(prompt, w2v, mask, lf0, output_sr=48000).cpu().numpy()
-    cpu_pipe = build_pipeline(torch, "cpu")
-    cpu = cpu_pipe.render(cpu_pipe.prepare_prompt(audio), w2v, mask, lf0,
-                          output_sr=48000).numpy()
+    cpu = cpu_pipe.render(cpu_prompt, w2v, mask, lf0, output_sr=48000).numpy()
     diff = float(np.abs(card - cpu).max())
-    line = {"phase": "card_vs_cpu", "frames": t, "max_abs_diff": diff,
+    line = {"phase": "card_vs_cpu", "path": "synthesize", "frames": t,
+            "max_abs_diff": diff,
             "max_abs_cpu": float(np.abs(cpu).max()), "tolerance": CPU_TOL}
     print(json.dumps(line), flush=True)
     if not diff <= CPU_TOL:
         fail(f"card vs CPU waveform differs by {diff} > {CPU_TOL}")
+
+
+def cpu_tts_phase(torch, pipe, cpu_pipe, prompt, cpu_prompt, reqs):
+    """The 100-frame tts request on the CPU with the card's prosody codes
+    (a near-tie flip in the decode cannot fail it): the same frame count and
+    the same waveform before normalisation. Also the share of the CPU plain
+    decode's codes that equal the card kernel's."""
+    from megatts2_hierspeechpp_torch.models.plm import decode
+
+    _, text, ls, _ = reqs[0]
+    _, ac, raw = pipe.tts(text, prompt=prompt, length_scale=ls,
+                          output_sr=48000, return_intermediates=True)
+    codes = ac.codes.cpu().numpy()
+    _, cac, craw = cpu_pipe.tts(text, prompt=cpu_prompt, length_scale=ls,
+                                output_sr=48000, codes=codes,
+                                return_intermediates=True)
+    agree = float((decode(cpu_pipe.plm, cac.x_frame).numpy() == codes).mean())
+    if cac.frames != ac.frames:
+        fail(f"tts card vs CPU: {ac.frames} vs {cac.frames} frames")
+    card, cpu = raw.cpu().numpy(), craw.numpy()
+    diff = float(np.abs(card - cpu).max())
+    line = {"phase": "card_vs_cpu", "path": "tts", "frames": ac.frames,
+            "max_abs_diff": diff, "max_abs_cpu": float(np.abs(cpu).max()),
+            "tolerance": CPU_TOL, "cpu_plain_decode_agreement": agree}
+    print(json.dumps(line), flush=True)
+    if not diff <= CPU_TOL:
+        fail(f"tts card vs CPU waveform differs by {diff} > {CPU_TOL}")
 
 
 def main() -> int:
@@ -328,10 +557,23 @@ def main() -> int:
                       "library": so.name}), flush=True)
 
     kernels = kernel_phase(torch, dev)
-    launches, pipe, prompt, audio, inputs = path_phase(torch, dev)
-    profile_phase(torch, pipe, prompt, inputs)
+    kernels["plm_decode"] = plm_phase(torch, dev)
+    _, pipe, prompt, audio, inputs = path_phase(torch, dev)
+    launches, reqs = tts_phase(torch, pipe, prompt)
+    if min(launches.values()) < 1:
+        fail(f"a kernel was not launched on the tts path: {launches}")
+    t = REQUEST_FRAMES[-1]
+    w2v, mask, lf0 = (torch.from_numpy(a) for a in inputs[t])
+    profile_phase(torch, "synthesize", t, lambda: pipe.synthesize(
+        prompt, w2v, mask, lf0, output_sr=48000))
+    f, text, ls, n = reqs[-1]
+    profile_phase(torch, "tts", n, lambda: pipe.tts(
+        text, prompt=prompt, length_scale=ls, output_sr=48000))
     with torch.inference_mode():
-        cpu_phase(torch, pipe, prompt, audio, inputs)
+        cpu_pipe = build_pipeline(torch, "cpu")
+        cpu_prompt = cpu_pipe.prepare_prompt(audio)
+        cpu_phase(torch, pipe, cpu_pipe, prompt, cpu_prompt, inputs)
+    cpu_tts_phase(torch, pipe, cpu_pipe, prompt, cpu_prompt, reqs)
 
     out = []
     for name, lines in kernels.items():

@@ -1,11 +1,12 @@
 """Weight carry-over: JAX param trees -> the port's state_dicts.
 
-`vocoder_from_jax(params)` and `speechsr_from_jax(params)` take the flax
-param trees of the JAX HierVocoder / SpeechSR (nested dicts of arrays) and
-return `state_dict`s for the port's modules, whose names are the reference
-checkpoint's. Depths (WN layers, flows, DiT blocks, upsample stages,
-resblocks) are read from the tree, so reduced test configurations convert
-too.
+`vocoder_from_jax(params)`, `speechsr_from_jax(params)`,
+`ttv_from_jax({"params", "vq"})` and `plm_from_jax(params)` take the flax
+variables of the JAX HierVocoder / SpeechSR / TTVModel / ProsodyLM (nested
+dicts of arrays) and return `state_dict`s for the port's modules, whose
+names are the reference checkpoint's. Depths (WN layers, flows, DiT blocks,
+upsample stages, resblocks, encoder and LSTM layers, PLM layers) are read
+from the tree, so reduced test configurations convert too.
 
 Layouts (inverse of megatts2_hierspeechpp_tpu/utils/torch_compat.py):
   Conv1d kernel (K, Cin, Cout)             -> weight (Cout, Cin, K)
@@ -14,6 +15,9 @@ Layouts (inverse of megatts2_hierspeechpp_tpu/utils/torch_compat.py):
                                            -> weight_v (Cin, Cout, K), weight_g (Cin, 1, 1)
   Dense kernel (In, Out)                   -> Linear weight (Out, In), or a
                                               1x1 Conv1d weight (Out, In, 1)
+  LayerNorm scale, bias                    -> gamma, beta (VITS) or weight, bias
+  LSTM w_ih (In, 4H), w_hh (H, 4H), b      -> weight_ih (4H, In), weight_hh (4H, H),
+                                              bias_ih = b, bias_hh = 0
 """
 from __future__ import annotations
 
@@ -173,4 +177,120 @@ def speechsr_from_jax(params: dict) -> dict:
         ampblock(out, f"resblocks.{j}", params[f"resblocks_{j}"])
     snake(out, "activation_post", params["activation_post"])
     conv1d(out, "conv_post", params["conv_post"])
+    return out
+
+
+# ---------- acoustic stage: TTV and the prosody LM ----------
+
+
+def embedding(out, p, tree):
+    out[_k(p, "weight")] = _t(tree["embedding"])
+
+
+def layer_norm(out, p, tree, names=("gamma", "beta")):
+    out[_k(p, names[0])] = _t(tree["scale"])
+    out[_k(p, names[1])] = _t(tree["bias"])
+
+
+def mha(out, p, tree):
+    for name in ("conv_q", "conv_k", "conv_v", "conv_o"):
+        conv1x1(out, _k(p, name), tree[name])
+    for name in ("emb_rel_k", "emb_rel_v"):
+        if name in tree:
+            out[_k(p, name)] = _t(tree[name])
+
+
+def vits_encoder(out, p, tree):
+    for i in range(_count(tree, "attn")):
+        mha(out, _k(p, f"attn_layers.{i}"), tree[f"attn_{i}"])
+        layer_norm(out, _k(p, f"norm_layers_1.{i}"), tree[f"norm1_{i}"])
+        conv1d(out, _k(p, f"ffn_layers.{i}.conv_1"), tree[f"ffn_{i}"]["conv_1"])
+        conv1d(out, _k(p, f"ffn_layers.{i}.conv_2"), tree[f"ffn_{i}"]["conv_2"])
+        layer_norm(out, _k(p, f"norm_layers_2.{i}"), tree[f"norm2_{i}"])
+
+
+def bilstm(out, p, tree, layer: int = 0):
+    """JAX BiLSTM (w_ih (In, 4H), w_hh (H, 4H), one bias b) -> torch LSTM
+    layer `layer`: bias_ih = b, bias_hh = 0."""
+    for d, suffix in (("fwd", ""), ("bwd", "_reverse")):
+        out[_k(p, f"weight_ih_l{layer}{suffix}")] = _t(np.transpose(tree[f"w_ih_{d}"]))
+        out[_k(p, f"weight_hh_l{layer}{suffix}")] = _t(np.transpose(tree[f"w_hh_{d}"]))
+        b = _t(tree[f"b_{d}"])
+        out[_k(p, f"bias_ih_l{layer}{suffix}")] = b
+        out[_k(p, f"bias_hh_l{layer}{suffix}")] = torch.zeros_like(b)
+
+
+def resblock1(out, p, tree):
+    for i in range(_count(tree, "convs1")):
+        wn_conv1d(out, _k(p, f"convs1.{i}"), tree[f"convs1_{i}"])
+        wn_conv1d(out, _k(p, f"convs2.{i}"), tree[f"convs2_{i}"])
+
+
+def ttv_from_jax(ttv_vars: dict) -> dict:
+    """JAX TTVModel variables {"params", "vq"} -> port state_dict."""
+    params, out = ttv_vars["params"], {}
+    enc_p = params["enc_p"]
+    for name in ("emb", "emb_tone", "emb_language"):
+        embedding(out, f"enc_p.{name}", enc_p[name])
+    vits_encoder(out, "enc_p.encoder", enc_p["encoder"])
+    vits_encoder(out, "enc_p.encoder2", enc_p["encoder2"])
+    vits_encoder(out, "mel_encoder.encoder", params["mel_encoder"]["encoder"])
+    conv1x1(out, "mel_encoder.proj", params["mel_encoder"]["proj"])
+    mha(out, "mha", params["mha"])
+    conv1x1(out, "cond_g", params["cond_g"])
+    w2v_enc = params["w2v_encoder"]
+    conv1x1(out, "w2v_encoder.cond", w2v_enc["cond"])
+    vits_encoder(out, "w2v_encoder.encoder", w2v_enc["encoder"])
+    vits_encoder(out, "w2v_encoder.encoder2", w2v_enc["encoder2"])
+    w2v_dec = params["w2v_decoder"]
+    conv1x1(out, "w2v_decoder.pre", w2v_dec["pre"])
+    wn(out, "w2v_decoder.enc", w2v_dec["enc"])
+    conv1x1(out, "w2v_decoder.proj", w2v_dec["proj"])
+    style_encoder(out, "emb_g", params["emb_g"])
+    dp = params["duration_predictor"]
+    conv1x1(out, "duration_predictor.cond", dp["cond"])
+    for i in range(_count(dp["lstms"], "layer")):
+        bilstm(out, "duration_predictor.lstms", dp["lstms"][f"layer_{i}"], i)
+    layer_norm(out, "duration_predictor.norm_2", dp["norm_2"])
+    conv1x1(out, "duration_predictor.proj", dp["proj"])
+    rp = params["range_predictor"]
+    bilstm(out, "RangePredictor.lstm", rp["lstm"])
+    linear(out, "RangePredictor.proj.linear_layer", rp["proj"])
+    conv1d(out, "dur_downsample", params["dur_downsample"])
+    pp = params["pp"]
+    conv1d(out, "pp.conv_pre", pp["conv_pre"])
+    conv1x1(out, "pp.cond", pp["cond"])
+    for i in range(_count(pp, "ups")):
+        wn_conv_transpose1d(out, f"pp.ups.{i}", pp[f"ups_{i}"])
+    for r in range(_count(pp, "resblocks")):
+        resblock1(out, f"pp.resblocks.{r}", pp[f"resblocks_{r}"])
+    conv1d(out, "pp.conv_post", pp["conv_post"])
+    for name in ("plm_conv1", "plm_conv2"):
+        conv1d(out, f"{name}.conv1", params[name]["conv1"])
+        conv1d(out, f"{name}.conv2", params[name]["conv2"])
+    conv1x1(out, "ssl_proj", params["ssl_proj"])
+    vq = ttv_vars["vq"]["quantizer"]
+    for i in range(_count(vq, "vq")):
+        cb, p = vq[f"vq_{i}"]["codebook"], f"quantizer.vq.layers.{i}._codebook"
+        out[f"{p}.inited"] = _t(np.reshape(cb["inited"], (1,)))
+        for name in ("cluster_size", "embed", "embed_avg"):
+            out[f"{p}.{name}"] = _t(cb[name])
+    return out
+
+
+def plm_from_jax(params: dict) -> dict:
+    """JAX ProsodyLM params -> port state_dict."""
+    out = {}
+    embedding(out, "pc_embedding", params["pc_embedding"])
+    out["pos_emb.alpha"] = _t(params["pos_alpha"])
+    for i in range(_count(params, "layer")):
+        tree, p = params[f"layer_{i}"], f"plm.layers.{i}"
+        layer_norm(out, f"{p}.norm1", tree["norm1"], ("weight", "bias"))
+        layer_norm(out, f"{p}.norm2", tree["norm2"], ("weight", "bias"))
+        for name in ("w_q", "w_k", "w_v"):
+            linear(out, f"{p}.attn.{name}", tree[name])
+        linear(out, f"{p}.attn.out_proj.0", tree["out_proj"])
+        linear(out, f"{p}.ff.0", tree["ff_0"])
+        linear(out, f"{p}.ff.3", tree["ff_1"])
+    linear(out, "predict_layer", params["predict_layer"])
     return out

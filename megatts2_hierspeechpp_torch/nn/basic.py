@@ -13,6 +13,8 @@ LRELU_SLOPE = 0.1
 # torch.nn.Linear: weight (Out, In), the reference checkpoint's layout. The
 # JAX Dense stores the transpose.
 Dense = nn.Linear
+# torch.nn.Embedding: weight (N, C), the JAX Embed's table.
+Embed = nn.Embedding
 
 
 class LayerNorm(nn.Module):
@@ -25,6 +27,22 @@ class LayerNorm(nn.Module):
 
     def forward(self, x):
         return F.layer_norm(x, (self.channels,), eps=self.eps)
+
+
+class AffineLayerNorm(nn.Module):
+    """LayerNorm over the channel (last) axis with a scale and a bias, named
+    gamma / beta as in the reference's VITS modules.LayerNorm (the JAX
+    LayerNorm's scale / bias)."""
+
+    def __init__(self, channels: int, eps: float = 1e-5):
+        super().__init__()
+        self.channels, self.eps = channels, eps
+        self.gamma = nn.Parameter(torch.ones(channels))
+        self.beta = nn.Parameter(torch.zeros(channels))
+
+    def forward(self, x):
+        return F.layer_norm(x, (self.channels,), self.gamma, self.beta,
+                            self.eps)
 
 
 def leaky_relu(x, slope: float = LRELU_SLOPE):

@@ -18,14 +18,18 @@ import torch.nn.functional as F
 from torch import nn
 
 
-def conv1d_op(x, weight, bias=None, stride: int = 1, padding: int = 0,
-              dilation: int = 1, groups: int = 1):
+def conv1d_op(x, weight, bias=None, stride: int = 1,
+              padding: int | tuple[int, int] = 0, dilation: int = 1,
+              groups: int = 1):
     """x: (B, T, Cin); weight: (Cout, Cin/groups, K) -> (B, T', Cout).
-    A pointwise conv runs as a matmul on the channels-last tensor."""
+    `padding` is symmetric, or (left, right) zeros. A pointwise conv runs as
+    a matmul on the channels-last tensor."""
     if weight.shape[-1] == 1 and stride == 1 and groups == 1 and padding == 0:
         return F.linear(x, weight[:, :, 0], bias)
-    y = F.conv1d(x.transpose(1, 2), weight, bias, stride, padding, dilation,
-                 groups)
+    xc = x.transpose(1, 2)
+    if isinstance(padding, tuple):
+        xc, padding = F.pad(xc, padding), 0
+    y = F.conv1d(xc, weight, bias, stride, padding, dilation, groups)
     return y.transpose(1, 2)
 
 
@@ -50,7 +54,8 @@ def get_padding(kernel_size: int, dilation: int = 1) -> int:
 
 class Conv1d(nn.Module):
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
-                 stride: int = 1, padding: int = 0, dilation: int = 1,
+                 stride: int = 1, padding: int | tuple[int, int] = 0,
+                 dilation: int = 1,
                  groups: int = 1, bias: bool = True):
         super().__init__()
         self.stride, self.padding = stride, padding

@@ -13,7 +13,14 @@ saturates):
   weight-norm weight_g = ||weight_v||, so the effective weight is weight_v
   bias 0; snake alpha / beta 0 (log scale: alpha = beta = 1)
 
-fan_in is Cin*K for a conv and Cin*K/stride for a transposed conv.
+fan_in is Cin*K for a conv and Cin*K/stride for a transposed conv. The
+acoustic stage's other parameters:
+
+  embedding tables and relative-position tables  N(0, 1 / dim)
+  LSTM weights and bias_ih  U(-1/sqrt(H), 1/sqrt(H)) (torch's default
+          range); bias_hh 0 (the port's one-bias convention)
+  RVQ codebook  N(0, 1)
+  LayerNorm scale 1, bias 0 (their constructors')
 """
 from __future__ import annotations
 
@@ -21,11 +28,13 @@ import torch
 from torch import nn
 
 from megatts2_hierspeechpp_torch.nn.activations import SnakeBeta
+from megatts2_hierspeechpp_torch.nn.attention import MultiHeadAttention
 from megatts2_hierspeechpp_torch.nn.conv import (
     Conv1d,
     WNConv1d,
     WNConvTranspose1d,
 )
+from megatts2_hierspeechpp_torch.nn.quantize import EuclideanCodebook
 
 
 @torch.no_grad()
@@ -50,6 +59,25 @@ def init_weights(module: nn.Module, seed: int) -> None:
         elif isinstance(m, SnakeBeta):
             m.alpha.zero_()
             m.beta.zero_()
+            continue
+        elif isinstance(m, nn.Embedding):
+            normal_(m.weight, m.embedding_dim ** -0.5)
+            continue
+        elif isinstance(m, MultiHeadAttention) and m.window_size is not None:
+            normal_(m.emb_rel_k, m.emb_rel_k.shape[-1] ** -0.5)
+            normal_(m.emb_rel_v, m.emb_rel_v.shape[-1] ** -0.5)
+            continue
+        elif isinstance(m, nn.LSTM):
+            r = m.hidden_size ** -0.5
+            for name, p in m.named_parameters():
+                if name.startswith("bias_hh"):
+                    p.zero_()
+                else:
+                    p.copy_((torch.rand(p.shape, generator=gen) * 2 - 1) * r)
+            continue
+        elif isinstance(m, EuclideanCodebook):
+            normal_(m.embed, 1.0)
+            m.embed_avg.copy_(m.embed)
             continue
         else:
             continue

@@ -1,7 +1,7 @@
-"""BigVGAN AMP residual blocks.
+"""HiFiGAN leaky-ReLU blocks and BigVGAN AMP residual blocks.
 
-Counterpart of `megatts2_hierspeechpp_tpu/nn/resblocks.py` (AMPBlock and
-the stage dispatch). The port keeps the JAX package's TPU dispatch: a block
+Counterpart of `megatts2_hierspeechpp_tpu/nn/resblocks.py` (ResBlock1,
+AMPBlock and the stage dispatch). The port keeps the JAX package's TPU dispatch: a block
 with C <= 128 runs as one `fused_ampblock` call, a wider one layer by layer
 with each activation a `fused_aa_snakebeta` call, and a stage with C <= 64
 runs as one `fused_amp_triple` call (`fused_triple_enabled`). Each wrapper
@@ -16,6 +16,7 @@ import torch
 from torch import nn
 
 from megatts2_hierspeechpp_torch.nn.activations import AASnakeBeta
+from megatts2_hierspeechpp_torch.nn.basic import leaky_relu
 from megatts2_hierspeechpp_torch.nn.conv import WNConv1d, get_padding
 from megatts2_hierspeechpp_torch.ops.ampblock import fused_ampblock
 
@@ -23,6 +24,28 @@ from megatts2_hierspeechpp_torch.ops.ampblock import fused_ampblock
 def fused_triple_enabled(channels: int) -> bool:
     """Whole-stage fusion gate: the narrow stages (C <= 64)."""
     return channels <= 64
+
+
+class ResBlock1(nn.Module):
+    """HiFiGAN ResBlock1: per dilation, leaky-ReLU -> dilated WN conv ->
+    leaky-ReLU -> WN conv, plus the residual."""
+
+    def __init__(self, channels: int, kernel_size: int = 3,
+                 dilation: Sequence[int] = (1, 3, 5)):
+        super().__init__()
+        self.convs1 = nn.ModuleList(
+            WNConv1d(channels, channels, kernel_size,
+                     padding=get_padding(kernel_size, d), dilation=d)
+            for d in dilation)
+        self.convs2 = nn.ModuleList(
+            WNConv1d(channels, channels, kernel_size,
+                     padding=get_padding(kernel_size, 1))
+            for _ in dilation)
+
+    def forward(self, x):
+        for c1, c2 in zip(self.convs1, self.convs2):
+            x = c2(leaky_relu(c1(leaky_relu(x)))) + x
+        return x
 
 
 class AMPBlock(nn.Module):

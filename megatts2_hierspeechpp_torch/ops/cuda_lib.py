@@ -30,7 +30,8 @@ ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = ARCH_FLAGS + ["-O3", "-std=c++17", "-Xcompiler", "-fPIC",
                            "-Xptxas", "-v"]
 
-LAUNCHES = {"aa_snakebeta": 0, "ampblock": 0, "amp_triple": 0}
+LAUNCHES = {"aa_snakebeta": 0, "ampblock": 0, "amp_triple": 0,
+            "plm_decode": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -43,6 +44,9 @@ _SIGNATURES = {
     "triple_avg_fwd": [_P, _P, _P, _P, _I, _P],
     # r0, r1, r2, alpha, inv_beta, w7, y, B, T, C, stream
     "triple_post_fwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    # tc, pe, emb, wqkv, bqkv, wo, bo, ln, ff0, ff0b, ff1, ff1b, pred, cache,
+    # scratch, iscratch, codes, T, L, D, TC, H, F, BINS, go_id, stream
+    "plm_decode_fwd": [_P] * 17 + [_I] * 8 + [_P],
 }
 
 _lib = None

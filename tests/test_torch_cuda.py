@@ -5,12 +5,16 @@ installed:
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
 Tolerance: atol 1e-5, rtol 1e-4 for the snake; 1e-4 for the conv kernels
-(accumulation order over k*C terms)."""
+(accumulation order over k*C terms). The PLM decode kernel's codes must pass
+the teacher-forced check (each code within 1e-4 x max|logits| of its row's
+max logit), since one near-tie flip changes every later step."""
 import numpy as np
 import pytest
 import torch
 
+from megatts2_hierspeechpp_torch.models import plm
 from megatts2_hierspeechpp_torch.ops import amp_triple, ampblock, cuda_lib, snake
+from megatts2_hierspeechpp_torch.ops.plm_decode import plain_decode, plm_decode_greedy
 
 DIL = (1, 3, 5)
 
@@ -64,7 +68,31 @@ def test_kernels_match_plain(dev, t):
                 atol=1e-4, rtol=1e-4)
     torch.cuda.synchronize()
     assert cuda_lib.LAUNCHES == {"aa_snakebeta": 1, "ampblock": 1,
-                                 "amp_triple": 2}
+                                 "amp_triple": 2, "plm_decode": 0}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t", [1, 37, 300])
+def test_plm_decode_kernel_matches_plain(dev, t):
+    """The persistent decode kernel at full width (d = 276, 4 layers, 1024
+    bins): one launch, codes that pass the teacher-forced check, mostly the
+    plain greedy decode's codes."""
+    model = plm.ProsodyLM(seed=3, device="cuda")
+    rng = np.random.default_rng(t)
+    tc = _rand(rng, dev, 1, t, 256)
+    w = model.packed()
+    cuda_lib.reset_launches()
+    with torch.inference_mode():
+        got = plm_decode_greedy(w, tc, model.go_id)
+        torch.cuda.synchronize()
+        assert cuda_lib.LAUNCHES["plm_decode"] == 1
+        want = plain_decode(w, tc, model.go_id)
+        assert torch.equal(plm.decode(model, tc), got)
+    assert cuda_lib.LAUNCHES["plm_decode"] == 2
+    assert got.shape == (1, t) and got.dtype == torch.int32
+    gap, scale = plm.teacher_forced_gap(model, tc, got)
+    assert gap <= 1e-4 * scale
+    assert (got == want).float().mean() >= 0.5
 
 
 @pytest.mark.cuda

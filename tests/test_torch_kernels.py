@@ -19,7 +19,8 @@ from jax.experimental import pallas as pl
 import megatts2_hierspeechpp_tpu.ops.pallas_amp_triple as pat
 import megatts2_hierspeechpp_tpu.ops.pallas_ampblock as pab
 import megatts2_hierspeechpp_tpu.ops.pallas_snake as psn
-from megatts2_hierspeechpp_torch.ops import amp_triple, ampblock, cuda_lib, snake
+from megatts2_hierspeechpp_torch.models import plm
+from megatts2_hierspeechpp_torch.ops import amp_triple, ampblock, cuda_lib, plm_decode, snake
 
 ATOL, RTOL = 1e-5, 1e-4
 KS = (3, 7, 11)
@@ -130,8 +131,10 @@ def test_launch_counts_stay_zero_on_cpu():
     ws = tuple(map(_t, _block_ws(rng, 3, 16)))
     ampblock.fused_ampblock(_t(x), *ws, 3, DIL)
     amp_triple.fused_amp_triple(_t(x), [ws] * 3, (3, 3, 3), (DIL,) * 3)
+    lm = plm.ProsodyLM(n_layers=1, tc_latent_dim=12, device="cpu")
+    plm_decode.plm_decode_greedy(lm.packed(), torch.zeros(1, 5, 12), lm.go_id)
     assert cuda_lib.LAUNCHES == {"aa_snakebeta": 0, "ampblock": 0,
-                                 "amp_triple": 0}
+                                 "amp_triple": 0, "plm_decode": 0}
 
 
 def test_taps_header_matches_polyphase_taps():
