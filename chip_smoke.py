@@ -9,9 +9,13 @@ Phases, in order; any failure exits non-zero:
   1. the card's name and power limit (nvidia-smi);
   2. build the CUDA kernels from csrc/ (nvcc, sm_90a) and report seconds;
   3. each kernel against its plain PyTorch version on the card, at the
-     shapes the serving path gives it, with CUDA-event timings of both; the
-     PLM decode kernel at full width (d 276, 4 layers, 1024 bins) at T = 500,
-     1 and 37, its codes held by the teacher-forced check;
+     shapes the serving path gives it, with CUDA-event timings of both and
+     two bounds (3xTF32 tensor cores, and float32 CUDA cores only); then
+     one snake_conv launch at every distinct (C, T, k, d) of a 500-frame
+     request, beside a cuDNN conv1d of the same conv (the conv alone), and
+     their sum per request; the PLM decode kernel at full width (d 276, 4
+     layers, 1024 bins) at T = 500, 1 and 37, its codes held by the
+     teacher-forced check;
   4. the decode half (`synthesize`) at the published HierSpeech++ widths
      with seeded random weights: one 3 s prompt, three requests of
      100/250/500 frames (2/5/10 s) through vocoder + SpeechSR-48k, checking
@@ -60,6 +64,8 @@ PHRASE_SYLLABLES = 8
 CPU_TOL = 1e-3          # card vs CPU, 48 kHz waveform before normalisation
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
 F32_FLOPS_PER_S = 67e12     # H100 SXM data sheet, non-tensor float32
+TF32_FLOPS_PER_S = 495e12   # H100 SXM data sheet, dense TF32 tensor cores
+TF32_PASSES = 3             # snake_conv's split-TF32 products per product
 SNAKE_FLOPS = 58            # per element: 2 x 6-tap up, 2 snakes, 12-tap down
 SOURCES = {
     "aa_snakebeta": ("megatts2_hierspeechpp_torch/csrc/aa_snake.cu",
@@ -93,16 +99,27 @@ def time_ms(torch, fn, reps: int) -> float:
     return float(np.median(times))
 
 
-def bound_ms(n_bytes: float, flops: float):
+def bound_ms(n_bytes: float, flops: float, conv_flops: float = 0.0):
+    """(ms, what bounds it): the larger of bytes over the memory rate and
+    the operations, float32 flops on the CUDA cores plus conv products as
+    TF32_PASSES tensor-core products each (snake_conv's split TF32)."""
     t_bytes = n_bytes / HBM_BYTES_PER_S
-    t_ops = flops / F32_FLOPS_PER_S
+    t_ops = flops / F32_FLOPS_PER_S + TF32_PASSES * conv_flops / TF32_FLOPS_PER_S
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else
                                       "operations")
 
 
-def block_flops(t: int, c: int, k: int) -> float:
-    """One AMPBlock (3 branches) on (1, t, c): 6 convs + 6 snakes + adds."""
-    return 3 * (2 * 2.0 * t * c * c * k + 2 * SNAKE_FLOPS * t * c + t * c)
+def bound_ms_f32(n_bytes: float, flops: float, conv_flops: float = 0.0):
+    """The same work with every flop on the float32 CUDA cores."""
+    return 1e3 * max(n_bytes / HBM_BYTES_PER_S,
+                     (flops + conv_flops) / F32_FLOPS_PER_S)
+
+
+def block_flops(t: int, c: int, k: int):
+    """(other flops, conv flops) of one AMPBlock (3 branches) on (1, t, c):
+    6 snakes + bias and residual adds, and 6 convs."""
+    return (3 * (2 * SNAKE_FLOPS * t * c + t * c),
+            3 * 2 * 2.0 * t * c * c * k)
 
 
 def kernel_phase(torch, dev):
@@ -128,22 +145,23 @@ def kernel_phase(torch, dev):
 
     T = T_FRAMES
     dil = (1, 3, 5)
-    cases = []  # (kernel, label, fused fn, plain fn, tol, bytes, flops)
+    cases = []  # (kernel, label, fused fn, plain fn, tol, bytes, flops, conv flops)
     for c in (256, 64):
         x, a, b = randn(1, 4 * T, c), pos(c), pos(c)
         n = 4 * T * c
         cases.append(("aa_snakebeta", f"C={c} T={4 * T}",
                       lambda x=x, a=a, b=b: fused_aa_snakebeta(x, a, b),
                       lambda x=x, a=a, b=b: composed_snakebeta(x, a, b),
-                      1e-5, 4.0 * (2 * n + 2 * c), SNAKE_FLOPS * n))
-    for k in (3, 7, 11):
-        c, t = 128, 20 * T
+                      1e-5, 4.0 * (2 * n + 2 * c), SNAKE_FLOPS * n, 0.0))
+    # Generator stage 1 (C=128, 20T) and SourceNetwork stage 0 (C=128, 2T)
+    for c, t, k in [(128, 20 * T, k) for k in (3, 7, 11)] + [
+            (128, 2 * T, k) for k in (3, 5, 7)]:
         x, ws = randn(1, t, c), block_ws(c, k)
         cases.append(("ampblock", f"C={c} T={t} k={k}",
                       lambda x=x, ws=ws, k=k: fused_ampblock(x, *ws, k, dil),
                       lambda x=x, ws=ws, k=k: composed_ampblock(x, *ws, k, dil),
                       1e-4, 4.0 * (2 * t * c + 6 * k * c * c + 10 * c),
-                      block_flops(t, c, k)))
+                      *block_flops(t, c, k)))
     for c, t, ks, tail in ((64, 4 * T, (3, 5, 7), False),
                            (64, 80 * T, (3, 7, 11), False),
                            (32, 160 * T, (3, 7, 11), False),
@@ -153,7 +171,8 @@ def kernel_phase(torch, dev):
         bws = [block_ws(c, k) for k in ks]
         dils = (dil,) * 3
         post = (pos(c), pos(c), randn(7, c, scale=0.1 * (7 * c) ** -0.5)) if tail else None
-        flops = sum(block_flops(t, c, k) for k in ks) + 3.0 * t * c
+        flops = sum(block_flops(t, c, k)[0] for k in ks) + 3.0 * t * c
+        conv_flops = sum(block_flops(t, c, k)[1] for k in ks)
         if tail:
             flops += (SNAKE_FLOPS + 14) * t * c + t
         n_bytes = 4.0 * (t * c + (t if tail else t * c)
@@ -164,10 +183,10 @@ def kernel_phase(torch, dev):
                           fused_amp_triple(x, bws, ks, dils, post),
                       lambda x=x, bws=bws, ks=ks, dils=dils, post=post:
                           composed_triple(x, bws, ks, dils, post),
-                      1e-4, n_bytes, flops))
+                      1e-4, n_bytes, flops, conv_flops))
 
     results = {}
-    for name, label, fused, plain, tol, n_bytes, flops in cases:
+    for name, label, fused, plain, tol, n_bytes, flops, conv_flops in cases:
         with torch.inference_mode():
             y = fused()
             ref = plain()
@@ -177,16 +196,129 @@ def kernel_phase(torch, dev):
             ok = bool(math.isfinite(err) and err <= tol * scale)
             ms = time_ms(torch, fused, 10)
             plain_ms = time_ms(torch, plain, 5)
-        b_ms, b_by = bound_ms(n_bytes, flops)
+        b_ms, b_by = bound_ms(n_bytes, flops, conv_flops)
         line = {"phase": "kernel", "name": name, "shape": label,
                 "max_abs_err": err, "max_abs_ref": scale,
                 "tolerance": f"{tol:g} x max|ref|", "ok": ok, "ms": ms,
-                "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by}
+                "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+                "bound_ms_f32": bound_ms_f32(n_bytes, flops, conv_flops)}
         print(json.dumps(line), flush=True)
         if not ok:
             fail(f"{name} {label}: max abs err {err} > {tol} x {scale}")
         results.setdefault(name, []).append(line)
     return results
+
+
+# Every AMPBlock stage of a request of T_FRAMES frames: (stage, C, T / frames,
+# kernel sizes). Each block is 6 snake_conv launches: d = 1, 3, 5, each
+# followed by a d = 1 launch with the residual.
+SNAKE_CONV_STAGES = (
+    ("Generator stage 1", 128, 20, (3, 7, 11)),
+    ("Generator stage 2", 64, 80, (3, 7, 11)),
+    ("Generator stage 3", 32, 160, (3, 7, 11)),
+    ("Generator stage 4", 16, 320, (3, 7, 11)),
+    ("SourceNetwork stage 0", 128, 2, (3, 5, 7)),
+    ("SourceNetwork stage 1", 64, 4, (3, 5, 7)),
+    ("SpeechSR", 32, 960, (3, 7, 11)),
+)
+
+
+def snake_conv_phase(torch, dev):
+    """One snake_conv launch at every distinct (C, T, k, d) of the request
+    against its plain version, activation1d + conv1d_op (+ res), held to
+    1e-4 x max|ref|; d = 1 with the residual, as the second conv of a branch
+    runs. Beside it, one cuDNN conv1d of the same conv (TF32 off), which
+    leaves out the snake: a yardstick for the conv alone, never called by
+    the port. Per stage also the same launch with a one-tap conv (k = 1, a
+    shape the path does not run): the snake, the staging and one tap, so
+    the taps' share of each row is what remains. Last, the launches' sum
+    per request."""
+    import torch.nn.functional as F
+
+    from megatts2_hierspeechpp_torch.nn.conv import conv1d_op
+    from megatts2_hierspeechpp_torch.ops.ampblock import (
+        snake_conv, snake_conv_tile)
+    from megatts2_hierspeechpp_torch.ops.resample import activation1d
+
+    gen = torch.Generator().manual_seed(1)
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(shape, generator=gen) * scale).to(dev)
+
+    tol = 1e-4
+    total = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "bound_ms_f32": 0.0,
+             "conv_only_library_ms": 0.0, "launches": 0}
+    for stage, c, f, ks in SNAKE_CONV_STAGES:
+        t = f * T_FRAMES
+        x = randn(1, t, c)
+        res = randn(1, t, c)
+        a, ib = torch.exp(randn(c, scale=0.2)), torch.exp(randn(c, scale=0.2))
+        w1, b1 = randn(1, c, c, scale=c ** -0.5), randn(c, scale=0.05)
+        with torch.inference_mode():
+            k1_ms = time_ms(torch, lambda: snake_conv(x, a, ib, w1, b1, 1), 10)
+            s_ct = activation1d(  # the conv-only yardstick's input
+                x, lambda v: v + torch.sin(v * a).square() * ib
+            ).transpose(1, 2).contiguous()
+        print(json.dumps({"phase": "snake_conv_k1", "stage": stage,
+                          "shape": f"C={c} T={t} k=1 d=1", "ms": k1_ms}),
+              flush=True)
+        for k in ks:
+            w = randn(k, c, c, scale=(c * k) ** -0.5)
+            bias = randn(c, scale=0.05)
+            wt = w.permute(1, 2, 0).contiguous()
+            for d in (1, 3, 5):
+                r = res if d == 1 else None
+                pad = (k - 1) // 2 * d
+
+                def fused(d=d, r=r, w=w, bias=bias):
+                    return snake_conv(x, a, ib, w, bias, d, res=r)
+
+                def plain(d=d, r=r, wt=wt, bias=bias, pad=pad):
+                    y = activation1d(x, lambda v: v + torch.sin(v * a).square() * ib)
+                    y = conv1d_op(y, wt, bias, 1, pad, d)
+                    return y if r is None else y + r
+
+                with torch.inference_mode():
+                    y = fused()
+                    ref = plain()
+                    torch.cuda.synchronize()
+                    err = (y - ref).abs().max().item()
+                    scale = ref.abs().max().item()
+                    ok = bool(math.isfinite(err) and err <= tol * scale)
+                    ms = time_ms(torch, fused, 10)
+                    plain_ms = time_ms(torch, plain, 5)
+                    conv_ms = time_ms(torch, lambda: F.conv1d(
+                        s_ct, wt, bias, 1, pad, d), 5)
+                n_io = 3 if r is not None else 2
+                n_bytes = 4.0 * (n_io * t * c + k * c * c + 3 * c)
+                flops = SNAKE_FLOPS * t * c + (n_io - 1) * t * c
+                conv_flops = 2.0 * t * c * c * k
+                b_ms, b_by = bound_ms(n_bytes, flops, conv_flops)
+                tm, tn = snake_conv_tile(1, t, c, k, d)
+                line = {"phase": "snake_conv", "stage": stage,
+                        "shape": f"C={c} T={t} k={k} d={d}"
+                                 f"{' +res' if r is not None else ''}",
+                        "tile": f"{tm}x{tn}", "max_abs_err": err,
+                        "max_abs_ref": scale,
+                        "tolerance": f"{tol:g} x max|ref|", "ok": ok,
+                        "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+                        "bound_by": b_by,
+                        "bound_ms_f32": bound_ms_f32(n_bytes, flops, conv_flops),
+                        "conv_only_library_ms": conv_ms}
+                print(json.dumps(line), flush=True)
+                if not ok:
+                    fail(f"snake_conv {stage} {line['shape']}: max abs err "
+                         f"{err} > {tol} x {scale}")
+                # per block: d = 1 (no res) once, d = 1 + res three times,
+                # d = 3 and d = 5 once; the row with res stands for the d = 1
+                # launches
+                n = 4 if d == 1 else 1
+                for key in ("ms", "plain_ms", "bound_ms", "bound_ms_f32",
+                            "conv_only_library_ms"):
+                    total[key] += n * line[key]
+                total["launches"] += n
+    print(json.dumps({"phase": "snake_conv_per_request", "frames": T_FRAMES,
+                      **total}), flush=True)
 
 
 def plm_work(model, t: int):
@@ -557,6 +689,7 @@ def main() -> int:
                       "library": so.name}), flush=True)
 
     kernels = kernel_phase(torch, dev)
+    snake_conv_phase(torch, dev)
     kernels["plm_decode"] = plm_phase(torch, dev)
     _, pipe, prompt, audio, inputs = path_phase(torch, dev)
     launches, reqs = tts_phase(torch, pipe, prompt)
@@ -585,6 +718,7 @@ def main() -> int:
             "max_abs_err": max(ln["max_abs_err"] for ln in lines),
             "ms": slowest["ms"], "plain_ms": slowest["plain_ms"],
             "bound_ms": slowest["bound_ms"], "bound_by": slowest["bound_by"],
+            "bound_ms_f32": slowest.get("bound_ms_f32"),
             "library_ms": None, "shape": slowest["shape"],
         })
     print(json.dumps({"kernels": out}), flush=True)

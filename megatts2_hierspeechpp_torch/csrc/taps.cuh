@@ -37,7 +37,8 @@ __device__ __forceinline__ int clampi(int v, int lo, int hi) {
 //   us: (2n + 10) rows, s(u) at clamp(2 w0 - 5 + r)
 //
 // stage_x fills xs, stage_u fills us from xs, down_at(r) returns the output
-// at w0 + r from us.
+// at w0 + r from us. up_at and snake give one s(u) from xs, for kernels that
+// keep the 12 down-filter inputs in registers instead of in us.
 constexpr int kChunk = 32;
 
 __device__ __forceinline__ void stage_x(float* xs, const float* xb, int w0,
@@ -49,25 +50,36 @@ __device__ __forceinline__ void stage_x(float* xs, const float* xb, int w0,
   }
 }
 
+// u[clamp(j)] of the x2 upsampler, from an xs staged by stage_x at w0.
+__device__ __forceinline__ float up_at(const float* xs, int w0, int T, int j) {
+  const int lane = threadIdx.x & 31;
+  j = clampi(j, 0, 2 * T - 1);
+  const int base = (j >> 1) - (w0 - 6);  // row of x[j / 2] in xs
+  float u = 0.f;
+  if (j & 1) {
+#pragma unroll
+    for (int i = 0; i < 6; ++i) u += kUpOdd[i] * xs[(base - 2 + i) * kChunk + lane];
+  } else {
+#pragma unroll
+    for (int i = 0; i < 6; ++i) u += kUpEven[i] * xs[(base - 3 + i) * kChunk + lane];
+  }
+  return u;
+}
+
+// SnakeBeta, u + sin(alpha u)^2 / beta. sinf, not __sinf: its accuracy is
+// part of the kernels' error budget.
+__device__ __forceinline__ float snake(float u, float alpha, float inv_beta) {
+  const float s = sinf(u * alpha);
+  return u + s * s * inv_beta;
+}
+
 __device__ __forceinline__ void stage_u(float* us, const float* xs, int w0,
                                         int n, int T, float alpha,
                                         float inv_beta, int row0,
                                         int row_step) {
   const int lane = threadIdx.x & 31;
-  for (int r = row0; r < 2 * n + 10; r += row_step) {
-    const int j = clampi(2 * w0 - 5 + r, 0, 2 * T - 1);
-    const int base = (j >> 1) - (w0 - 6);  // row of x[j / 2] in xs
-    float u = 0.f;
-    if (j & 1) {
-#pragma unroll
-      for (int i = 0; i < 6; ++i) u += kUpOdd[i] * xs[(base - 2 + i) * kChunk + lane];
-    } else {
-#pragma unroll
-      for (int i = 0; i < 6; ++i) u += kUpEven[i] * xs[(base - 3 + i) * kChunk + lane];
-    }
-    const float s = sinf(u * alpha);
-    us[r * kChunk + lane] = u + s * s * inv_beta;
-  }
+  for (int r = row0; r < 2 * n + 10; r += row_step)
+    us[r * kChunk + lane] = snake(up_at(xs, w0, T, 2 * w0 - 5 + r), alpha, inv_beta);
 }
 
 __device__ __forceinline__ float down_at(const float* us, int r) {

@@ -6,7 +6,7 @@ Replaces the TPU kernel `megatts2_hierspeechpp_tpu/ops/pallas_amp_triple.py`
 averaged, and with `post` the tail AA-snake -> conv_post (C -> 1, k=7) ->
 tanh, giving the (B, T, 1) waveform.
 
-On the H100 a stage is bound by float32 operations, like one AMPBlock. The
+On the H100 a stage is bound by its convolutions, like one AMPBlock. The
 TPU kernel ran the whole stage in one VMEM pass. Here each block runs
 through the snake-conv kernel (`csrc/snake_conv.cu`, 6 launches per block),
 and one epilogue kernel (`csrc/triple_epilogue.cu`) averages the three

@@ -4,13 +4,14 @@ Replaces the TPU kernel `megatts2_hierspeechpp_tpu/ops/pallas_ampblock.py`
 (`_kernel` behind `fused_ampblock`). One block is three branches (d = 1, 3,
 5), each AA-snake -> dilated conv -> AA-snake -> conv -> residual add.
 
-On the H100 the block is bound by float32 operations (6 convolutions of
-2*K*C flops per output sample; TF32 is off by contract). The TPU kernel held
-the whole block in VMEM; its weights alone do not fit a Hopper block's
-shared memory, so the design here is one CUDA kernel, `csrc/snake_conv.cu`,
-that fuses one anti-aliased snake into the convolution after it. A block is
-6 launches of it: the x2 intermediates of the snakes never reach device
-memory, the conv outputs do. The snake edges are the exact clamped ones and
+On the H100 the block is bound by its convolutions (6 of 2*K*C flops per
+output sample), which the kernel runs on the tensor cores as three split-
+TF32 products, as accurate as float32. The TPU kernel held the whole block
+in VMEM; its weights alone do not fit a Hopper block's shared memory, so
+the design here is one CUDA kernel, `csrc/snake_conv.cu`, that fuses one
+anti-aliased snake into the convolution after it. A block is 6 launches of
+it: the x2 intermediates of the snakes never reach device memory, the conv
+outputs do. The snake edges are the exact clamped ones and
 the convs zero-pad per layer, as the composed math does, so the result
 matches `composed_ampblock` everywhere with no edge stitching.
 
@@ -19,6 +20,7 @@ Weight contract (as the JAX kernel): a*/ib* (n, C) post-exp alpha and
 """
 from __future__ import annotations
 
+import ctypes
 from typing import Sequence
 
 import torch
@@ -62,6 +64,16 @@ def snake_conv(x, alpha, inv_beta, w, bias, dilation: int, res=None):
                   cuda_lib.ptr(res), cuda_lib.ptr(y), b, t, cin, cout, k,
                   dilation, cuda_lib.stream(dev))
     return y
+
+
+def snake_conv_tile(b: int, t: int, cout: int, k: int,
+                    dilation: int) -> tuple[int, int]:
+    """(time samples, output channels) of one block of the snake_conv launch
+    at this shape, as csrc/snake_conv.cu chooses them on the current card."""
+    tm, tn = ctypes.c_int(), ctypes.c_int()
+    cuda_lib.call("snake_conv_tile", b, t, cout, k, dilation,
+                  ctypes.byref(tm), ctypes.byref(tn))
+    return tm.value, tn.value
 
 
 def run_block(x, ws, dilations: Sequence[int]):

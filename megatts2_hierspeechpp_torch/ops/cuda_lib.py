@@ -40,6 +40,8 @@ _SIGNATURES = {
     "aa_snakebeta_fwd": [_P, _P, _P, _P, _I, _I, _I, _P],
     # x, alpha, inv_beta, w, bias, res, y, B, T, Cin, Cout, K, dil, stream
     "snake_conv_fwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    # B, T, Cout, K, dil, &tm, &tn
+    "snake_conv_tile": [_I] * 5 + [_P, _P],
     # r0, r1, r2, y, n, stream
     "triple_avg_fwd": [_P, _P, _P, _P, _I, _P],
     # r0, r1, r2, alpha, inv_beta, w7, y, B, T, C, stream

@@ -5,7 +5,8 @@ installed:
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
 Tolerance: atol 1e-5, rtol 1e-4 for the snake; 1e-4 for the conv kernels
-(accumulation order over k*C terms). The PLM decode kernel's codes must pass
+(accumulation order over k*C terms; the split-TF32 products are as accurate
+as float32, a single TF32 pass would fail it, see test_torch_tf32split.py). The PLM decode kernel's codes must pass
 the teacher-forced check (each code within 1e-4 x max|logits| of its row's
 max logit), since one near-tie flip changes every later step."""
 import numpy as np
@@ -13,10 +14,18 @@ import pytest
 import torch
 
 from megatts2_hierspeechpp_torch.models import plm
+from megatts2_hierspeechpp_torch.nn.conv import conv1d_op
 from megatts2_hierspeechpp_torch.ops import amp_triple, ampblock, cuda_lib, snake
 from megatts2_hierspeechpp_torch.ops.plm_decode import plain_decode, plm_decode_greedy
+from megatts2_hierspeechpp_torch.ops.resample import activation1d
 
 DIL = (1, 3, 5)
+CHANNELS = (7, 8, 16, 32, 48, 64, 128)  # 7: the 4-byte copy path, ragged tiles
+KERNEL_SIZES = (3, 5, 7, 11)
+# T = 1, 7, both sides of a time tile edge (snake_conv's tiles are 32, 64 or
+# 128 samples; at B = 2 and T near 128 it takes 32-sample tiles, near 8448 on
+# a 132-SM card the 128-sample ones), and 4097
+LENGTHS = (1, 7, 127, 128, 129, 4097, 8447, 8448, 8449)
 
 
 @pytest.fixture()
@@ -40,31 +49,47 @@ def _block_ws(rng, dev, k, c):
     return (pos(), pos(), w(), b(), pos(), pos(), w(), b())
 
 
+def _plain_snake_conv(x, a, ib, w, bias, d, res=None):
+    y = activation1d(x, lambda v: v + torch.sin(v * a).square() * ib)
+    y = conv1d_op(y, w.permute(1, 2, 0), bias, 1, (w.shape[0] - 1) // 2 * d, d)
+    return y if res is None else y + res
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("t", [1, 7, 300])
-def test_kernels_match_plain(dev, t):
-    """Every T >= 1 runs the kernels (no short-T fallback); each wrapper
-    call counts once."""
-    rng = np.random.default_rng(t)
-    c = 48
+@pytest.mark.parametrize("k", KERNEL_SIZES)
+@pytest.mark.parametrize("c", CHANNELS)
+@pytest.mark.parametrize("t", LENGTHS)
+def test_kernels_match_plain(dev, t, c, k):
+    """Every T >= 1 runs the kernels (no short-T fallback), at every width
+    the port takes: snake_conv alone at d = 1, 3, 5 (with the residual at
+    d = 1), the AMPBlock, and the triple with and without the tail. Each
+    wrapper call counts once; snake_conv alone is not counted."""
+    rng = np.random.default_rng(1000 * t + 10 * c + k)
     x = _rand(rng, dev, 2, t, c)
     a, be = torch.exp(_rand(rng, dev, c, scale=0.3)), torch.exp(_rand(rng, dev, c, scale=0.3))
-    ws = _block_ws(rng, dev, 7, c)
+    ws = _block_ws(rng, dev, k, c)
     post = (torch.exp(_rand(rng, dev, c, scale=0.2)),
             torch.exp(_rand(rng, dev, c, scale=0.2)),
             _rand(rng, dev, 7, c, scale=0.1 * (7 * c) ** -0.5))
+    res = _rand(rng, dev, 2, t, c)
     cuda_lib.reset_launches()
     with torch.inference_mode():
         torch.testing.assert_close(snake.fused_aa_snakebeta(x, a, be),
                                    snake.composed_snakebeta(x, a, be),
                                    atol=1e-5, rtol=1e-4)
-        torch.testing.assert_close(ampblock.fused_ampblock(x, *ws, 7, DIL),
-                                   ampblock.composed_ampblock(x, *ws, 7, DIL),
+        for i, d in enumerate(DIL):
+            r = res if d == 1 else None
+            args = (x, ws[0][i], ws[1][i], ws[2][i], ws[3][i], d)
+            torch.testing.assert_close(ampblock.snake_conv(*args, res=r),
+                                       _plain_snake_conv(*args, res=r),
+                                       atol=1e-4, rtol=1e-4)
+        torch.testing.assert_close(ampblock.fused_ampblock(x, *ws, k, DIL),
+                                   ampblock.composed_ampblock(x, *ws, k, DIL),
                                    atol=1e-4, rtol=1e-4)
         for p in (None, post):
             torch.testing.assert_close(
-                amp_triple.fused_amp_triple(x, [ws] * 3, (7,) * 3, (DIL,) * 3, p),
-                amp_triple.composed_triple(x, [ws] * 3, (7,) * 3, (DIL,) * 3, p),
+                amp_triple.fused_amp_triple(x, [ws] * 3, (k,) * 3, (DIL,) * 3, p),
+                amp_triple.composed_triple(x, [ws] * 3, (k,) * 3, (DIL,) * 3, p),
                 atol=1e-4, rtol=1e-4)
     torch.cuda.synchronize()
     assert cuda_lib.LAUNCHES == {"aa_snakebeta": 1, "ampblock": 1,
