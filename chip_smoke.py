@@ -56,6 +56,7 @@ EXPECTED_CALLS = {"aa_snakebeta": 19, "ampblock": 6, "amp_triple": 5,
 TTS_CALLS = dict(EXPECTED_CALLS, plm_decode=1)
 PLM_T = (500, 1, 37)    # decode lengths of phase 3; the first is the main path's
 TF_MARGIN = 1e-4        # teacher-forced gap, x max|logits|
+PLM_REPEATS = 10        # launches at the main path's T that must give the same codes
 # Mandarin read speech: 5.18 syllables/s (Pellegrino, Coupe & Marsico 2011,
 # "A cross-language perspective on speech information rate", Language
 # 87(3), Table 2); a prosodic phrase break ("sp") every 8 syllables
@@ -128,7 +129,7 @@ def kernel_phase(torch, dev):
     from megatts2_hierspeechpp_torch.ops.ampblock import (
         composed_ampblock, fused_ampblock)
     from megatts2_hierspeechpp_torch.ops.snake import (
-        composed_snakebeta, fused_aa_snakebeta)
+        composed_snakebeta, fused_aa_snakebeta, inverse_beta)
 
     gen = torch.Generator().manual_seed(0)
 
@@ -148,9 +149,10 @@ def kernel_phase(torch, dev):
     cases = []  # (kernel, label, fused fn, plain fn, tol, bytes, flops, conv flops)
     for c in (256, 64):
         x, a, b = randn(1, 4 * T, c), pos(c), pos(c)
+        ib = inverse_beta(b)  # once per weight, as the serving path does
         n = 4 * T * c
         cases.append(("aa_snakebeta", f"C={c} T={4 * T}",
-                      lambda x=x, a=a, b=b: fused_aa_snakebeta(x, a, b),
+                      lambda x=x, a=a, b=b, ib=ib: fused_aa_snakebeta(x, a, b, ib),
                       lambda x=x, a=a, b=b: composed_snakebeta(x, a, b),
                       1e-5, 4.0 * (2 * n + 2 * c), SNAKE_FLOPS * n, 0.0))
     # Generator stage 1 (C=128, 20T) and SourceNetwork stage 0 (C=128, 2T)
@@ -332,6 +334,50 @@ def plm_work(model, t: int):
     return n_bytes, 2.0 * mats * t + n_layers * 4.0 * d * t * (t + 1) / 2
 
 
+def plm_split(torch, w, tc, go_id: int) -> dict:
+    """Where one decode's time goes, at the main path's T, from block 0's
+    stamps in one launch (SM cycles, converted to time by %globaltimer over
+    the whole launch): us per token, and per phase letter (A-E, mean over
+    the layers, then the logits) the mean us from holding the phase's inputs
+    to holding its successor's ("phase_us"), split into block 0's own work
+    up to its last publish ("work_us") and its wait for the rest
+    ("wait_us"). Beside them the single-counter grid barrier that the
+    decode kernel used before its handoffs carried flags, alone: (5L + 1) x
+    T barriers in one launch of the same grid, in us per barrier."""
+    from megatts2_hierspeechpp_torch.ops.plm_decode import (
+        barrier_probe, phase_stamps)
+
+    t = tc.shape[1]
+    with torch.inference_mode():
+        _, stamps = phase_stamps(w, tc, go_id)
+        torch.cuda.synchronize()
+    st = stamps.cpu().numpy().astype(np.float64)  # (T, phases, 3)
+    per = st.shape[1]
+    pub, ready = st[..., 0].reshape(-1), st[..., 1].reshape(-1)
+    # %globaltimer at the logits of every token: cycles -> us over the launch
+    us_per_cycle = ((st[-1, -1, 2] - st[0, -1, 2])
+                    / (st[-1, -1, 1] - st[0, -1, 1]) / 1e3)
+    # tokens 1..T-1: phase k runs from ready[k - 1] to ready[k]
+    total = (ready[per:] - ready[per - 1:-1]).reshape(t - 1, per) * us_per_cycle
+    work = (pub[per:] - ready[per - 1:-1]).reshape(t - 1, per) * us_per_cycle
+    n_layers = (per - 1) // 5
+
+    def by_letter(d):
+        out = {k: float(d[:, [5 * i + j for i in range(n_layers)]].mean())
+               for j, k in enumerate("ABCDE")}
+        out["logits"] = float(d[:, -1].mean())
+        return out
+
+    n_bar = per * t
+    bar_ms = time_ms(torch, lambda: barrier_probe(n_bar, tc.device), 3)
+    return {"us_per_token": float(total.sum(1).mean()),
+            "sm_clock_mhz": 1.0 / us_per_cycle,
+            "phase_us": by_letter(total), "work_us": by_letter(work),
+            "wait_us": by_letter(total - work),
+            "old_barrier_us": 1e3 * bar_ms / n_bar,
+            "old_barriers_per_token": per}
+
+
 def plm_phase(torch, dev):
     """The decode kernel against the plain greedy loop at the published
     width. A near-tie flip changes every later step, so the fail condition
@@ -369,6 +415,17 @@ def plm_phase(torch, dev):
                 "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
                 "bound_ms_weights_per_token": 1e3 * t * 4.0 * sum(
                     p.numel() for p in model.parameters()) / HBM_BYTES_PER_S}
+        if t == PLM_T[0]:
+            line["split"] = plm_split(torch, w, tc, model.go_id)
+            with torch.inference_mode():
+                reps = [plm_decode_greedy(w, tc, model.go_id)
+                        for _ in range(PLM_REPEATS)]
+            same = sum(bool(torch.equal(r, codes)) for r in reps)
+            line["repeats_identical"] = f"{same}/{PLM_REPEATS}"
+            if same != PLM_REPEATS:
+                print(json.dumps(line), flush=True)
+                fail(f"plm_decode T={t}: {PLM_REPEATS - same} of {PLM_REPEATS} "
+                     "repeated launches gave other codes")
         print(json.dumps(line), flush=True)
         if not ok:
             fail(f"plm_decode T={t}: teacher-forced gap {gap} > {TF_MARGIN} x {scale}")

@@ -47,8 +47,11 @@ _SIGNATURES = {
     # r0, r1, r2, alpha, inv_beta, w7, y, B, T, C, stream
     "triple_post_fwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     # tc, pe, emb, wqkv, bqkv, wo, bo, ln, ff0, ff0b, ff1, ff1b, pred, cache,
-    # scratch, iscratch, codes, T, L, D, TC, H, F, BINS, go_id, stream
-    "plm_decode_fwd": [_P] * 17 + [_I] * 8 + [_P],
+    # xch, codes, stamps, T, L, D, TC, H, F, BINS, go_id, grid, smem_bytes,
+    # xch_pairs, stream
+    "plm_decode_fwd": [_P] * 17 + [_I] * 11 + [_P],
+    # iscratch, n, stream
+    "plm_barrier_probe": [_P, _I, _P],
 }
 
 _lib = None

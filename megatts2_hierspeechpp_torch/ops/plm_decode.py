@@ -8,18 +8,21 @@ x = [tc_t | emb(prev)] + pos_alpha * pe_t, then per layer LayerNorm -> fused
 QKV -> causal attention over the cache -> out-proj -> LayerNorm ->
 FF(relu) -> residual, then logits and the first argmax, fed back.
 
-On the H100 a token is a chain of small matrix-vector products over 15.9 MB
-of float32 weights; launched op by op it is about 70 launches per token.
-The kernel is one persistent cooperative launch, one block per SM, with the
-token loop inside and a hand-rolled grid barrier between phases (21 per
-token); the weights are streamed through L2 by all SMs (see the source for
-the phases).
+On the H100 a token is a chain of 21 small dependent matrix-vector phases
+over 15.8 MB of float32 matrices: its limit is latency. The kernel is one
+persistent cooperative launch, one block per SM. Each block holds its share
+of the weights (output rows j = block mod grid) in shared memory for the
+whole launch, and the phases hand their outputs on as {value, epoch} pairs
+that the readers poll, with no grid barrier (see the source). `smem_plan`
+is the per-block shared memory that plan takes; a grid whose share does
+not fit raises ValueError, with no fallback.
 
 `plain_decode` is the same loop in plain PyTorch (B >= 1, greedy or top-k
 sampling); CPU tensors take it, and it is the kernel's yardstick.
 """
 from __future__ import annotations
 
+import functools
 import math
 from dataclasses import dataclass
 from typing import Optional
@@ -29,11 +32,71 @@ import torch.nn.functional as F
 
 from megatts2_hierspeechpp_torch.ops import cuda_lib
 
-# scratch layout of csrc/plm_decode.cu
+# csrc/plm_decode.cu: its grid, its attention split, and the shared memory
+# a block may take on Hopper (227 KB); STATIC_SMEM covers the kernel's static
+# shared arrays (mbarrier, reduction slots)
 MAX_GRID = 132
 MAX_PARTS = 128
-PART_STRIDE = 74
-MAX_D, MAX_F, MAX_HD = 512, 2048, 72
+KEY_CHUNK = 32
+SMEM_LIMIT = 232_448
+STATIC_SMEM = 256
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def _up4(n: int) -> int:
+    return (n + 3) // 4 * 4
+
+
+def owned(rows: int, block: int, grid: int) -> int:
+    """Rows of a matrix of `rows` output rows that `block` owns: the rows
+    j = block (mod grid), row j in slot j // grid."""
+    return (rows - 1 - block) // grid + 1 if rows > block else 0
+
+
+@functools.lru_cache(maxsize=16)
+def plan(d: int, f: int, n_layers: int, bins: int, grid: int,
+         n_heads: int) -> dict:
+    """The kernel's layout (`make_plan` in csrc/plm_decode.cu, which checks
+    "bytes" and "pairs" against its own): row slots per block of each matrix,
+    the block's dynamic shared memory in bytes, and the exchange buffer's
+    length in 64-bit pairs."""
+    slots = {"wqkv": _cdiv(3 * d, grid), "wo": _cdiv(d, grid),
+             "ff0": _cdiv(f, grid), "ff1": _cdiv(d, grid),
+             "pred": _cdiv(bins, grid)}
+    w_layer = (slots["wqkv"] + slots["wo"] + slots["ff0"]) * d + slots["ff1"] * f
+    n_bias = slots["wqkv"] + slots["wo"] + slots["ff0"] + slots["ff1"]
+    floats = (n_layers * w_layer + slots["pred"] * d + n_layers * 4 * d
+              + _up4(n_layers * n_bias) + 3 * _up4(d))
+    hd = d // n_heads
+    nsplit_max = max(1, min(MAX_PARTS // n_heads, grid // n_heads))
+    work = max(f, 2 * KEY_CHUNK * hd + 2 * KEY_CHUNK + _up4(hd),
+               n_heads * nsplit_max * (hd + 3) + n_heads)
+    layer_pairs = 3 * d + n_heads * nsplit_max * (hd + 2) + 2 * d + f
+    return {"slots": slots, "bytes": 4 * (floats + _up4(work)),
+            "pairs": 2 * (n_layers * layer_pairs + 2 * grid)}
+
+
+def smem_plan(d: int, f: int, n_layers: int, bins: int, grid: int,
+              n_heads: int = 4) -> int:
+    """Shared memory bytes per block that the kernel takes at this grid."""
+    return plan(d, f, n_layers, bins, grid, n_heads)["bytes"] + STATIC_SMEM
+
+
+def check_plan(d: int, f: int, n_layers: int, bins: int, grid: int,
+               n_heads: int) -> dict:
+    """plan(...), or ValueError when a block's share of the weights does
+    not fit its shared memory at this grid."""
+    layout = plan(d, f, n_layers, bins, grid, n_heads)
+    need = layout["bytes"] + STATIC_SMEM
+    if need > SMEM_LIMIT:
+        raise ValueError(
+            f"plm_decode: a block needs {need} B of shared memory at grid "
+            f"{grid} (D={d}, F={f}, L={n_layers}, bins={bins}), over "
+            f"{SMEM_LIMIT}")
+    return layout
 
 
 @dataclass
@@ -124,7 +187,8 @@ def plain_decode(w: PLMWeights, tc_latent: torch.Tensor, go_id: int = 1024,
     return codes
 
 
-def _launch(w: PLMWeights, tc_latent: torch.Tensor, go_id: int) -> torch.Tensor:
+def _launch(w: PLMWeights, tc_latent: torch.Tensor, go_id: int,
+            stamps: Optional[torch.Tensor] = None) -> torch.Tensor:
     dev = tc_latent.device
     _, t, tc_dim = tc_latent.shape
     n_layers, d = w.wo.shape[0], w.wo.shape[1]
@@ -132,9 +196,13 @@ def _launch(w: PLMWeights, tc_latent: torch.Tensor, go_id: int) -> torch.Tensor:
     h = w.n_heads
     if t < 1:
         raise ValueError("plm_decode needs T >= 1")
-    if (d > MAX_D or f > MAX_F or d % 4 or f % 4 or d % h
-            or d // h > MAX_HD or tc_dim >= d):
+    if d % 4 or f % 4 or d % h or d > 512 or tc_dim >= d or h > MAX_PARTS:
         raise ValueError(f"plm_decode kernel does not take D={d}, F={f}, H={h}")
+    grid = min(torch.cuda.get_device_properties(dev).multi_processor_count,
+               MAX_GRID)
+    if grid < h:
+        raise ValueError(f"plm_decode needs a grid of >= {h} blocks, got {grid}")
+    layout = check_plan(d, f, n_layers, bins, grid, h)
     cuda_lib.check(tc_latent, "tc_latent", dev)
     shapes = ((w.emb.shape[0], d - tc_dim), (1,), (n_layers, 3 * d, d),
               (n_layers, 3 * d), (n_layers, d, d), (n_layers, d),
@@ -144,20 +212,20 @@ def _launch(w: PLMWeights, tc_latent: torch.Tensor, go_id: int) -> torch.Tensor:
              "ff0b", "ff1", "ff1b", "pred")
     for name, tensor, shape in zip(names, w.tensors(), shapes):
         cuda_lib.check(tensor, name, dev, shape)
-        if name in ("wqkv", "wo", "ff0", "ff1", "pred") and tensor.data_ptr() % 16:
-            raise ValueError(f"{name} must be 16-byte aligned (read as float4)")
+        if (name in ("wqkv", "wo", "ff0", "ff1", "pred", "ln")
+                and tensor.data_ptr() % 16):
+            raise ValueError(f"{name} must be 16-byte aligned (bulk copies)")
     pe = _scaled_positions(w, t, d, dev).contiguous()
     cache = torch.empty(n_layers, t, 2, d, device=dev)
-    scratch = torch.empty(2 * d + f + MAX_PARTS * PART_STRIDE + MAX_GRID,
-                          device=dev)
-    iscratch = torch.zeros(1 + MAX_GRID, dtype=torch.int32, device=dev)
+    # epochs start at 1: a zeroed buffer holds no stale pair
+    xch = torch.zeros(layout["pairs"], dtype=torch.int64, device=dev)
     codes = torch.empty(t, dtype=torch.int32, device=dev)
     p = cuda_lib.ptr
     cuda_lib.call("plm_decode_fwd", p(tc_latent), p(pe), p(w.emb), p(w.wqkv),
                   p(w.bqkv), p(w.wo), p(w.bo), p(w.ln), p(w.ff0), p(w.ff0b),
-                  p(w.ff1), p(w.ff1b), p(w.pred), p(cache), p(scratch),
-                  p(iscratch), p(codes), t, n_layers, d, tc_dim, h, f, bins,
-                  go_id, cuda_lib.stream(dev))
+                  p(w.ff1), p(w.ff1b), p(w.pred), p(cache), p(xch), p(codes),
+                  p(stamps), t, n_layers, d, tc_dim, h, f, bins, go_id, grid,
+                  layout["bytes"], layout["pairs"], cuda_lib.stream(dev))
     cuda_lib.LAUNCHES["plm_decode"] += 1
     return codes[None]
 
@@ -176,3 +244,28 @@ def plm_decode_greedy(w: PLMWeights, tc_latent: torch.Tensor,
     if tc_latent.device.type != "cuda":
         raise ValueError(f"unsupported device {tc_latent.device}")
     return _launch(w, tc_latent.contiguous(), go_id)
+
+
+def phase_stamps(w: PLMWeights, tc_latent: torch.Tensor,
+                 go_id: int = 1024) -> tuple[torch.Tensor, torch.Tensor]:
+    """One kernel launch that also records block 0's clocks twice per
+    phase: (codes (1, T), stamps (T, 5L + 1, 3) int64). Phase k of layer i
+    is row 5i + k (A-E), the logits the last row. Column 0: SM cycles when
+    block 0 has published the phase's outputs; column 1: SM cycles when it
+    holds the outputs of the phase that it reads next; column 2, in the
+    logits row only: %globaltimer (ns), for converting cycles to time over
+    the launch. Counts as a launch."""
+    t, n_layers = tc_latent.shape[1], w.wo.shape[0]
+    stamps = torch.zeros(t, 5 * n_layers + 1, 3, dtype=torch.int64,
+                         device=tc_latent.device)
+    codes = _launch(w, tc_latent.contiguous(), go_id, stamps)
+    return codes, stamps
+
+
+def barrier_probe(n: int, device: torch.device) -> None:
+    """n grid barriers of the kernel's earlier single-counter design and no
+    work, on the decode kernel's grid (one cooperative launch; not counted
+    as a decode)."""
+    bar = torch.zeros(1, dtype=torch.int32, device=device)
+    cuda_lib.call("plm_barrier_probe", cuda_lib.ptr(bar), n,
+                  cuda_lib.stream(device))

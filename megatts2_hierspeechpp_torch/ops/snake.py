@@ -72,13 +72,20 @@ def composed_snakebeta(x, alpha, beta):
     return activation1d(x, lambda v: v + torch.sin(v * a).square() / (b + EPS))
 
 
-def _launch(x, alpha, beta):
+def inverse_beta(beta):
+    """1 / (beta + EPS), the kernel's form of beta."""
+    return 1.0 / (beta + EPS)
+
+
+def _launch(x, alpha, beta, inv_beta=None):
     x = x.contiguous()
     b, t, c = x.shape
     cuda_lib.check(x, "x", x.device)
     cuda_lib.check(alpha, "alpha", x.device, (c,))
     cuda_lib.check(beta, "beta", x.device, (c,))
-    inv_beta = 1.0 / (beta + EPS)
+    if inv_beta is None:
+        inv_beta = inverse_beta(beta)
+    cuda_lib.check(inv_beta, "inv_beta", x.device, (c,))
     y = torch.empty_like(x)
     cuda_lib.call("aa_snakebeta_fwd", cuda_lib.ptr(x), cuda_lib.ptr(alpha),
                   cuda_lib.ptr(inv_beta), cuda_lib.ptr(y), b, t, c,
@@ -89,18 +96,20 @@ def _launch(x, alpha, beta):
 
 class _AASnakeBeta(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, alpha, beta):
+    def forward(ctx, x, alpha, beta, inv_beta):
         ctx.save_for_backward(x, alpha, beta)
-        return _launch(x, alpha, beta)
+        return _launch(x, alpha, beta, inv_beta)
 
     @staticmethod
     def backward(ctx, ct):
         return cuda_lib.plain_vjp(composed_snakebeta, ctx.saved_tensors,
-                                  ctx.needs_input_grad, ct)
+                                  ctx.needs_input_grad[:3], ct) + (None,)
 
 
-def fused_aa_snakebeta(x, alpha, beta):
+def fused_aa_snakebeta(x, alpha, beta, inv_beta=None):
     """x: (B, T, C) float32; alpha/beta: (C,) post-exp -> (B, T, C).
+    `inv_beta`, when given, is inverse_beta(beta) computed once by the
+    caller (the per-call division then leaves the serving path).
 
     CUDA tensors run the kernel (any T >= 1); CPU tensors run the plain
     version."""
@@ -108,4 +117,4 @@ def fused_aa_snakebeta(x, alpha, beta):
         return composed_snakebeta(x, alpha, beta)
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
-    return _AASnakeBeta.apply(x, alpha, beta)
+    return _AASnakeBeta.apply(x, alpha, beta, inv_beta)

@@ -97,11 +97,12 @@ def test_kernels_match_plain(dev, t, c, k):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("t", [1, 37, 300])
+@pytest.mark.parametrize("t", [1, 37, 300, 500, 1100])
 def test_plm_decode_kernel_matches_plain(dev, t):
     """The persistent decode kernel at full width (d = 276, 4 layers, 1024
     bins): one launch, codes that pass the teacher-forced check, mostly the
-    plain greedy decode's codes."""
+    plain greedy decode's codes. At T = 1100 the keys outgrow 32 splits of
+    32, so a split holds more than one 32-key chunk."""
     model = plm.ProsodyLM(seed=3, device="cuda")
     rng = np.random.default_rng(t)
     tc = _rand(rng, dev, 1, t, 256)
@@ -118,6 +119,20 @@ def test_plm_decode_kernel_matches_plain(dev, t):
     gap, scale = plm.teacher_forced_gap(model, tc, got)
     assert gap <= 1e-4 * scale
     assert (got == want).float().mean() >= 0.5
+
+
+@pytest.mark.cuda
+def test_plm_decode_kernel_is_deterministic(dev):
+    """Ten launches on the same inputs give the same codes: no float
+    atomics, fixed-order sums, and no handoff that reads a stale value (a
+    stale epoch or a missing fence would show as a rare flip)."""
+    model = plm.ProsodyLM(seed=4, device="cuda")
+    tc = _rand(np.random.default_rng(500), dev, 1, 500, 256)
+    w = model.packed()
+    with torch.inference_mode():
+        first = plm_decode_greedy(w, tc, model.go_id)
+        for _ in range(9):
+            assert torch.equal(plm_decode_greedy(w, tc, model.go_id), first)
 
 
 @pytest.mark.cuda
