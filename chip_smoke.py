@@ -10,7 +10,12 @@ Phases, in order; any failure exits non-zero:
   2. build the CUDA kernels from csrc/ (nvcc, sm_90a) and report seconds;
   3. each kernel against its plain PyTorch version on the card, at the
      shapes the serving path gives it, with CUDA-event timings of both and
-     two bounds (3xTF32 tensor cores, and float32 CUDA cores only); then
+     two bounds (3xTF32 tensor cores, and float32 CUDA cores only); the
+     AA-snake also with its device time per launch (profiler), a copy of
+     the same bytes, and every rows-per-thread it is built for; then the
+     triple epilogue alone at each of its five launch shapes against
+     composed_epilogue (device ms, wrapper ms, bound, copy floor; for the
+     tail also every tile and the phase split from its stamps); then
      one snake_conv launch at every distinct (C, T, k, d) of a 500-frame
      request, beside a cuDNN conv1d of the same conv (the conv alone), and
      their sum per request; the PLM decode kernel at full width (d 276, 4
@@ -68,14 +73,16 @@ F32_FLOPS_PER_S = 67e12     # H100 SXM data sheet, non-tensor float32
 TF32_FLOPS_PER_S = 495e12   # H100 SXM data sheet, dense TF32 tensor cores
 TF32_PASSES = 3             # snake_conv's split-TF32 products per product
 SNAKE_FLOPS = 58            # per element: 2 x 6-tap up, 2 snakes, 12-tap down
-SOURCES = {
-    "aa_snakebeta": ("megatts2_hierspeechpp_torch/csrc/aa_snake.cu",
+SOURCES = {  # launch-count key: (kernel, source, TPU kernel it replaces)
+    "aa_snakebeta": ("aa_snakebeta", "megatts2_hierspeechpp_torch/csrc/aa_snake.cu",
                      "megatts2_hierspeechpp_tpu/ops/pallas_snake.py:93"),
-    "ampblock": ("megatts2_hierspeechpp_torch/csrc/snake_conv.cu",
+    "ampblock": ("ampblock", "megatts2_hierspeechpp_torch/csrc/snake_conv.cu",
                  "megatts2_hierspeechpp_tpu/ops/pallas_ampblock.py:151"),
-    "amp_triple": ("megatts2_hierspeechpp_torch/csrc/triple_epilogue.cu",
+    # one epilogue launch per stage call (the stage's convs are snake_conv)
+    "amp_triple": ("triple_epilogue",
+                   "megatts2_hierspeechpp_torch/csrc/triple_epilogue.cu",
                    "megatts2_hierspeechpp_tpu/ops/pallas_amp_triple.py:60"),
-    "plm_decode": ("megatts2_hierspeechpp_torch/csrc/plm_decode.cu",
+    "plm_decode": ("plm_decode", "megatts2_hierspeechpp_torch/csrc/plm_decode.cu",
                    "megatts2_hierspeechpp_tpu/ops/pallas_plm_decode.py:59"),
 }
 
@@ -100,6 +107,42 @@ def time_ms(torch, fn, reps: int) -> float:
     return float(np.median(times))
 
 
+def device_ms(torch, fn, keys, reps: int = 20) -> float:
+    """Median device time (ms) of the kernels whose names hold one of
+    `keys`, over reps back-to-back calls of fn() under torch.profiler, after
+    2 warm-ups. This is the kernel's own time on the card; the wrapper's
+    host cost (time_ms) is about 10x it at the snake's shapes. The
+    profiler's activity records can drop a launch now and then (19 of 20
+    copies seen on an H100), so the median is over the launches it
+    recorded, and at least half of them must be there."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = [ev.time_range.elapsed_us() for ev in prof.events()
+          if ev.device_type == DeviceType.CUDA
+          and any(k in ev.name for k in keys)]
+    if 2 * len(us) < reps:
+        fail(f"profiler saw {len(us)} of {reps} launches of {keys}")
+    return float(np.median(us)) / 1e3
+
+
+def copy_floor_ms(torch, dev, n_bytes: float) -> float:
+    """Device time of one copy_ that reads n_bytes / 2 and writes n_bytes /
+    2: a floor yardstick for a kernel that moves n_bytes, not a library
+    version of its function."""
+    n = max(1, int(n_bytes / 8))
+    src = torch.ones(n, device=dev)
+    dst = torch.empty_like(src)
+    return device_ms(torch, lambda: dst.copy_(src), ("Memcpy", "copy"))
+
+
 def bound_ms(n_bytes: float, flops: float, conv_flops: float = 0.0):
     """(ms, what bounds it): the larger of bytes over the memory rate and
     the operations, float32 flops on the CUDA cores plus conv products as
@@ -121,6 +164,24 @@ def block_flops(t: int, c: int, k: int):
     6 snakes + bias and residual adds, and 6 convs."""
     return (3 * (2 * SNAKE_FLOPS * t * c + t * c),
             3 * 2 * 2.0 * t * c * c * k)
+
+
+def snake_sweep(torch, args, ref, tol: float) -> dict:
+    """Device ms per launch and max abs error of every rows-per-thread the
+    AA-snake kernel is built for, at one shape; each is held to the plain
+    version like the default plan."""
+    from megatts2_hierspeechpp_torch.ops import snake
+
+    x, a, b, ib = args
+    out = {}
+    for rows in snake.ROWS:
+        fn = lambda: snake._launch(x, a, b, ib, rows=rows)
+        err = (fn() - ref).abs().max().item()
+        if not err <= tol * ref.abs().max().item():
+            fail(f"aa_snakebeta rows={rows}: max abs err {err}")
+        out[f"rows={rows}"] = {"device_ms": device_ms(torch, fn, ("aa_snakebeta",)),
+                               "max_abs_err": err}
+    return out
 
 
 def kernel_phase(torch, dev):
@@ -147,9 +208,11 @@ def kernel_phase(torch, dev):
     T = T_FRAMES
     dil = (1, 3, 5)
     cases = []  # (kernel, label, fused fn, plain fn, tol, bytes, flops, conv flops)
+    snake_args = {}  # label: the AA-snake's inputs, for its sweep
     for c in (256, 64):
         x, a, b = randn(1, 4 * T, c), pos(c), pos(c)
         ib = inverse_beta(b)  # once per weight, as the serving path does
+        snake_args[f"C={c} T={4 * T}"] = (x, a, b, ib)
         n = 4 * T * c
         cases.append(("aa_snakebeta", f"C={c} T={4 * T}",
                       lambda x=x, a=a, b=b, ib=ib: fused_aa_snakebeta(x, a, b, ib),
@@ -204,11 +267,134 @@ def kernel_phase(torch, dev):
                 "tolerance": f"{tol:g} x max|ref|", "ok": ok, "ms": ms,
                 "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
                 "bound_ms_f32": bound_ms_f32(n_bytes, flops, conv_flops)}
+        if name == "aa_snakebeta":
+            with torch.inference_mode():
+                line["device_ms"] = device_ms(torch, fused, ("aa_snakebeta",))
+                line["sweep"] = snake_sweep(torch, snake_args[label], ref, tol)
+            line["copy_floor_ms"] = copy_floor_ms(torch, dev, n_bytes)
         print(json.dumps(line), flush=True)
         if not ok:
             fail(f"{name} {label}: max abs err {err} > {tol} x {scale}")
         results.setdefault(name, []).append(line)
     return results
+
+
+# The epilogue launches of a request of T_FRAMES frames: (stage, C, T /
+# frames, with the tail). triple_avg runs for the first three, triple_post
+# for the two with the tail.
+EPILOGUE_STAGES = (
+    ("SourceNetwork stage 1", 64, 4, False),
+    ("Generator stage 2", 64, 80, False),
+    ("Generator stage 3", 32, 160, False),
+    ("Generator stage 4 + tail", 16, 320, True),
+    ("SpeechSR + tail", 32, 960, True),
+)
+EPILOGUE_TOL = {False: 1e-5, True: 1e-4}   # x max|ref|: average, tail
+
+
+def tail_split(torch, rs, post) -> dict:
+    """Where a tail block's time goes: from one launch with the kernel's
+    phase stamps (SM cycles; each SM has its own counter, so only spans
+    within a block are read), the mean cycles per block of its three
+    phases (load + average, AA-snake, conv_post + tanh) and their shares."""
+    from megatts2_hierspeechpp_torch.ops.amp_triple import tail_stamps
+
+    with torch.inference_mode():
+        _, st = tail_stamps(*rs, post)
+        torch.cuda.synchronize()
+    d = np.diff(st.cpu().numpy().astype(np.float64), axis=1)
+    mean = d.mean(axis=0)
+    names = ("load_avg", "aa_snake", "conv_post")
+    return {"blocks": int(d.shape[0]),
+            "cycles_per_block": dict(zip(names, map(float, mean))),
+            "share": dict(zip(names, map(float, mean / mean.sum())))}
+
+
+def epilogue_tile_sweep(torch, rs, post, ref, tol: float) -> dict:
+    """Device ms per launch and max abs error of the tail kernel at every
+    tile it is built for that fits at this C, each held to the plain
+    version."""
+    from megatts2_hierspeechpp_torch.ops import amp_triple
+
+    out = {}
+    c = rs[0].shape[-1]
+    with torch.inference_mode():
+        for tile in amp_triple.EPILOGUE_TILES:
+            if amp_triple.epilogue_smem(c, tile) > amp_triple.SMEM_LIMIT:
+                continue
+            fn = lambda: amp_triple._epilogue(*rs, post, tile)
+            err = (fn() - ref).abs().max().item()
+            if not err <= tol * ref.abs().max().item():
+                fail(f"triple_post tile={tile}: max abs err {err}")
+            out[f"tile={tile}"] = {
+                "smem": amp_triple.epilogue_smem(c, tile),
+                "device_ms": device_ms(torch, fn, ("triple_post_kernel",)),
+                "max_abs_err": err}
+    return out
+
+
+def epilogue_phase(torch, dev):
+    """triple_epilogue.cu alone, at each of its launch shapes of the
+    request, on given block outputs, against composed_epilogue: max abs
+    error, device ms per launch (profiler), the wrapper's CUDA-event ms, the
+    plain version's ms, the bytes bound and a copy of the same bytes. For a
+    launch with the tail also the average alone on the same inputs
+    (`avg_device_ms`), the share of its time that is loading the three
+    inputs and writing one output."""
+    from megatts2_hierspeechpp_torch.ops.amp_triple import (
+        composed_epilogue, fused_epilogue)
+
+    gen = torch.Generator().manual_seed(2)
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(shape, generator=gen) * scale).to(dev)
+
+    lines = []
+    for stage, c, f, tail in EPILOGUE_STAGES:
+        t = f * T_FRAMES
+        n = t * c
+        rs = [randn(1, t, c, scale=3.0) for _ in range(3)]
+        post = (torch.exp(randn(c, scale=0.2)), torch.exp(randn(c, scale=0.2)),
+                randn(7, c, scale=0.1 * (7 * c) ** -0.5)) if tail else None
+        tol = EPILOGUE_TOL[tail]
+        kernel = "triple_post_kernel" if tail else "triple_avg_kernel"
+        with torch.inference_mode():
+            y = fused_epilogue(*rs, post)
+            ref = composed_epilogue(*rs, post)
+            torch.cuda.synchronize()
+            err = (y - ref).abs().max().item()
+            scale = ref.abs().max().item()
+            ok = bool(math.isfinite(err) and err <= tol * scale)
+            dev_ms = device_ms(torch, lambda: fused_epilogue(*rs, post), (kernel,))
+            avg_ms = (device_ms(torch, lambda: fused_epilogue(*rs),
+                                ("triple_avg_kernel",)) if tail else None)
+            ms = time_ms(torch, lambda: fused_epilogue(*rs, post), 10)
+            plain_ms = time_ms(torch, lambda: composed_epilogue(*rs, post), 5)
+        n_bytes = 4.0 * (3 * n + (t + 9 * c if tail else n))
+        flops = 3.0 * n + ((SNAKE_FLOPS + 14) * n + t if tail else 0)
+        b_ms, b_by = bound_ms(n_bytes, flops)
+        line = {"phase": "epilogue", "name": "triple_epilogue",
+                "kernel": kernel, "stage": stage,
+                "shape": f"C={c} T={t}{' +tail' if tail else ''}",
+                "max_abs_err": err, "max_abs_ref": scale,
+                "tolerance": f"{tol:g} x max|ref|", "ok": ok,
+                "device_ms": dev_ms, "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": b_ms, "bound_by": b_by,
+                "copy_floor_ms": copy_floor_ms(torch, dev, n_bytes)}
+        if tail:
+            line["avg_device_ms"] = avg_ms
+            line["tile_sweep"] = epilogue_tile_sweep(torch, rs, post, ref, tol)
+            line["split"] = tail_split(torch, rs, post)
+        print(json.dumps(line), flush=True)
+        if not ok:
+            fail(f"triple_epilogue {stage}: max abs err {err} > {tol} x {scale}")
+        lines.append(line)
+    print(json.dumps({"phase": "epilogue_per_request", "frames": T_FRAMES,
+                      "launches": len(lines),
+                      **{k: sum(ln[k] for ln in lines) for k in (
+                          "device_ms", "ms", "plain_ms", "bound_ms",
+                          "copy_floor_ms")}}), flush=True)
+    return lines
 
 
 # Every AMPBlock stage of a request of T_FRAMES frames: (stage, C, T / frames,
@@ -746,6 +932,7 @@ def main() -> int:
                       "library": so.name}), flush=True)
 
     kernels = kernel_phase(torch, dev)
+    kernels["amp_triple"] = epilogue_phase(torch, dev)
     snake_conv_phase(torch, dev)
     kernels["plm_decode"] = plm_phase(torch, dev)
     _, pipe, prompt, audio, inputs = path_phase(torch, dev)
@@ -765,15 +952,18 @@ def main() -> int:
         cpu_phase(torch, pipe, cpu_pipe, prompt, cpu_prompt, inputs)
     cpu_tts_phase(torch, pipe, cpu_pipe, prompt, cpu_prompt, reqs)
 
+    # ms: CUDA events around the wrapper on every row, as in earlier runs;
+    # device_ms: the kernel's own time (profiler) where the phase took it
     out = []
-    for name, lines in kernels.items():
+    for key, lines in kernels.items():
         slowest = max(lines, key=lambda ln: ln["ms"])
-        src, replaces = SOURCES[name]
+        name, src, replaces = SOURCES[key]
         out.append({
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
-            "launches": launches[name],
+            "launches": launches[key],
             "max_abs_err": max(ln["max_abs_err"] for ln in lines),
-            "ms": slowest["ms"], "plain_ms": slowest["plain_ms"],
+            "ms": slowest["ms"], "device_ms": slowest.get("device_ms"),
+            "plain_ms": slowest["plain_ms"],
             "bound_ms": slowest["bound_ms"], "bound_by": slowest["bound_by"],
             "bound_ms_f32": slowest.get("bound_ms_f32"),
             "library_ms": None, "shape": slowest["shape"],

@@ -89,3 +89,58 @@ __device__ __forceinline__ float down_at(const float* us, int r) {
   for (int k = 0; k < 12; ++k) v += kDown[k] * us[(2 * r + k) * kChunk + lane];
   return v;
 }
+
+// Register-window form, for kernels that give each thread one channel and
+// R consecutive outputs p0..p0+R-1 (aa_snake.cu, triple_epilogue.cu).
+// xw[i] = x[clamp(p0 - 5 + i)], i = 0..R+9, holds every x those outputs
+// read; the s(u) at u = 2 p0 - 5 + j, j = 0..2R+9, are each computed once
+// and feed the down filter straight from registers. Where that u index
+// leaves [0, 2T-1] it clamps: s_lo = s(u[0]) and s_hi = s(u[2T-1]) stand in
+// there, which the caller computes (su_at) only where its outputs reach an
+// edge (p0 < 3, p0 + R > T - 3). The sums run in the order of up_at and
+// down_at. (A copy without the clamp test for the threads away from the
+// edges measured slower: two unrolled copies of the loop.)
+
+template <int R>
+__device__ __forceinline__ void aa_window(const float (&xw)[R + 10], int p0,
+                                          int T, float s_lo, float s_hi,
+                                          float alpha, float inv_beta,
+                                          float (&y)[R]) {
+#pragma unroll
+  for (int r = 0; r < R; ++r) y[r] = 0.f;
+#pragma unroll
+  for (int j = 0; j < 2 * R + 10; ++j) {
+    float u = 0.f;
+    if (j & 1) {  // u index even
+#pragma unroll
+      for (int i = 0; i < 6; ++i) u += kUpEven[i] * xw[(j - 1) / 2 + i];
+    } else {
+#pragma unroll
+      for (int i = 0; i < 6; ++i) u += kUpOdd[i] * xw[j / 2 + i];
+    }
+    const int uj = 2 * p0 - 5 + j;
+    float s = snake(u, alpha, inv_beta);
+    s = uj < 0 ? s_lo : (uj > 2 * T - 1 ? s_hi : s);
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const int k = j - 2 * r;
+      if (k >= 0 && k < 12) y[r] += kDown[k] * s;
+    }
+  }
+}
+
+// s(u[j]) for 0 <= j < 2T, x(q) returning x at row q, 0 <= q < T.
+template <class X>
+__device__ __forceinline__ float su_at(X x, int j, int T, float alpha,
+                                       float inv_beta) {
+  const int m = j >> 1;
+  float u = 0.f;
+  if (j & 1) {
+#pragma unroll
+    for (int i = 0; i < 6; ++i) u += kUpOdd[i] * x(clampi(m - 2 + i, 0, T - 1));
+  } else {
+#pragma unroll
+    for (int i = 0; i < 6; ++i) u += kUpEven[i] * x(clampi(m - 3 + i, 0, T - 1));
+  }
+  return snake(u, alpha, inv_beta);
+}

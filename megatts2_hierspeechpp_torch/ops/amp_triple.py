@@ -26,17 +26,11 @@ from megatts2_hierspeechpp_torch.ops.ampblock import composed_ampblock, run_bloc
 from megatts2_hierspeechpp_torch.ops.resample import activation1d
 
 
-def composed_triple(x, block_ws, ks, dils, post=None):
-    """Plain version (the JAX `composed_triple`).
-
-    x: (B, T, C); block_ws: per block the ops/ampblock weight tuple; post:
-    optional (alpha, 1/beta, w_post (7, C)) -> (B, T, 1) tanh waveform, else
-    the (B, T, C) averaged blocks."""
-    xs = None
-    for bw, k, d in zip(block_ws, ks, dils):
-        r = composed_ampblock(x, *bw, k, d)
-        xs = r if xs is None else xs + r
-    y = xs / float(len(ks))
+def composed_epilogue(r0, r1, r2, post=None):
+    """Plain version of the epilogue: the average of the three block
+    outputs (B, T, C) and, with `post` = (alpha, 1/beta, w_post (7, C)),
+    the tail tanh(conv_post(AA-snake(avg))) -> (B, T, 1)."""
+    y = (r0 + r1 + r2) / 3.0
     if post is None:
         return y
     pa, pib, pw = post
@@ -45,24 +39,93 @@ def composed_triple(x, block_ws, ks, dils, post=None):
     return torch.tanh(y)
 
 
-def _launch(x, block_ws, dils, post):
-    b, t, c = x.shape
-    dev = x.device
-    rs = [run_block(x, bw, d) for bw, d in zip(block_ws, dils)]
+def composed_triple(x, block_ws, ks, dils, post=None):
+    """Plain version (the JAX `composed_triple`).
+
+    x: (B, T, C); block_ws: per block (three) the ops/ampblock weight tuple;
+    post: optional (alpha, 1/beta, w_post (7, C)) -> (B, T, 1) tanh
+    waveform, else the (B, T, C) averaged blocks."""
+    rs = [composed_ampblock(x, *bw, k, d) for bw, k, d in zip(block_ws, ks, dils)]
+    return composed_epilogue(*rs, post=post)
+
+
+EPILOGUE_THREADS = 256          # csrc/triple_epilogue.cu kThreads
+EPILOGUE_TILES = (248, 120, 56, 24)
+EPILOGUE_ROWS_PER_TASK = 16     # kR: AA-snake rows per thread task
+SMEM_LIMIT = 232_448            # shared memory a Hopper block may use
+
+
+def epilogue_smem(c: int, tile: int) -> int:
+    """Shared bytes of the tail kernel: conv_post weights C x 8 (padded),
+    average (rows + 10) x C, AA-snake C x (rows + 1), rows = tile + 8."""
+    return 4 * c * (2 * (tile + 8) + 19)
+
+
+def epilogue_plan(b: int, t: int, c: int, tile: int | None = None) -> dict:
+    """The tail kernel's launch plan, as csrc/triple_epilogue.cu checks it:
+    the first of EPILOGUE_TILES whose shared memory fits (or `tile`). Block
+    (x, bb) writes outputs x L .. x L + L - 1 of batch row bb; its AA-snake
+    covers rows x L - 3 .. x L + L + 4, in (L + 8) / 16 tasks of 16 rows per
+    channel."""
+    fits = [L for L in EPILOGUE_TILES if epilogue_smem(c, L) <= SMEM_LIMIT]
+    if tile is None:
+        tile = fits[0] if fits else None
+    if tile not in fits:
+        raise ValueError(f"triple epilogue: no tile of {EPILOGUE_TILES} "
+                         f"fits shared memory at C={c}")
+    rows = tile + 8  # the conv's 3 + 3 halo, rounded up to 16 rows
+    return {"tile": tile, "rows": rows, "smem": epilogue_smem(c, tile),
+            "grid": (-(-t // tile), b),
+            "tasks": rows // EPILOGUE_ROWS_PER_TASK * c}
+
+
+def _epilogue(r0, r1, r2, post, tile=None, stamps=None):
+    b, t, c = r0.shape
+    dev = r0.device
+    for name, r in (("r0", r0), ("r1", r1), ("r2", r2)):
+        cuda_lib.check(r, name, dev, (b, t, c))
     if post is None:
-        y = torch.empty_like(x)
-        cuda_lib.call("triple_avg_fwd", *map(cuda_lib.ptr, rs), cuda_lib.ptr(y),
+        y = torch.empty_like(r0)
+        cuda_lib.call("triple_avg_fwd", *map(cuda_lib.ptr, (r0, r1, r2, y)),
                       b * t * c, cuda_lib.stream(dev))
-    else:
-        pa, pib, pw = post
-        cuda_lib.check(pa, "post alpha", dev, (c,))
-        cuda_lib.check(pib, "post inv_beta", dev, (c,))
-        cuda_lib.check(pw, "post weight", dev, (7, c))
-        y = torch.empty((b, t, 1), device=dev, dtype=x.dtype)
-        cuda_lib.call("triple_post_fwd", *map(cuda_lib.ptr, rs),
-                      cuda_lib.ptr(pa), cuda_lib.ptr(pib), cuda_lib.ptr(pw),
-                      cuda_lib.ptr(y), b, t, c, cuda_lib.stream(dev))
+        return y
+    pa, pib, pw = post
+    cuda_lib.check(pa, "post alpha", dev, (c,))
+    cuda_lib.check(pib, "post inv_beta", dev, (c,))
+    cuda_lib.check(pw, "post weight", dev, (7, c))
+    plan = epilogue_plan(b, t, c, tile)
+    y = torch.empty((b, t, 1), device=dev, dtype=r0.dtype)
+    cuda_lib.call("triple_post_fwd", *map(cuda_lib.ptr, (r0, r1, r2, pa, pib, pw, y)),
+                  b, t, c, plan["tile"], plan["smem"], cuda_lib.ptr(stamps),
+                  cuda_lib.stream(dev))
     return y
+
+
+def tail_stamps(r0, r1, r2, post):
+    """One launch of the tail kernel with its phase stamps (a diagnostic):
+    (y, stamps) with stamps (B x tiles, 4) int64 SM cycles, per block at
+    its start and after its load + average, AA-snake and conv phases."""
+    b, t, c = r0.shape
+    x, bb = epilogue_plan(b, t, c)["grid"]
+    stamps = torch.zeros((bb * x, 4), dtype=torch.int64, device=r0.device)
+    return _epilogue(r0, r1, r2, post, stamps=stamps), stamps
+
+
+def fused_epilogue(r0, r1, r2, post=None):
+    """The epilogue alone on given block outputs (B, T, C) float32: the
+    average, or with `post` the (B, T, 1) tail. CUDA tensors run
+    `csrc/triple_epilogue.cu`, CPU tensors `composed_epilogue`. Not counted
+    and not differentiable: the stage wrapper is the path's entry point;
+    this one holds the kernel against its plain version."""
+    if r0.device.type == "cpu":
+        return composed_epilogue(r0, r1, r2, post)
+    if r0.device.type != "cuda":
+        raise ValueError(f"unsupported device {r0.device}")
+    return _epilogue(r0, r1, r2, post)
+
+
+def _launch(x, block_ws, dils, post):
+    return _epilogue(*[run_block(x, bw, d) for bw, d in zip(block_ws, dils)], post)
 
 
 def _unflatten(flat, n_blocks: int, has_post: bool):

@@ -36,16 +36,17 @@ LAUNCHES = {"aa_snakebeta": 0, "ampblock": 0, "amp_triple": 0,
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
-    # x, alpha, inv_beta, y, B, T, C, stream
-    "aa_snakebeta_fwd": [_P, _P, _P, _P, _I, _I, _I, _P],
+    # x, alpha, inv_beta, y, B, T, C, rows, blocks, stream
+    "aa_snakebeta_fwd": [_P] * 4 + [_I] * 5 + [_P],
     # x, alpha, inv_beta, w, bias, res, y, B, T, Cin, Cout, K, dil, stream
     "snake_conv_fwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     # B, T, Cout, K, dil, &tm, &tn
     "snake_conv_tile": [_I] * 5 + [_P, _P],
     # r0, r1, r2, y, n, stream
     "triple_avg_fwd": [_P, _P, _P, _P, _I, _P],
-    # r0, r1, r2, alpha, inv_beta, w7, y, B, T, C, stream
-    "triple_post_fwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    # r0, r1, r2, alpha, inv_beta, w7, y, B, T, C, tile, smem_bytes, stamps,
+    # stream
+    "triple_post_fwd": [_P] * 7 + [_I] * 5 + [_P, _P],
     # tc, pe, emb, wqkv, bqkv, wo, bo, ln, ff0, ff0b, ff1, ff1b, pred, cache,
     # xch, codes, stamps, T, L, D, TC, H, F, BINS, go_id, grid, smem_bytes,
     # xch_pairs, stream

@@ -9,9 +9,12 @@ with the x2 kaiser-sinc upsampler as two 6-tap polyphase filters and the 12-tap
 kaiser low-pass downsampler (`csrc/aa_snake.cu`).
 
 On the H100 the function is bound by bytes: it reads x once and writes y
-once, about 58 flops per element against 8 bytes. The kernel keeps the x2
-intermediate out of device memory: a block stages its x tile plus a 6-sample
-halo in shared memory, computes s(u) for the tile there, and writes only y.
+once, about 58 flops per element against 8 bytes. On the serving path x has
+just been written and sits in L2, so the kernel's time is its arithmetic
+and the ramp of a short launch. It keeps the x2 intermediate out of memory
+and has no block barrier: a thread owns one channel and `rows` consecutive
+outputs, loads the rows + 10 x rows they read, and computes each s(u) once
+with the down filter's sums in registers (`snake_plan`).
 Sequence edges are exact: the composed op replicate-pads x before the
 upsampler and s(u) before the downsampler, so the kernel clamps the x index
 to [0, T-1] and the u index to [0, 2T-1]. No edge strip is recomputed from
@@ -77,7 +80,27 @@ def inverse_beta(beta):
     return 1.0 / (beta + EPS)
 
 
-def _launch(x, alpha, beta, inv_beta=None):
+THREADS = 128     # per block, csrc/aa_snake.cu kThreads
+ROWS = (4, 8)     # outputs per thread the kernel is built for
+
+
+def snake_plan(b: int, t: int, c: int, rows: int | None = None) -> dict:
+    """The kernel's launch plan, as csrc/aa_snake.cu recomputes it: a
+    thread owns one channel and `rows` consecutive outputs (a segment); a
+    block of THREADS threads is 32 channels (lanes) x 4 consecutive
+    segments (warps), blocks running channel chunk fastest, then segment
+    group, then batch row. By default 8 rows per thread at C > 64 and 4
+    otherwise: the measured best at the serving path's C = 256 and C = 64
+    (PERF.md)."""
+    if rows is None:
+        rows = 8 if c > 64 else 4
+    if rows not in ROWS:
+        raise ValueError(f"no aa_snakebeta kernel for rows={rows}")
+    segs = -(-t // rows)
+    return {"rows": rows, "blocks": b * -(-segs // 4) * -(-c // 32)}
+
+
+def _launch(x, alpha, beta, inv_beta=None, rows=None):
     x = x.contiguous()
     b, t, c = x.shape
     cuda_lib.check(x, "x", x.device)
@@ -86,10 +109,11 @@ def _launch(x, alpha, beta, inv_beta=None):
     if inv_beta is None:
         inv_beta = inverse_beta(beta)
     cuda_lib.check(inv_beta, "inv_beta", x.device, (c,))
+    plan = snake_plan(b, t, c, rows)
     y = torch.empty_like(x)
     cuda_lib.call("aa_snakebeta_fwd", cuda_lib.ptr(x), cuda_lib.ptr(alpha),
                   cuda_lib.ptr(inv_beta), cuda_lib.ptr(y), b, t, c,
-                  cuda_lib.stream(x.device))
+                  plan["rows"], plan["blocks"], cuda_lib.stream(x.device))
     cuda_lib.LAUNCHES["aa_snakebeta"] += 1
     return y
 

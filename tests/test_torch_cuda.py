@@ -4,7 +4,8 @@ installed:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
-Tolerance: atol 1e-5, rtol 1e-4 for the snake; 1e-4 for the conv kernels
+Tolerance: atol 1e-5, rtol 1e-4 for the snake and the triple's average;
+1e-4 for the triple's tail (sin, tanh, 7 C-term sums) and the conv kernels
 (accumulation order over k*C terms; the split-TF32 products are as accurate
 as float32, a single TF32 pass would fail it, see test_torch_tf32split.py). The PLM decode kernel's codes must pass
 the teacher-forced check (each code within 1e-4 x max|logits| of its row's
@@ -94,6 +95,85 @@ def test_kernels_match_plain(dev, t, c, k):
     torch.cuda.synchronize()
     assert cuda_lib.LAUNCHES == {"aa_snakebeta": 1, "ampblock": 1,
                                  "amp_triple": 2, "plm_decode": 0}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c", [256, 200, 512])
+@pytest.mark.parametrize("t", [1, 7, 8, 2000, 2001])
+def test_snakebeta_wide_channels(dev, t, c):
+    """The AA-snake at the serving path's C = 256, a ragged 200 and 512,
+    with every rows-per-thread the kernel is built for, and on a view whose
+    start is not 16-byte aligned; each call counts one launch."""
+    rng = np.random.default_rng(7 * t + c)
+    x = _rand(rng, dev, 2, t, c)
+    a, be = torch.exp(_rand(rng, dev, c, scale=0.3)), torch.exp(_rand(rng, dev, c, scale=0.3))
+    cuda_lib.reset_launches()
+    with torch.inference_mode():
+        want = snake.composed_snakebeta(x, a, be)
+        torch.testing.assert_close(snake.fused_aa_snakebeta(x, a, be), want,
+                                   atol=1e-5, rtol=1e-4)
+        for rows in snake.ROWS:
+            torch.testing.assert_close(snake._launch(x, a, be, rows=rows), want,
+                                       atol=1e-5, rtol=1e-4)
+        xv = torch.empty(2 * t * c + 1, device=dev)[1:].view(2, t, c).copy_(x)
+        torch.testing.assert_close(snake.fused_aa_snakebeta(xv, a, be), want,
+                                   atol=1e-5, rtol=1e-4)
+    torch.cuda.synchronize()
+    assert cuda_lib.LAUNCHES["aa_snakebeta"] == 2 + len(snake.ROWS)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tail", [False, True])
+@pytest.mark.parametrize("c", [7, 16, 32, 48, 64])
+@pytest.mark.parametrize("t", [1, 7, 23, 24, 25, 119, 120, 121, 247, 248,
+                               249, 1000])
+def test_epilogue_matches_plain(dev, t, c, tail):
+    """csrc/triple_epilogue.cu alone on given block outputs, B = 2, against
+    composed_epilogue: T = 1, 7, both sides of the plan's 248-sample tile
+    and of two shorter tiles the kernel takes at wider C, and a T that is a
+    multiple of none; C = 7 takes the 4-byte copies; the tail at
+    every tile. Average to 1e-5, the tail to 1e-4 (sin, tanh and the conv's
+    7 C-term sums)."""
+    rng = np.random.default_rng(100 * t + c + tail)
+    rs = [_rand(rng, dev, 2, t, c, scale=3.0) for _ in range(3)]
+    post = (torch.exp(_rand(rng, dev, c, scale=0.2)),
+            torch.exp(_rand(rng, dev, c, scale=0.2)),
+            _rand(rng, dev, 7, c, scale=0.1 * (7 * c) ** -0.5)) if tail else None
+    tol = 1e-4 if tail else 1e-5
+    with torch.inference_mode():
+        want = amp_triple.composed_epilogue(*rs, post)
+        got = amp_triple.fused_epilogue(*rs, post)
+        torch.testing.assert_close(got, want, atol=tol, rtol=1e-4)
+        if tail:  # every tile that fits
+            for tile in amp_triple.EPILOGUE_TILES:
+                if amp_triple.epilogue_smem(c, tile) <= amp_triple.SMEM_LIMIT:
+                    torch.testing.assert_close(
+                        amp_triple._epilogue(*rs, post, tile), want,
+                        atol=tol, rtol=1e-4)
+        # misaligned views take the 4-byte copies
+        views = [torch.empty(r.numel() + 1, device=dev)[1:].view_as(r).copy_(r)
+                 for r in rs]
+        torch.testing.assert_close(amp_triple.fused_epilogue(*views, post), got,
+                                   atol=0, rtol=0)
+
+
+@pytest.mark.cuda
+def test_epilogue_and_snake_are_deterministic(dev):
+    """Two identical launches give bit-identical output: no atomics, every
+    sum in a fixed order."""
+    rng = np.random.default_rng(9)
+    t, c = 160_000, 16
+    rs = [_rand(rng, dev, 1, t, c) for _ in range(3)]
+    post = (torch.exp(_rand(rng, dev, c, scale=0.2)),
+            torch.exp(_rand(rng, dev, c, scale=0.2)),
+            _rand(rng, dev, 7, c, scale=0.1 * (7 * c) ** -0.5))
+    x = _rand(rng, dev, 1, 2000, 256)
+    a, be = torch.exp(_rand(rng, dev, 256, scale=0.3)), torch.exp(_rand(rng, dev, 256, scale=0.3))
+    with torch.inference_mode():
+        for fn in (lambda: amp_triple.fused_epilogue(*rs, post),
+                   lambda: amp_triple.fused_epilogue(*rs),
+                   lambda: snake.fused_aa_snakebeta(x, a, be)):
+            assert torch.equal(fn(), fn())
 
 
 @pytest.mark.cuda
