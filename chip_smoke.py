@@ -20,7 +20,10 @@ Phases, in order; any failure exits non-zero:
      request, beside a cuDNN conv1d of the same conv (the conv alone), and
      their sum per request; the PLM decode kernel at full width (d 276, 4
      layers, 1024 bins) at T = 500, 1 and 37, its codes held by the
-     teacher-forced check;
+     teacher-forced check; its bf16 weight / cache configuration at T = 500
+     (ms, teacher-forced gap against the bf16 plain twin, token agreement
+     with float32, 10 repeats identical), and the per-row greedy decode of
+     a batch of 4 in float32 and bf16 (one launch per row);
   4. the decode half (`synthesize`) at the published HierSpeech++ widths
      with seeded random weights: one 3 s prompt, three requests of
      100/250/500 frames (2/5/10 s) through vocoder + SpeechSR-48k, checking
@@ -32,17 +35,33 @@ Phases, in order; any failure exits non-zero:
      rate, whose length_scale is chosen by the duration pre-pass to land
      near 100/250/500 frames; each output, the kernel calls (slice-1 counts
      plus one plm_decode), ms per request, and ms per stage from a second
-     run of the public stages one by one under CUDA events;
+     run of the public stages one by one under CUDA events; these requests
+     pass exact=True (no length buckets), as in earlier runs;
   6. the 500-frame synthesize and tts requests under torch.profiler: device
      time by kernel group, the device's idle share, peak memory, the top
      kernels;
   7. the 100-frame synthesize and tts requests once more on the CPU (plain
      versions; the tts run takes the card's prosody codes), held against
-     the card's waveform before peak normalisation.
-Then one JSON line with every kernel's numbers, and last the device line.
+     the card's waveform before peak normalisation;
+  8. the serving front end at the same widths, each path with its kernel
+     counts zeroed just before it and read just after, and its launch
+     shapes recorded: `serve_batch`, tts_batch of 4 texts (one frame bucket,
+     401-600 frames) with one prompt, then of 3 with a bucketed speaker
+     each, 48 kHz (batch ms, audio-s/s, each row against its own bucketed
+     tts call); `serve_stream`, tts_stream of the 10 s request at 16 and 48
+     kHz, 200-frame chunks with 32-frame halos (ms to the first and the
+     last chunk, against tts); `serve_server`, 8 requests from 4 threads
+     for 4 speakers through TTSServer (ms per request, tts_batch calls);
+     then every kernel against its plain version at each distinct launch
+     shape these paths gave it (`new_shape` lines; the AA-snake and the
+     epilogue with their device ms; the shared-prompt batch profiled).
+Then one JSON line with every kernel's numbers (launches: the f32 rows
+from the tts requests of phase 5, the bf16 row from its batch decode of
+phase 3), the card's name and power limit from phase 1 printed first, and
+last the device line.
 
-Float32 throughout, TF32 off. Without CUDA it exits non-zero before
-printing any result.
+Float32 throughout (but for the bf16 decode configuration), TF32 off.
+Without CUDA it exits non-zero before printing any result.
 """
 from __future__ import annotations
 
@@ -57,11 +76,30 @@ import numpy as np
 T_FRAMES = 500          # frames of the longest request; kernel shapes derive from it
 REQUEST_FRAMES = (100, 250, 500)
 EXPECTED_CALLS = {"aa_snakebeta": 19, "ampblock": 6, "amp_triple": 5,
-                  "plm_decode": 0}
+                  "plm_decode": 0, "plm_decode_bf16": 0}
+# the kernels of the serving path (float32 decode, the port's default)
+PATH_KERNELS = ("aa_snakebeta", "ampblock", "amp_triple", "plm_decode")
 TTS_CALLS = dict(EXPECTED_CALLS, plm_decode=1)
 PLM_T = (500, 1, 37)    # decode lengths of phase 3; the first is the main path's
 TF_MARGIN = 1e-4        # teacher-forced gap, x max|logits|
+# The bf16 configuration's gap against its plain twin: one bf16 step (2^-8)
+# of the logits' scale. The same twin run on the CPU and on the card (sum
+# order alone differs) already flips near ties by several 1e-4 of it (the
+# plm_bf16 line's cpu_twin entries): a value that lands within float
+# error of a bf16 rounding boundary rounds one way in one order and the
+# other way in another, some 0.5 times per token.
+BF16_MARGIN = 2.0 ** -8
+BF16_LATENTS = 3        # T=500 latents of the bf16 comparison
 PLM_REPEATS = 10        # launches at the main path's T that must give the same codes
+BATCH_ROWS = 4          # serve_batch's rows (one shared prompt) and the per-row decode
+SPEAKER_ROWS = 3        # serve_batch's rows with one prompt each
+SERVE_FRAMES = (401, 600)   # serve_batch's texts: predicted frames in one bucket
+SERVE_TOL = 1e-4        # a batch row against its own tts call, x its peak
+STREAM_CHUNK, STREAM_HALO = 200, 32
+STREAM_TOL = 1e-5       # stream vs tts: 16 kHz after peak normalisation; 48 kHz
+                        # interior after the least-squares gain
+STREAM_TAIL = 1024      # 48 kHz samples at the end left out of the interior
+SERVER_REQUESTS, SERVER_THREADS, SERVER_SPEAKERS = 8, 4, 4
 # Mandarin read speech: 5.18 syllables/s (Pellegrino, Coupe & Marsico 2011,
 # "A cross-language perspective on speech information rate", Language
 # 87(3), Table 2); a prosodic phrase break ("sp") every 8 syllables
@@ -84,6 +122,10 @@ SOURCES = {  # launch-count key: (kernel, source, TPU kernel it replaces)
                    "megatts2_hierspeechpp_tpu/ops/pallas_amp_triple.py:60"),
     "plm_decode": ("plm_decode", "megatts2_hierspeechpp_torch/csrc/plm_decode.cu",
                    "megatts2_hierspeechpp_tpu/ops/pallas_plm_decode.py:59"),
+    # the same kernel's bf16 weight / cache configuration
+    "plm_decode_bf16": ("plm_decode_bf16",
+                        "megatts2_hierspeechpp_torch/csrc/plm_decode.cu",
+                        "megatts2_hierspeechpp_tpu/ops/pallas_plm_decode.py:59"),
 }
 
 
@@ -107,30 +149,37 @@ def time_ms(torch, fn, reps: int) -> float:
     return float(np.median(times))
 
 
-def device_ms(torch, fn, keys, reps: int = 20) -> float:
+def device_ms(torch, fn, keys, reps: int = 20, attempts: int = 3,
+              required: bool = True):
     """Median device time (ms) of the kernels whose names hold one of
     `keys`, over reps back-to-back calls of fn() under torch.profiler, after
     2 warm-ups. This is the kernel's own time on the card; the wrapper's
     host cost (time_ms) is about 10x it at the snake's shapes. The
-    profiler's activity records can drop a launch now and then (19 of 20
-    copies seen on an H100), so the median is over the launches it
-    recorded, and at least half of them must be there."""
+    profiler's activity records can drop launches (19 of 20 copies seen on
+    an H100 in one run, 7 of 20 in another), so the median is over the
+    launches it recorded, at least half of them; a window with fewer is
+    profiled again, up to `attempts` times, and then fails the run, or
+    gives None when not `required`."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(2):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    us = [ev.time_range.elapsed_us() for ev in prof.events()
-          if ev.device_type == DeviceType.CUDA
-          and any(k in ev.name for k in keys)]
-    if 2 * len(us) < reps:
-        fail(f"profiler saw {len(us)} of {reps} launches of {keys}")
-    return float(np.median(us)) / 1e3
+    for _ in range(attempts):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        us = [ev.time_range.elapsed_us() for ev in prof.events()
+              if ev.device_type == DeviceType.CUDA
+              and any(k in ev.name for k in keys)]
+        if 2 * len(us) >= reps:
+            return float(np.median(us)) / 1e3
+    if not required:
+        return None
+    fail(f"profiler saw {len(us)} of {reps} launches of {keys}, "
+         f"{attempts} times")
 
 
 def copy_floor_ms(torch, dev, n_bytes: float) -> float:
@@ -509,13 +558,15 @@ def snake_conv_phase(torch, dev):
                       **total}), flush=True)
 
 
-def plm_work(model, t: int):
+def plm_work(model, t: int, wbytes: int = 4):
     """(bytes, flops) of one greedy decode of t tokens: every weight and the
-    input latent read once, the codes written once; 2 flops per weight of
-    every matrix per token, plus q.k and p.v over the cache."""
-    n_bytes = 4.0 * (sum(p.numel() for p in model.parameters()) + t * 256 + t)
+    input latent read once (the matrices at wbytes per weight), the codes
+    written once; 2 flops per weight of every matrix per token, plus q.k and
+    p.v over the cache."""
     mats = sum(p.numel() for n, p in model.named_parameters()
                if p.dim() == 2 and not n.startswith("pc_embedding"))
+    n_bytes = (4.0 * (sum(p.numel() for p in model.parameters()) + t * 256 + t)
+               - (4 - wbytes) * mats)
     d, n_layers = model.predict_layer.weight.shape[1], len(model.plm.layers)
     return n_bytes, 2.0 * mats * t + n_layers * 4.0 * d * t * (t + 1) / 2
 
@@ -617,6 +668,108 @@ def plm_phase(torch, dev):
             fail(f"plm_decode T={t}: teacher-forced gap {gap} > {TF_MARGIN} x {scale}")
         lines.append(line)
     return lines
+
+
+def plm_bf16_phase(torch, dev):
+    """The bf16 configuration of the decode kernel (weights and KV cache
+    bf16, float32 sums) at the main path's T: its ms, its teacher-forced
+    gap against the bf16 plain twin (plain_gap, fails above BF16_MARGIN x
+    max|logits|), its token agreement with the float32 kernel (reported
+    only), PLM_REPEATS launches identical (fails otherwise); on each of
+    BF16_LATENTS latents, beside the kernel's gap and agreement with the
+    twin on the card, as a yardstick, the twin on the CPU's (its sums in
+    another order). Then the
+    per-row greedy decode of a batch of BATCH_ROWS through models/plm.decode
+    in float32 and in bf16: one launch per row, the codes held by the
+    teacher-forced gap against plain_decode's batch in the same dtypes. The
+    bf16 batch is this configuration's path: its counts are zeroed just
+    before it and read just after."""
+    from megatts2_hierspeechpp_torch.models.plm import ProsodyLM, decode
+    from megatts2_hierspeechpp_torch.ops import cuda_lib
+    from megatts2_hierspeechpp_torch.ops.plm_decode import (
+        plain_decode, plain_gap, plm_decode_greedy)
+
+    bf = torch.bfloat16
+    model = ProsodyLM(seed=99, device=dev)
+    w = model.packed()
+    cpu_w = ProsodyLM(seed=99, device="cpu").packed()
+    t = PLM_T[0]
+    gen = torch.Generator().manual_seed(5)
+    go = model.go_id
+    latents = []  # per latent: the kernel and the CPU twin against the card twin
+    with torch.inference_mode():
+        for i in range(BF16_LATENTS):  # the first is plm_phase's T=500 latent
+            tc = torch.randn(1, t, 256, generator=gen).to(dev)
+            codes = plm_decode_greedy(w, tc, go, bf, bf)
+            twin = plain_decode(w, tc, go, weight_dtype=bf, cache_dtype=bf)
+            cpu_twin = plain_decode(cpu_w, tc.cpu(), go, weight_dtype=bf,
+                                    cache_dtype=bf)
+            gap, scale = plain_gap(w, tc, codes, go, bf, bf)
+            latents.append({
+                "kernel": {"agreement": (codes == twin).float().mean().item(),
+                           "gap": gap},
+                "cpu_twin": {"agreement": (cpu_twin == twin.cpu()).float().mean().item(),
+                             "gap": plain_gap(w, tc, cpu_twin, go, bf, bf)[0]},
+                "max_abs_ref": scale})
+            if i == 0:
+                first, tc0, f32 = codes, tc, plm_decode_greedy(w, tc, go)
+        ms = time_ms(torch, lambda: plm_decode_greedy(w, tc0, go, bf, bf), 5)
+        f32_ms = time_ms(torch, lambda: plm_decode_greedy(w, tc0, go), 5)
+        plain_ms = time_ms(torch, lambda: plain_decode(
+            w, tc0, go, weight_dtype=bf, cache_dtype=bf), 1)
+        same = sum(bool(torch.equal(plm_decode_greedy(w, tc0, go, bf, bf), first))
+                   for _ in range(PLM_REPEATS))
+    b_ms, b_by = bound_ms(*plm_work(model, t, 2))
+    worst = max(latents, key=lambda x: x["kernel"]["gap"] / x["max_abs_ref"])
+    line = {"phase": "plm_bf16", "name": "plm_decode_bf16",
+            "shape": f"T={t} d=276 L=4 H=4 F=1104 bins=1024 bf16 weights+cache",
+            "max_abs_err": worst["kernel"]["gap"],
+            "max_abs_ref": worst["max_abs_ref"],
+            "tolerance": f"teacher-forced gap vs the bf16 plain twin <= "
+                         f"{BF16_MARGIN:g} x max|logits|",
+            "agreement_with_f32_kernel": (first == f32).float().mean().item(),
+            "latents": latents,
+            "repeats_identical": f"{same}/{PLM_REPEATS}", "ms": ms,
+            "f32_ms": f32_ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+            "bound_by": b_by}
+    ok = (all(x["kernel"]["gap"] <= BF16_MARGIN * x["max_abs_ref"]
+              for x in latents)
+          and bool(((first >= 0) & (first < 1024)).all()))
+    print(json.dumps(line), flush=True)
+    if not ok:
+        fail(f"plm_decode bf16 T={t}: teacher-forced gap over "
+             f"{BF16_MARGIN} x max|logits| ({latents})")
+    if same != PLM_REPEATS:
+        fail(f"plm_decode bf16 T={t}: {PLM_REPEATS - same} of {PLM_REPEATS} "
+             "repeated launches gave other codes")
+
+    # per-row greedy batch through the public decode
+    tcb = torch.randn(BATCH_ROWS, t, 256, generator=gen).to(dev)
+    for dt, key in ((torch.float32, "plm_decode"), (bf, "plm_decode_bf16")):
+        with torch.inference_mode():
+            torch.cuda.synchronize()
+            cuda_lib.reset_launches()
+            rows = decode(model, tcb, weight_dtype=dt, cache_dtype=dt)
+            torch.cuda.synchronize()
+            counts = dict(cuda_lib.LAUNCHES)
+            gap_b, scale_b = plain_gap(w, tcb, rows, go, dt, dt)
+            agree = (rows == plain_decode(w, tcb, go, weight_dtype=dt,
+                                          cache_dtype=dt)).float().mean().item()
+        ln = {"phase": "plm_batch", "dtype": str(dt), "rows": BATCH_ROWS,
+              "T": t, "calls": counts, "max_abs_err": gap_b,
+              "max_abs_ref": scale_b, "agreement_with_plain": agree}
+        print(json.dumps(ln), flush=True)
+        want = dict.fromkeys(counts, 0)
+        want[key] = BATCH_ROWS
+        if counts != want:
+            fail(f"per-row decode {dt}: kernel calls {counts}, expected {want}")
+        margin = TF_MARGIN if dt == torch.float32 else BF16_MARGIN
+        if not gap_b <= margin * scale_b:
+            fail(f"per-row decode {dt}: teacher-forced gap {gap_b} > "
+                 f"{margin} x {scale_b}")
+        if dt == bf:
+            line["launches"] = counts[key]
+    return line
 
 
 def request_inputs(t: int):
@@ -729,7 +882,7 @@ def tts_requests(pipe, prompt):
         lo, hi = 0.02, 50.0
         for _ in range(40):
             ls = math.sqrt(lo * hi)
-            n = pipe.duration(text, prompt, ls)
+            n = pipe.duration(text, prompt, ls, exact=True)
             if abs(n - f) <= 0.05 * f:
                 break
             lo, hi = (ls, hi) if n < f else (lo, ls)
@@ -760,8 +913,10 @@ def tts_stages(torch, pipe, prompt, text, ls):
     from megatts2_hierspeechpp_torch.models.plm import decode
 
     ms = {}
-    n, ms["duration_ms"] = event_ms(torch, lambda: pipe.duration(text, prompt, ls))
-    ac, ms["acoustic_ms"] = event_ms(torch, lambda: pipe.acoustic(text, prompt, n, ls))
+    n, ms["duration_ms"] = event_ms(
+        torch, lambda: pipe.duration(text, prompt, ls, exact=True))
+    ac, ms["acoustic_ms"] = event_ms(
+        torch, lambda: pipe.acoustic(text, prompt, n, ls, exact=True))
     _, ms["decode_ms"] = event_ms(torch, lambda: decode(pipe.plm, ac.x_frame))
     wav, ms["vocode_ms"] = event_ms(torch, lambda: pipe.render(
         prompt, ac.w2v, ac.frame_mask, ac.lf0, output_sr=16000))
@@ -778,14 +933,16 @@ def tts_phase(torch, pipe, prompt):
 
     reqs = tts_requests(pipe, prompt)
     for _, text, ls, _ in reqs:
-        pipe.tts(text, prompt=prompt, length_scale=ls, output_sr=48000)
+        pipe.tts(text, prompt=prompt, length_scale=ls, output_sr=48000,
+                 exact=True)
     torch.cuda.synchronize()
     cuda_lib.reset_launches()
     before = dict(cuda_lib.LAUNCHES)
     lines = []
     for f, text, ls, n in reqs:
         t0 = time.perf_counter()
-        out = pipe.tts(text, prompt=prompt, length_scale=ls, output_sr=48000)
+        out = pipe.tts(text, prompt=prompt, length_scale=ls, output_sr=48000,
+                       exact=True)
         ms = 1e3 * (time.perf_counter() - t0)  # ends with a device-to-host copy
         counts = {k: cuda_lib.LAUNCHES[k] - before[k] for k in before}
         before = dict(cuda_lib.LAUNCHES)
@@ -813,6 +970,406 @@ def tts_phase(torch, pipe, prompt):
         line["stages_ms"] = tts_stages(torch, pipe, prompt, text, ls)
         print(json.dumps(line), flush=True)
     return launches, reqs
+
+
+class LaunchShapes:
+    """The distinct launch shapes of the port's kernels while recording:
+    every kernel launches through cuda_lib.call, so its C arguments give
+    the shape. Keys: ("aa_snakebeta", B, T, C), ("snake_conv", B, T, C, k,
+    d, with the residual), ("triple_avg" | "triple_post", B, T, C),
+    ("plm_decode", T, weight bytes, cache bytes); each with the path that
+    first launched it."""
+
+    def __init__(self, cuda_lib):
+        self.lib = cuda_lib
+        self.seen = {}
+        self.path = None
+        self._conv = None  # (B, T, C) of the last snake_conv launch
+        self._orig = cuda_lib.call
+
+        def call(name, *args):
+            if self.path is not None:
+                self._note(name, args)
+            return self._orig(name, *args)
+
+        cuda_lib.call = call
+
+    def _note(self, name, a):
+        if name == "aa_snakebeta_fwd":
+            key = ("aa_snakebeta", a[4], a[5], a[6])
+        elif name == "snake_conv_fwd":
+            b, t, cin, cout, k, d = a[7:13]
+            self._conv = (b, t, cout)
+            key = ("snake_conv", b, t, cin, k, d, a[5].value is not None)
+        elif name == "triple_avg_fwd":  # the average of the stage's last convs
+            if self._conv is None or self._conv[0] * self._conv[1] * self._conv[2] != a[4]:
+                fail(f"triple_avg of {a[4]} elements after snake_conv {self._conv}")
+            key = ("triple_avg", *self._conv)
+        elif name == "triple_post_fwd":
+            key = ("triple_post", a[7], a[8], a[9])
+        elif name == "plm_decode_fwd":
+            key = ("plm_decode", a[17], a[28], a[29])
+        else:
+            return
+        self.seen.setdefault(key, self.path)
+
+
+def run_path(torch, cuda_lib, shapes, label, fn):
+    """fn() with the launch counts zeroed just before and read just after,
+    its launch shapes recorded under `label`: (fn(), counts)."""
+    torch.cuda.synchronize()
+    cuda_lib.reset_launches()
+    shapes.path = label
+    try:
+        out = fn()
+        torch.cuda.synchronize()
+    finally:
+        shapes.path = None
+    return out, dict(cuda_lib.LAUNCHES)
+
+
+def speaker_audio(i: int) -> np.ndarray:
+    """Synthetic speaker i: a gliding harmonic tone of its own pitch and
+    2.1-2.9 s, so that every speaker lands on the same 1 s prompt grid."""
+    rng = np.random.default_rng(100 + i)
+    n = int((2.1 + 0.25 * i) * 16000)
+    t = np.arange(n) / 16000.0
+    f = (95.0 + 35.0 * i) * (1.0 + 0.2 * np.sin(2 * np.pi * (0.3 + 0.1 * i) * t))
+    phase = 2 * np.pi * np.cumsum(f) / 16000.0
+    y = sum((0.25 / h) * np.sin(h * phase + i) for h in range(1, 7))
+    return (y + 0.01 * rng.standard_normal(n)).astype(np.float32)
+
+
+def text_bucket(text: str) -> int:
+    from megatts2_hierspeechpp_torch.data.text import process_text
+    from megatts2_hierspeechpp_torch.infer.pipeline import _bucket_text
+
+    return _bucket_text(len(process_text(text)[0]))
+
+
+def serve_texts(pipe, prompt, ls, n: int):
+    """n Mandarin texts (tts_text, 8.5-11 s of syllables) in one text bucket
+    whose predicted frames at length_scale ls all lie in SERVE_FRAMES, one
+    frame bucket (the duration predictor reads the text padding, so a row
+    computes what its own tts call does only in its own text bucket)."""
+    rng = np.random.default_rng(21)
+    texts = []
+    for i in range(60):
+        text = tts_text(rng, 8.5 + 0.5 * (i % 6))
+        if texts and text_bucket(text) != text_bucket(texts[0]):
+            continue
+        if SERVE_FRAMES[0] <= pipe.duration(text, prompt, ls) <= SERVE_FRAMES[1]:
+            texts.append(text)
+            if len(texts) == n:
+                return texts
+    fail(f"no {n} texts predict {SERVE_FRAMES} frames at length_scale {ls}")
+
+
+def check_rows(label, outs, singles, tol):
+    """Each batch row against its own tts call: same length, within tol x
+    its peak. Returns the worst error over the peak."""
+    worst = 0.0
+    for i, (o, s) in enumerate(zip(outs, singles)):
+        if o.shape != s.shape or not np.isfinite(o).all():
+            fail(f"{label} row {i}: {o.shape} vs its own tts {s.shape}")
+        worst = max(worst, float(np.abs(o - s).max() / np.abs(s).max()))
+    if not worst <= tol:
+        fail(f"{label}: a row differs from its own tts by {worst} x its peak")
+    return worst
+
+
+def serve_batch_phase(torch, pipe, prompt, ls, shapes):
+    """tts_batch at full width, output_sr 48000, noise_scale_vc 0: BATCH_ROWS
+    texts with one shared prompt, then SPEAKER_ROWS of them with one
+    bucketed synthetic speaker each (prepare_prompt(bucket=True)). Each
+    batch is warmed up, then run once with its counts zeroed (one tts
+    call's, with a plm_decode launch per row) and timed on the host clock;
+    each row is held against its own tts(exact=False) call. Last, the
+    shared-prompt batch once more under the profiler."""
+    from megatts2_hierspeechpp_torch.ops import cuda_lib
+
+    kw = dict(length_scale=ls, output_sr=48000, noise_scale_vc=0.0, seed=3)
+    texts = serve_texts(pipe, prompt, ls, BATCH_ROWS)
+    speakers = [pipe.prepare_prompt(speaker_audio(i), bucket=True)
+                for i in range(SPEAKER_ROWS)]
+    lines = []
+    for label, args in (
+            ("shared prompt", dict(texts=texts, prompt=prompt)),
+            ("per-row prompts", dict(texts=texts[:SPEAKER_ROWS],
+                                     prompts=speakers))):
+        b = len(args["texts"])
+        pipe.tts_batch(**args, **kw)  # warm-up
+        t0 = time.perf_counter()
+        outs, counts = run_path(torch, cuda_lib, shapes, f"serve_batch B={b}",
+                                lambda: pipe.tts_batch(**args, **kw))
+        ms = 1e3 * (time.perf_counter() - t0)
+        singles, _ = run_path(
+            torch, cuda_lib, shapes, "tts, bucketed",
+            lambda: [pipe.tts(t, prompt=p, **kw) for t, p in zip(
+                args["texts"], args.get("prompts") or [prompt] * b)])
+        want = dict(TTS_CALLS, plm_decode=b)
+        audio_s = sum(len(o) for o in outs) / 48000
+        frames = [int(f) for f in pipe.duration(
+            args["texts"], args.get("prompts") or prompt, ls)]
+        line = {"phase": "serve_batch", "prompts": label, "rows": b,
+                "frames": frames, "ms": ms, "audio_s": audio_s,
+                "audio_s_per_s": audio_s / (ms / 1e3), "calls": counts,
+                "max_err_vs_own_tts": check_rows(label, outs, singles, SERVE_TOL),
+                "tolerance": f"{SERVE_TOL:g} x the row's peak"}
+        print(json.dumps(line), flush=True)
+        if counts != want:
+            fail(f"serve_batch {label}: kernel calls {counts}, expected {want}")
+        lines.append(line)
+    profile_phase(torch, f"tts_batch B={BATCH_ROWS}", lines[0]["frames"],
+                  lambda: pipe.tts_batch(texts, prompt=prompt, **kw))
+
+
+def serve_stream_phase(torch, pipe, prompt, req, shapes):
+    """tts_stream of the 10 s request (chunk_frames STREAM_CHUNK, halo
+    STREAM_HALO) at 16 and 48 kHz, noise_scale_vc 0: host-clock ms to the
+    first chunk and to the last, the chunk count, the kernel counts of the
+    run; the chunks joined against tts(exact=False): at 16 kHz within
+    STREAM_TOL after peak normalisation, at 48 kHz the interior (all but
+    the last STREAM_TAIL samples) within STREAM_TOL after the least-squares
+    gain. The whole 48 kHz difference is reported with its distance from
+    the end: there the bucketed tts runs SpeechSR over the bucket's padding
+    frames and the stream's last piece ends at the sequence edge, as the
+    JAX stream does (tests/test_torch_serving.py holds the port's tail to
+    the JAX one's)."""
+    from megatts2_hierspeechpp_torch.ops import cuda_lib
+
+    _, text, ls, n = req
+    for sr in (16000, 48000):
+        kw = dict(length_scale=ls, output_sr=sr, noise_scale_vc=0.0, seed=3)
+        skw = dict(kw, chunk_frames=STREAM_CHUNK, halo_frames=STREAM_HALO)
+        list(pipe.tts_stream(text, prompt=prompt, **skw))  # warm-up
+
+        def stream():
+            t0, marks, chunks = time.perf_counter(), [], []
+            for c in pipe.tts_stream(text, prompt=prompt, **skw):
+                marks.append(1e3 * (time.perf_counter() - t0))
+                chunks.append(c)
+            return chunks, marks
+
+        (chunks, marks), counts = run_path(
+            torch, cuda_lib, shapes, f"serve_stream {sr} Hz", stream)
+        full = pipe.tts(text, prompt=prompt, **kw)
+        wav = np.concatenate(chunks)
+        if wav.shape != full.shape or not np.isfinite(wav).all():
+            fail(f"serve_stream {sr} Hz: {wav.shape} vs tts {full.shape}")
+        line = {"phase": "serve_stream", "output_sr": sr, "frames": n,
+                "chunk_frames": STREAM_CHUNK, "halo_frames": STREAM_HALO,
+                "chunks": len(chunks), "chunk_samples": [len(c) for c in chunks],
+                "first_chunk_ms": marks[0], "last_chunk_ms": marks[-1],
+                "calls": counts}
+        if sr == 16000:
+            err = float(np.abs(wav / np.abs(wav).max() * 0.999 - full).max())
+            line.update(max_err_normalised=err, tolerance=STREAM_TOL)
+            ok = err <= STREAM_TOL
+        else:
+            iw, jf = wav[:-STREAM_TAIL], full[:-STREAM_TAIL]
+            gain = float(np.dot(iw, jf) / np.dot(iw, iw))
+            err = float(np.abs(gain * iw - jf).max())
+            d = np.abs(gain * wav - full)
+            line.update(max_err_interior=err, tolerance=STREAM_TOL,
+                        interior=f"all but the last {STREAM_TAIL} samples",
+                        max_err_whole=float(d.max()),
+                        whole_err_samples_from_end=int(len(d) - np.argmax(d)))
+            ok = err <= STREAM_TOL
+        print(json.dumps(line), flush=True)
+        if not ok:
+            fail(f"serve_stream {sr} Hz: stream differs from tts ({line})")
+        if min(counts[k] for k in PATH_KERNELS) < 1:
+            fail(f"serve_stream {sr} Hz: a kernel was not launched: {counts}")
+
+
+def serve_server_phase(torch, pipe, reqs, shapes):
+    """TTSServer(max_batch=SERVER_REQUESTS): SERVER_REQUESTS requests from
+    SERVER_THREADS threads for SERVER_SPEAKERS bucketed speakers (3.5-5 s
+    texts, 48 kHz). Every future must give a finite waveform of its own tts
+    call's length. Prints ms per request and the number of tts_batch and
+    tts calls."""
+    import threading
+
+    from megatts2_hierspeechpp_torch.infer.server import TTSServer
+    from megatts2_hierspeechpp_torch.ops import cuda_lib
+
+    ls = reqs[-1][2]
+    kw = dict(length_scale=ls, output_sr=48000, seed=7)
+    speakers = [pipe.prepare_prompt(speaker_audio(i), bucket=True)
+                for i in range(SERVER_SPEAKERS)]
+    # 3.5-5 s texts, all in one text bucket (see serve_texts)
+    rng = np.random.default_rng(31)
+    texts = []
+    while len(texts) < SERVER_REQUESTS:
+        text = tts_text(rng, 3.5 + 1.5 * len(texts) / (SERVER_REQUESTS - 1))
+        if not texts or text_bucket(text) == text_bucket(texts[0]):
+            texts.append(text)
+    work = [(t, speakers[i % SERVER_SPEAKERS]) for i, t in enumerate(texts)]
+    calls = {"tts_batch": 0, "tts": 0}
+    orig = {k: getattr(pipe, k) for k in calls}
+
+    def spy(k):
+        def fn(*a, **k2):
+            calls[k] += 1
+            return orig[k](*a, **k2)
+        return fn
+
+    def serve():
+        server = TTSServer(pipe, max_batch=SERVER_REQUESTS, max_wait_ms=100)
+        futs = [None] * SERVER_REQUESTS
+        per = SERVER_REQUESTS // SERVER_THREADS
+
+        def client(j):
+            for i in range(j * per, (j + 1) * per):
+                futs[i] = server.submit(work[i][0], work[i][1], **kw)
+
+        try:
+            threads = [threading.Thread(target=client, args=(j,))
+                       for j in range(SERVER_THREADS)]
+            for th in threads:
+                th.start()
+            for th in threads:
+                th.join()
+            return [f.result(timeout=600) for f in futs]
+        finally:
+            server.close()
+
+    for k in calls:
+        setattr(pipe, k, spy(k))
+    try:
+        serve()  # warm-up
+        calls.update(tts_batch=0, tts=0)
+        t0 = time.perf_counter()
+        outs, counts = run_path(torch, cuda_lib, shapes, "serve_server", serve)
+        ms = 1e3 * (time.perf_counter() - t0)
+    finally:
+        for k in calls:
+            delattr(pipe, k)
+    lens = [len(pipe.tts(t, prompt=p, **kw)) for t, p in work]
+    line = {"phase": "serve_server", "requests": SERVER_REQUESTS,
+            "threads": SERVER_THREADS, "speakers": SERVER_SPEAKERS,
+            "ms": ms, "ms_per_request": ms / SERVER_REQUESTS,
+            "audio_s": sum(lens) / 48000, "pipeline_calls": dict(calls),
+            "calls": counts, "samples": [len(o) for o in outs]}
+    print(json.dumps(line), flush=True)
+    for i, (o, n) in enumerate(zip(outs, lens)):
+        if o.shape != (n,) or not np.isfinite(o).all():
+            fail(f"serve_server request {i}: {o.shape}, its own tts gives {n}")
+    if min(counts[k] for k in PATH_KERNELS) < 1:
+        fail(f"serve_server: a kernel was not launched: {counts}")
+
+
+SHAPE_TOL = {"aa_snakebeta": 1e-5, "triple_avg": 1e-5, "triple_post": 1e-4,
+             "snake_conv": 1e-4}   # x max|ref|, PERF.md section 2
+
+
+def new_shapes_phase(torch, dev, shapes):
+    """Each kernel against its plain version at every distinct launch shape
+    that the serving paths gave it (LaunchShapes), on fresh random inputs:
+    one launch and one plain call each. The AA-snake and the epilogue (whose
+    plans were picked at B=1, T=2000) also with their device ms per launch
+    (profiler; "device_ms": null where the profiler recorded too few of
+    the launches, which it does late in a long run). One line per kernel
+    and shape (snake_conv: per B, T, C), with the worst error over the
+    tolerance."""
+    from megatts2_hierspeechpp_torch.models.plm import ProsodyLM, teacher_forced_gap
+    from megatts2_hierspeechpp_torch.nn.conv import conv1d_op
+    from megatts2_hierspeechpp_torch.ops.amp_triple import (
+        composed_epilogue, fused_epilogue)
+    from megatts2_hierspeechpp_torch.ops.ampblock import snake_conv
+    from megatts2_hierspeechpp_torch.ops.plm_decode import (
+        plain_gap, plm_decode_greedy)
+    from megatts2_hierspeechpp_torch.ops.resample import activation1d
+    from megatts2_hierspeechpp_torch.ops.snake import (
+        composed_snakebeta, fused_aa_snakebeta, inverse_beta)
+
+    gen = torch.Generator().manual_seed(17)
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(shape, generator=gen) * scale).to(dev)
+
+    def pos(*shape):
+        return torch.exp(randn(*shape, scale=0.2))
+
+    def err_of(y, ref):
+        return (y - ref).abs().max().item(), ref.abs().max().item()
+
+    model = None
+    convs = {}
+    n_checked = 0
+    for key, path in sorted(shapes.seen.items(), key=lambda kv: str(kv[0])):
+        kind = key[0]
+        line = {"phase": "new_shape", "kernel": kind, "path": path}
+        with torch.inference_mode():
+            if kind == "aa_snakebeta":
+                _, b, t, c = key
+                x, a, be = randn(b, t, c), pos(c), pos(c)
+                ib = inverse_beta(be)
+                fn = lambda: fused_aa_snakebeta(x, a, be, ib)  # noqa: E731
+                err, scale = err_of(fn(), composed_snakebeta(x, a, be))
+                line.update(shape=f"B={b} T={t} C={c}",
+                            device_ms=device_ms(torch, fn, ("aa_snakebeta",), 10,
+                                                required=False))
+            elif kind in ("triple_avg", "triple_post"):
+                _, b, t, c = key
+                rs = [randn(b, t, c, scale=3.0) for _ in range(3)]
+                post = ((pos(c), pos(c), randn(7, c, scale=0.1 * (7 * c) ** -0.5))
+                        if kind == "triple_post" else None)
+                fn = lambda: fused_epilogue(*rs, post)  # noqa: E731
+                err, scale = err_of(fn(), composed_epilogue(*rs, post))
+                line.update(shape=f"B={b} T={t} C={c}",
+                            device_ms=device_ms(torch, fn, (kind + "_kernel",), 10,
+                                                required=False))
+            elif kind == "snake_conv":
+                _, b, t, c, k, d, has_res = key
+                x = randn(b, t, c)
+                res = randn(b, t, c) if has_res else None
+                a, ib = pos(c), pos(c)
+                w, bias = randn(k, c, c, scale=(c * k) ** -0.5), randn(c, scale=0.05)
+                y = snake_conv(x, a, ib, w, bias, d, res=res)
+                ref = conv1d_op(activation1d(
+                    x, lambda v: v + torch.sin(v * a).square() * ib),
+                    w.permute(1, 2, 0).contiguous(), bias, 1, (k - 1) // 2 * d, d)
+                if res is not None:
+                    ref = ref + res
+                err, scale = err_of(y, ref)
+                del x, res, y, ref
+            else:  # plm_decode at a new length
+                _, t, wb, cb = key
+                if model is None:
+                    model = ProsodyLM(seed=99, device=dev)
+                dts = {4: torch.float32, 2: torch.bfloat16}
+                tc = randn(1, t, 256)
+                codes = plm_decode_greedy(model.packed(), tc, model.go_id,
+                                          dts[wb], dts[cb])
+                err, scale = (teacher_forced_gap(model, tc, codes) if wb == cb == 4
+                              else plain_gap(model.packed(), tc, codes,
+                                             model.go_id, dts[wb], dts[cb]))
+                kind = "plm_gap" if wb == cb == 4 else "plm_gap_bf16"
+                line.update(shape=f"T={t} weight bytes {wb} cache bytes {cb}")
+        tol = SHAPE_TOL.get(kind, TF_MARGIN if kind == "plm_gap" else BF16_MARGIN)
+        if not (math.isfinite(err) and err <= tol * scale):
+            print(json.dumps(dict(line, max_abs_err=err, max_abs_ref=scale)),
+                  flush=True)
+            fail(f"{kind} {key}: max abs err {err} > {tol} x {scale}")
+        n_checked += 1
+        if kind == "snake_conv":  # one line per (path, B, T, C)
+            g = convs.setdefault((path, key[1], key[2], key[3]),
+                                 {"phase": "new_shape", "kernel": "snake_conv",
+                                  "path": path,
+                                  "shape": f"B={key[1]} T={key[2]} C={key[3]}",
+                                  "launch_shapes": 0, "worst_err_over_tol": 0.0})
+            g["launch_shapes"] += 1
+            g["worst_err_over_tol"] = max(g["worst_err_over_tol"],
+                                          err / (tol * scale))
+            continue
+        line.update(max_abs_err=err, max_abs_ref=scale,
+                    tolerance=f"{tol:g} x max|ref|")
+        print(json.dumps(line), flush=True)
+    for g in convs.values():
+        print(json.dumps(g), flush=True)
+    print(json.dumps({"phase": "new_shapes", "checked": n_checked}), flush=True)
 
 
 GROUPS = (  # (group, substrings of kernel names), first match wins
@@ -891,10 +1448,11 @@ def cpu_tts_phase(torch, pipe, cpu_pipe, prompt, cpu_prompt, reqs):
 
     _, text, ls, _ = reqs[0]
     _, ac, raw = pipe.tts(text, prompt=prompt, length_scale=ls,
-                          output_sr=48000, return_intermediates=True)
+                          output_sr=48000, exact=True,
+                          return_intermediates=True)
     codes = ac.codes.cpu().numpy()
     _, cac, craw = cpu_pipe.tts(text, prompt=cpu_prompt, length_scale=ls,
-                                output_sr=48000, codes=codes,
+                                output_sr=48000, exact=True, codes=codes,
                                 return_intermediates=True)
     agree = float((decode(cpu_pipe.plm, cac.x_frame).numpy() == codes).mean())
     if cac.frames != ac.frames:
@@ -935,22 +1493,30 @@ def main() -> int:
     kernels["amp_triple"] = epilogue_phase(torch, dev)
     snake_conv_phase(torch, dev)
     kernels["plm_decode"] = plm_phase(torch, dev)
+    bf16 = plm_bf16_phase(torch, dev)
+    kernels["plm_decode_bf16"] = [bf16]
     _, pipe, prompt, audio, inputs = path_phase(torch, dev)
     launches, reqs = tts_phase(torch, pipe, prompt)
-    if min(launches.values()) < 1:
+    if min(launches[k] for k in PATH_KERNELS) < 1:
         fail(f"a kernel was not launched on the tts path: {launches}")
+    launches["plm_decode_bf16"] = bf16["launches"]
     t = REQUEST_FRAMES[-1]
     w2v, mask, lf0 = (torch.from_numpy(a) for a in inputs[t])
     profile_phase(torch, "synthesize", t, lambda: pipe.synthesize(
         prompt, w2v, mask, lf0, output_sr=48000))
     f, text, ls, n = reqs[-1]
     profile_phase(torch, "tts", n, lambda: pipe.tts(
-        text, prompt=prompt, length_scale=ls, output_sr=48000))
+        text, prompt=prompt, length_scale=ls, output_sr=48000, exact=True))
     with torch.inference_mode():
         cpu_pipe = build_pipeline(torch, "cpu")
         cpu_prompt = cpu_pipe.prepare_prompt(audio)
         cpu_phase(torch, pipe, cpu_pipe, prompt, cpu_prompt, inputs)
     cpu_tts_phase(torch, pipe, cpu_pipe, prompt, cpu_prompt, reqs)
+    shapes = LaunchShapes(cuda_lib)
+    serve_batch_phase(torch, pipe, prompt, reqs[-1][2], shapes)
+    serve_stream_phase(torch, pipe, prompt, reqs[-1], shapes)
+    serve_server_phase(torch, pipe, reqs, shapes)
+    new_shapes_phase(torch, dev, shapes)
 
     # ms: CUDA events around the wrapper on every row, as in earlier runs;
     # device_ms: the kernel's own time (profiler) where the phase took it
@@ -967,6 +1533,9 @@ def main() -> int:
             "bound_ms": slowest["bound_ms"], "bound_by": slowest["bound_by"],
             "bound_ms_f32": slowest.get("bound_ms_f32"),
             "library_ms": None, "shape": slowest["shape"],
+            "launches_from": ("models/plm.decode, bf16, B=4 per row"
+                              if key == "plm_decode_bf16" else
+                              "tts requests, phase 5"),
         })
     print(json.dumps({"kernels": out}), flush=True)
     print(json.dumps({"ok": True, "device": {

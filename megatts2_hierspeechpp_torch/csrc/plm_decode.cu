@@ -1,5 +1,7 @@
-// Greedy KV-cached decode of the prosody LM (ProsodyLM), B = 1, float32:
-// the whole token loop in one persistent cooperative launch.
+// Greedy KV-cached decode of the prosody LM (ProsodyLM), B = 1: the whole
+// token loop in one persistent cooperative launch. Weights and KV cache in
+// float32 or bf16 (chosen apart, as the TPU kernel's weight_dtype and
+// cache_dtype); accumulation always float32.
 //
 // Replaces megatts2_hierspeechpp_tpu/ops/pallas_plm_decode.py (_kernel, via
 // plm_decode_greedy). Per token t: x = [tc_t | emb(prev)] + pos_alpha * pe_t,
@@ -66,6 +68,16 @@
 //   (ld.global.cg, ld.volatile), never L1.
 // * A wait that lasts for seconds traps instead of hanging the card.
 //
+// bf16 (W = bf16_t and/or C = bf16_t), rounded where the TPU kernel rounds
+// (pallas_plm_decode.py _kernel): the matrices wqkv, wo, ff0, ff1 and pred
+// are bf16 (the wrapper passes them with rows padded to 8 elements, so every
+// row copy is a whole number of 16-byte units), and every matrix-vector
+// product takes its vector rounded to bf16 (LayerNorm outputs, att, h, and
+// x before the logits), with float32 products and sums; the cache holds
+// bf16 rows, while this token's k and v still come from the float32 pairs.
+// Biases, LayerNorm, embeddings, positions, the residual stream and the
+// handoff pairs stay float32.
+//
 // An optional stamps buffer takes block 0's clock twice per phase: when it
 // has published its outputs, and when it holds the outputs of the phase
 // that it reads next (see stamp).
@@ -91,33 +103,72 @@ __host__ __device__ inline int cdiv(int a, int b) { return (a + b - 1) / b; }
 __host__ __device__ inline int up4(int n) { return (n + 3) & ~3; }
 __host__ __device__ inline int imax(int a, int b) { return a > b ? a : b; }
 __host__ __device__ inline int imin(int a, int b) { return a < b ? a : b; }
+__host__ __device__ inline int upn(int n, int m) { return (n + m - 1) / m * m; }
 
-// Layout of one block's dynamic shared memory (floats) and of the exchange
-// buffer (pairs), computed the same way here and by ops/plm_decode.py
-// (smem_plan), which passes its byte and pair counts for a check.
+struct bf16_t {  // a bfloat16 value: the high 16 bits of a float32
+  unsigned short bits;
+};
+
+// float32 -> bf16 bits, round to nearest even (as torch's .to(bfloat16) and
+// JAX's astype for finite values)
+__device__ __forceinline__ unsigned short f2bf(float f) {
+  const unsigned u = __float_as_uint(f);
+  return static_cast<unsigned short>((u + 0x7fffu + ((u >> 16) & 1u)) >> 16);
+}
+__device__ __forceinline__ float round_bf(float f) {
+  return __uint_as_float(static_cast<unsigned>(f2bf(f)) << 16);
+}
+
+// A matrix-vector product's input: rounded to bf16 when the weights are.
+template <typename W>
+__device__ __forceinline__ float act(float v) {
+  if constexpr (sizeof(W) == 2) return round_bf(v);
+  return v;
+}
+
+// KV cache entries: float32 or bf16, read through L2.
+__device__ __forceinline__ float ld_cache(const float* p) { return __ldcg(p); }
+__device__ __forceinline__ float ld_cache(const bf16_t* p) {
+  return __uint_as_float(
+      static_cast<unsigned>(__ldcg(reinterpret_cast<const unsigned short*>(p)))
+      << 16);
+}
+__device__ __forceinline__ void st_cache(float* p, float v) { *p = v; }
+__device__ __forceinline__ void st_cache(bf16_t* p, float v) { p->bits = f2bf(v); }
+
+// Layout of one block's dynamic shared memory and of the exchange buffer
+// (pairs), computed the same way here and by ops/plm_decode.py (smem_plan),
+// which passes its byte and pair counts for a check. The matrices come
+// first, in weight elements of WB bytes, rows of rd (D inputs) or rf (F
+// inputs) elements, a whole number of 16-byte units; every offset from
+// o_ln on is in floats.
 struct Plan {
   int cq, co, c0, c1, cp;           // row slots per block: wqkv wo ff0 ff1 pred
+  int rd, rf;                       // row strides (weight elements)
   int o_wo, o_ff0, o_ff1, w_layer;  // in one layer's weights (wqkv at 0)
-  int o_pred, o_ln, o_bias, n_bias, o_x, o_yn, o_att, o_work;
+  int o_pred;                       // weight elements
+  int o_ln, o_bias, n_bias, o_x, o_yn, o_att, o_work;  // floats
   int bytes;                        // dynamic shared memory
   int nsplit_max;
   int x_parts, x_xc, x_h, x_xe, x_layer, x_arg, x_parity, x_total;
 };
 
 __host__ __device__ inline Plan make_plan(int D, int F, int L, int BINS, int H,
-                                          int G) {
+                                          int G, int WB) {
   Plan p;
   p.cq = cdiv(3 * D, G);
   p.co = cdiv(D, G);
   p.c0 = cdiv(F, G);
   p.c1 = cdiv(D, G);
   p.cp = cdiv(BINS, G);
-  p.o_wo = p.cq * D;
-  p.o_ff0 = p.o_wo + p.co * D;
-  p.o_ff1 = p.o_ff0 + p.c0 * D;
-  p.w_layer = p.o_ff1 + p.c1 * F;
+  p.rd = upn(D, 16 / WB);
+  p.rf = upn(F, 16 / WB);
+  p.o_wo = p.cq * p.rd;
+  p.o_ff0 = p.o_wo + p.co * p.rd;
+  p.o_ff1 = p.o_ff0 + p.c0 * p.rd;
+  p.w_layer = p.o_ff1 + p.c1 * p.rf;
   p.o_pred = L * p.w_layer;
-  p.o_ln = p.o_pred + p.cp * D;
+  p.o_ln = up4(cdiv((p.o_pred + p.cp * p.rd) * WB, 4));
   p.o_bias = p.o_ln + L * 4 * D;
   p.n_bias = p.cq + p.co + p.c0 + p.c1;  // per layer
   p.o_x = p.o_bias + up4(L * p.n_bias);
@@ -147,21 +198,23 @@ __host__ __device__ inline int owned(int R, int b, int G) {
   return R > b ? (R - 1 - b) / G + 1 : 0;
 }
 
+// The matrices are of the weight type W, in rows of Plan::rd (D inputs) or
+// Plan::rf (F inputs) elements; the cache of the cache type C.
 struct Args {
   const float* tc;    // (T, TC)
   const float* pe;    // (T, D) pos_alpha * sine table
   const float* emb;   // (V, D - TC)
-  const float* wqkv;  // (L, 3D, D)
+  const void* wqkv;   // (L, 3D, rd)
   const float* bqkv;  // (L, 3D)
-  const float* wo;    // (L, D, D)
+  const void* wo;     // (L, D, rd)
   const float* bo;    // (L, D)
   const float* ln;    // (L, 4, D): norm1 w, b, norm2 w, b
-  const float* ff0;   // (L, F, D)
+  const void* ff0;    // (L, F, rd)
   const float* ff0b;  // (L, F)
-  const float* ff1;   // (L, D, F)
+  const void* ff1;    // (L, D, rf)
   const float* ff1b;  // (L, D)
-  const float* pred;  // (BINS, D)
-  float* cache;       // (L, T, 2, D)
+  const void* pred;   // (BINS, rd)
+  void* cache;        // (L, T, 2, D)
   u64* xch;           // exchange pairs, zeroed (Plan::x_total)
   int* codes;         // (T,)
   u64* stamps;        // (T, 5L + 1, 3) or null
@@ -219,9 +272,29 @@ __device__ __forceinline__ float warp_dot(const float* w, const float* v,
   return warp_sum(s);
 }
 
-// LayerNorm (eps 1e-5) of xs[0:D] into yn, by the whole block. Warp 0
-// computes the statistics (two passes) while the others wait: when every
-// warp computed them, their issue slots made it twice as slow. stat: 2 floats.
+// The same with bf16 weights: 8-byte loads of 4 weights, rows 16-byte
+// aligned.
+__device__ __forceinline__ float warp_dot(const bf16_t* w, const float* v,
+                                          int n4, int lane) {
+  const uint2* w4 = reinterpret_cast<const uint2*>(w);
+  const float4* v4 = reinterpret_cast<const float4*>(v);
+  float s = 0.f;
+  for (int i = lane; i < n4; i += 32) {
+    const uint2 a = w4[i];
+    const float4 b = v4[i];
+    s = fmaf(__uint_as_float(a.x << 16), b.x, s);
+    s = fmaf(__uint_as_float(a.x & 0xffff0000u), b.y, s);
+    s = fmaf(__uint_as_float(a.y << 16), b.z, s);
+    s = fmaf(__uint_as_float(a.y & 0xffff0000u), b.w, s);
+  }
+  return warp_sum(s);
+}
+
+// LayerNorm (eps 1e-5) of xs[0:D] into yn (rounded as a product input of
+// weight type W), by the whole block. Warp 0 computes the statistics (two
+// passes) while the others wait: when every warp computed them, their issue
+// slots made it twice as slow. stat: 2 floats.
+template <typename W>
 __device__ __forceinline__ void layer_norm(const float* xs, float* yn,
                                            const float* w, const float* b,
                                            int D, float* stat) {
@@ -244,7 +317,7 @@ __device__ __forceinline__ void layer_norm(const float* xs, float* yn,
   __syncthreads();
   const float mean = stat[0], rstd = stat[1];
   for (int j = threadIdx.x; j < D; j += kThreads)
-    yn[j] = (xs[j] - mean) * rstd * w[j] + b[j];
+    yn[j] = act<W>((xs[j] - mean) * rstd * w[j] + b[j]);
   __syncthreads();
 }
 
@@ -361,8 +434,9 @@ __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-// 1-D bulk async copy global -> shared, completion on the mbarrier at mb.
-__device__ __forceinline__ void bulk_copy(float* dst, const float* src,
+// 1-D bulk async copy global -> shared, completion on the mbarrier at mb;
+// both addresses 16-byte aligned, bytes a multiple of 16.
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src,
                                           int bytes, uint32_t mb) {
   asm volatile(
       "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
@@ -402,6 +476,8 @@ barrier_probe_kernel(unsigned int* bar, int n) {
   for (int i = 0; i < n; ++i) grid_sync(bar, target);
 }
 
+// W: the matrices' type, C: the cache's (float or bf16_t).
+template <typename W, typename C>
 __global__ void __launch_bounds__(kThreads, 1)
 plm_decode_kernel(const Args a) {
   extern __shared__ __align__(128) float sm[];
@@ -415,7 +491,9 @@ plm_decode_kernel(const Args a) {
   const int D = a.D, F = a.F, H = a.H, T = a.T, TC = a.TC, L = a.L;
   const int hd = D / H, VQ = D - TC, per_tok = 5 * L + 1;
   const float sq = sqrtf(static_cast<float>(hd));
-  const Plan p = make_plan(D, F, L, a.BINS, H, G);
+  const Plan p = make_plan(D, F, L, a.BINS, H, G, sizeof(W));
+  const int rd = p.rd, rf = p.rf;
+  W* wsm = reinterpret_cast<W*>(sm);  // the matrices
   float* xs = sm + p.o_x;
   float* yn = sm + p.o_yn;
   float* att = sm + p.o_att;
@@ -431,34 +509,40 @@ plm_decode_kernel(const Args a) {
       asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
       const int rows_d = L * (owned(3 * D, b, G) + owned(D, b, G) +
                               owned(F, b, G)) + owned(a.BINS, b, G);
-      const uint32_t total =
-          4u * (rows_d * D + L * owned(D, b, G) * F + L * 4 * D);
+      const uint32_t total = static_cast<uint32_t>(
+          sizeof(W) * (rows_d * rd + L * owned(D, b, G) * rf) + 4 * L * 4 * D);
       asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
                    ::"r"(mb), "r"(total) : "memory");
     }
     __syncwarp();
     int k = 0;  // copies dealt round-robin over the lanes
-    auto copy = [&](float* dst, const float* src, int bytes) {
+    auto copy = [&](void* dst, const void* src, int bytes) {
       if ((k++ & 31) == lane) bulk_copy(dst, src, bytes, mb);
     };
+    const W* wqkv = static_cast<const W*>(a.wqkv);
+    const W* wo = static_cast<const W*>(a.wo);
+    const W* ff0 = static_cast<const W*>(a.ff0);
+    const W* ff1 = static_cast<const W*>(a.ff1);
+    const int row_d = sizeof(W) * rd, row_f = sizeof(W) * rf;
     for (int i = 0; i < L; ++i) {
-      float* wl = sm + i * p.w_layer;
+      W* wl = wsm + i * p.w_layer;
       for (int s = 0; s * G + b < 3 * D; ++s)
-        copy(wl + s * D,
-             a.wqkv + (static_cast<size_t>(i) * 3 * D + s * G + b) * D, 4 * D);
+        copy(wl + s * rd,
+             wqkv + (static_cast<size_t>(i) * 3 * D + s * G + b) * rd, row_d);
       for (int s = 0; s * G + b < D; ++s)
-        copy(wl + p.o_wo + s * D,
-             a.wo + (static_cast<size_t>(i) * D + s * G + b) * D, 4 * D);
+        copy(wl + p.o_wo + s * rd,
+             wo + (static_cast<size_t>(i) * D + s * G + b) * rd, row_d);
       for (int s = 0; s * G + b < F; ++s)
-        copy(wl + p.o_ff0 + s * D,
-             a.ff0 + (static_cast<size_t>(i) * F + s * G + b) * D, 4 * D);
+        copy(wl + p.o_ff0 + s * rd,
+             ff0 + (static_cast<size_t>(i) * F + s * G + b) * rd, row_d);
       for (int s = 0; s * G + b < D; ++s)
-        copy(wl + p.o_ff1 + s * F,
-             a.ff1 + (static_cast<size_t>(i) * D + s * G + b) * F, 4 * F);
+        copy(wl + p.o_ff1 + s * rf,
+             ff1 + (static_cast<size_t>(i) * D + s * G + b) * rf, row_f);
     }
     for (int s = 0; s * G + b < a.BINS; ++s)
-      copy(sm + p.o_pred + s * D, a.pred + static_cast<size_t>(s * G + b) * D,
-           4 * D);
+      copy(wsm + p.o_pred + s * rd,
+           static_cast<const W*>(a.pred) + static_cast<size_t>(s * G + b) * rd,
+           row_d);
     copy(sm + p.o_ln, a.ln, 4 * L * 4 * D);
   }
   // biases of the owned rows, per layer [wqkv | wo | ff0 | ff1] slots
@@ -513,12 +597,12 @@ plm_decode_kernel(const Args a) {
 
     for (int i = 0; i < L; ++i) {
       u64* XL = X + i * p.x_layer;
-      const float* wl = sm + i * p.w_layer;
+      const W* wl = wsm + i * p.w_layer;
       const float* bl = bias + i * p.n_bias;
       const float* ln = lnw + i * 4 * D;
       const unsigned e = e0 + 5 * i;
       const int st = st0 + 5 * i;
-      float* kv = a.cache + static_cast<size_t>(i) * T * 2 * D;  // (T, 2, D)
+      C* kv = static_cast<C*>(a.cache) + static_cast<size_t>(i) * T * 2 * D;  // (T, 2, D)
 
       // ---- A: LayerNorm1 + QKV; q, k, v published, k/v into the cache ----
       if (i == 0) {
@@ -531,13 +615,13 @@ plm_decode_kernel(const Args a) {
         poll(XL - p.x_layer + p.x_xe, xs, D, e - 1);
         stamp(a.stamps, st - 1, 1);
       }
-      layer_norm(xs, yn, ln, ln + D, D, lstat);
+      layer_norm<W>(xs, yn, ln, ln + D, D, lstat);
       for (int s = warp; s * G + b < 3 * D; s += kWarps) {
         const int j = s * G + b;
-        const float v = warp_dot(wl + s * D, yn, D / 4, lane) + bl[s];
+        const float v = warp_dot(wl + s * rd, yn, D / 4, lane) + bl[s];
         if (lane == 0) {
           if (j >= D)  // k at [t, 0, :], v at [t, 1, :]
-            kv[static_cast<size_t>(t) * 2 * D + (j - D)] = v;
+            st_cache(kv + static_cast<size_t>(t) * 2 * D + (j - D), v);
           st_pair(XL + j, v, e);
         }
       }
@@ -563,10 +647,10 @@ plm_decode_kernel(const Args a) {
           const int idx = tid + r * kThreads, key = k0 + idx / hd;
           kr[r] = vr[r] = 0.f;
           if (early && idx < n_first * hd && key < t) {
-            const float* kp =
+            const C* kp =
                 kv + static_cast<size_t>(key) * 2 * D + h * hd + idx % hd;
-            kr[r] = __ldcg(kp);
-            vr[r] = __ldcg(kp + D);
+            kr[r] = ld_cache(kp);
+            vr[r] = ld_cache(kp + D);
           }
         }
         poll(XL + h * hd, qs, hd, e);
@@ -587,10 +671,10 @@ plm_decode_kernel(const Args a) {
             for (int idx = tid; idx < n * hd; idx += kThreads) {
               const int key = c0 + idx / hd, d = idx % hd;
               if (key < t) {
-                const float* kp =
+                const C* kp =
                     kv + static_cast<size_t>(key) * 2 * D + h * hd + d;
-                ks[idx] = __ldcg(kp);
-                vs[idx] = __ldcg(kp + D);
+                ks[idx] = ld_cache(kp);
+                vs[idx] = ld_cache(kp + D);
               }
             }
           }
@@ -658,12 +742,12 @@ plm_decode_kernel(const Args a) {
             acc = fmaf(ph[s * ps + 2 + d], wh[s], acc);
             lsum = fmaf(ph[s * ps + 1], wh[s], lsum);
           }
-          att[c] = acc / lsum;
+          att[c] = act<W>(acc / lsum);
         }
         __syncthreads();
         for (int s = warp; s * G + b < D; s += kWarps) {
           const int j = s * G + b;
-          const float v = warp_dot(wl + p.o_wo + s * D, att, D / 4, lane) +
+          const float v = warp_dot(wl + p.o_wo + s * rd, att, D / 4, lane) +
                           bl[p.cq + s];
           if (lane == 0) st_pair(XL + p.x_xc + j, xs[j] + v, e + 2);
         }
@@ -673,11 +757,12 @@ plm_decode_kernel(const Args a) {
       // ---- D: LayerNorm2 + FF0 + relu ----
       poll(XL + p.x_xc, xs, D, e + 2);
       stamp(a.stamps, st + 2, 1);
-      layer_norm(xs, yn, ln + 2 * D, ln + 3 * D, D, lstat);
+      layer_norm<W>(xs, yn, ln + 2 * D, ln + 3 * D, D, lstat);
       for (int s = warp; s * G + b < F; s += kWarps) {
-        const float v = warp_dot(wl + p.o_ff0 + s * D, yn, D / 4, lane) +
+        const float v = warp_dot(wl + p.o_ff0 + s * rd, yn, D / 4, lane) +
                         bl[p.cq + p.co + s];
-        if (lane == 0) st_pair(XL + p.x_h + s * G + b, fmaxf(v, 0.f), e + 3);
+        if (lane == 0)
+          st_pair(XL + p.x_h + s * G + b, act<W>(fmaxf(v, 0.f)), e + 3);
       }
       stamp(a.stamps, st + 3, 0);
 
@@ -686,7 +771,7 @@ plm_decode_kernel(const Args a) {
       stamp(a.stamps, st + 3, 1);
       for (int s = warp; s * G + b < D; s += kWarps) {
         const int j = s * G + b;
-        const float v = warp_dot(wl + p.o_ff1 + s * F, work, F / 4, lane) +
+        const float v = warp_dot(wl + p.o_ff1 + s * rf, work, F / 4, lane) +
                         bl[p.cq + p.co + p.c0 + s];
         if (lane == 0) st_pair(XL + p.x_xe + j, xs[j] + v, e + 4);
       }
@@ -700,10 +785,16 @@ plm_decode_kernel(const Args a) {
     if (tid == kThreads - 32) fence_acq_rel();
     poll(X + (L - 1) * p.x_layer + p.x_xe, xs, D, e0 + 5 * L - 1);
     stamp(a.stamps, st0 + 5 * L - 1, 1);
+    const float* xl = xs;  // the logits' input
+    if constexpr (sizeof(W) == 2) {
+      for (int j = tid; j < D; j += kThreads) yn[j] = round_bf(xs[j]);
+      __syncthreads();
+      xl = yn;
+    }
     float bv = -INFINITY;
     int bi = a.BINS;
     for (int s = warp; s * G + b < a.BINS; s += kWarps)
-      better(bv, bi, warp_dot(sm + p.o_pred + s * D, xs, D / 4, lane),
+      better(bv, bi, warp_dot(wsm + p.o_pred + s * rd, xl, D / 4, lane),
              s * G + b);
     block_argmax(bv, bi, wv, wi);
     if (tid == kThreads - 32) {
@@ -727,28 +818,10 @@ plm_decode_kernel(const Args a) {
   }
 }
 
-}  // namespace
-
-extern "C" int plm_decode_fwd(const float* tc, const float* pe,
-                              const float* emb, const float* wqkv,
-                              const float* bqkv, const float* wo,
-                              const float* bo, const float* ln,
-                              const float* ff0, const float* ff0b,
-                              const float* ff1, const float* ff1b,
-                              const float* pred, float* cache,
-                              unsigned long long* xch, int* codes,
-                              unsigned long long* stamps, int T, int L, int D,
-                              int TC, int H, int F, int BINS, int go_id,
-                              int grid, int smem_bytes, int xch_pairs,
-                              void* stream) {
-  if (T < 1 || L < 1 || H < 1 || D % 4 || F % 4 || D % H || D > kThreads || TC < 0 || TC >= D || H > kMaxParts || grid < H ||
-      grid > kMaxGrid)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const Plan p = make_plan(D, F, L, BINS, H, grid);
-  if (p.bytes != smem_bytes || p.x_total != xch_pairs)
-    return static_cast<int>(cudaErrorInvalidValue);
-  // the kernel's shared memory limit and co-residency, set up once per
-  // device and size
+// One cooperative launch of plm_decode_kernel<W, C>; its shared memory
+// limit and co-residency are set up once per device and size.
+template <typename W, typename C>
+int launch(const Args& a, int grid, int smem_bytes, cudaStream_t stream) {
   static int set_dev = -1, set_bytes = 0, per_sm = 0;
   int dev = 0, sms = 0, coop = 0, optin = 0;
   cudaError_t e = cudaGetDevice(&dev);
@@ -759,26 +832,57 @@ extern "C" int plm_decode_fwd(const float* tc, const float* pe,
   if (grid > sms || smem_bytes > optin)
     return static_cast<int>(cudaErrorInvalidValue);
   if (dev != set_dev || smem_bytes > set_bytes) {
-    e = cudaFuncSetAttribute(plm_decode_kernel,
+    e = cudaFuncSetAttribute(plm_decode_kernel<W, C>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              smem_bytes);
     if (e != cudaSuccess) return static_cast<int>(e);
     e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, plm_decode_kernel, kThreads, smem_bytes);
+        &per_sm, plm_decode_kernel<W, C>, kThreads, smem_bytes);
     if (e != cudaSuccess) return static_cast<int>(e);
     set_dev = dev;
     set_bytes = smem_bytes;
   }
   if (!coop || per_sm < 1)
     return static_cast<int>(cudaErrorCooperativeLaunchTooLarge);
-  Args a{tc,   pe,    emb, wqkv,   bqkv, wo, bo, ln, ff0, ff0b, ff1, ff1b,
-         pred, cache, xch, codes, stamps, T, L, D, TC, H, F, BINS, go_id};
-  void* args[] = {&a};
+  void* args[] = {const_cast<Args*>(&a)};
   e = cudaLaunchCooperativeKernel(
-      reinterpret_cast<const void*>(plm_decode_kernel), dim3(grid),
-      dim3(kThreads), args, smem_bytes, static_cast<cudaStream_t>(stream));
+      reinterpret_cast<const void*>(plm_decode_kernel<W, C>), dim3(grid),
+      dim3(kThreads), args, smem_bytes, stream);
   if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// wbytes / cbytes: 4 for float32, 2 for bf16 matrices / cache; the matrices
+// in rows of make_plan's rd / rf elements.
+extern "C" int plm_decode_fwd(const float* tc, const float* pe,
+                              const float* emb, const void* wqkv,
+                              const float* bqkv, const void* wo,
+                              const float* bo, const float* ln,
+                              const void* ff0, const float* ff0b,
+                              const void* ff1, const float* ff1b,
+                              const void* pred, void* cache,
+                              unsigned long long* xch, int* codes,
+                              unsigned long long* stamps, int T, int L, int D,
+                              int TC, int H, int F, int BINS, int go_id,
+                              int grid, int smem_bytes, int xch_pairs,
+                              int wbytes, int cbytes, void* stream) {
+  if (T < 1 || L < 1 || H < 1 || D % 4 || F % 4 || D % H || D > kThreads ||
+      TC < 0 || TC >= D || H > kMaxParts || grid < H || grid > kMaxGrid ||
+      (wbytes != 2 && wbytes != 4) || (cbytes != 2 && cbytes != 4))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Plan p = make_plan(D, F, L, BINS, H, grid, wbytes);
+  if (p.bytes != smem_bytes || p.x_total != xch_pairs)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Args a{tc,   pe,    emb, wqkv,   bqkv, wo, bo, ln, ff0, ff0b, ff1, ff1b,
+               pred, cache, xch, codes, stamps, T, L, D, TC, H, F, BINS, go_id};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (wbytes == 4)
+    return cbytes == 4 ? launch<float, float>(a, grid, smem_bytes, st)
+                       : launch<float, bf16_t>(a, grid, smem_bytes, st);
+  return cbytes == 4 ? launch<bf16_t, float>(a, grid, smem_bytes, st)
+                     : launch<bf16_t, bf16_t>(a, grid, smem_bytes, st);
 }
 
 // n barriers of the earlier design in one cooperative launch of the decode

@@ -6,18 +6,32 @@ Counterpart of `megatts2_hierspeechpp_tpu/infer/pipeline.py:TTSPipeline`:
   greedy decode -> w2v / log-f0 -> pitch clip] -> [vocoder] -> [SpeechSR]
   -> peak normalisation
 
-No length bucketing: the port runs eagerly at the request's own length, so
-`tts` is the counterpart of the JAX `tts(..., exact=True)` (acoustic budget
-2 * predicted frames). `synthesize` / `render` run the decode half alone on
-caller-supplied w2v features and log-f0. The denoiser is not ported:
-`denoise_ratio > 0` in `tts` raises, and the vocoder's [orig; denoised]
-style pair is the mel of [orig; orig].
+Length buckets, as the JAX pipeline's (`_bucket`, `_bucket_text`): by
+default (`exact=False`) the phone ids pad to `_bucket_text(n)`, and the
+acoustic stage and the vocoder run at `t_voc = _bucket(frames)` 50 Hz
+frames, the output cut to the request's own 320 * frames samples (times
+the SR ratio). `exact=True` runs at the exact lengths (acoustic budget 2 *
+predicted frames), the JAX `tts(..., exact=True)`.
+
+Serving surface: `tts` (one request), `tts_batch` (B texts, one shared
+prompt or one prompt per row, one shared bucket), `tts_stream` (chunked
+Generator decode with halos, chunked SpeechSR with one chunk of
+lookahead), `prepare_prompt(bucket=True)` (prompts on a 1 s grid, so
+speakers share a batch) and `prompt_style` (the vocoder's style pair,
+computed once per prompt). `infer/server.py` batches concurrent requests
+over them. `synthesize` / `render` run the decode half alone on
+caller-supplied w2v features and log-f0.
+
+The denoiser is not ported: `denoise_ratio > 0` raises, and the vocoder's
+[orig; denoised] style pair is the mel of [orig; orig]. The stages run
+under torch.inference_mode; `tts`, `tts_batch` and `tts_stream` enter it
+per stage, so a generator's caller is never left inside it.
 """
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Optional
+from typing import Optional, Sequence
 
 import numpy as np
 import torch
@@ -32,31 +46,72 @@ from megatts2_hierspeechpp_torch.models.vocoder import HierVocoder
 from megatts2_hierspeechpp_torch.ops.stft import mel_spectrogram_fixed
 
 LF0_FLOOR = math.log(55.0)  # predicted log-f0 below this is unvoiced: 0
+# kwargs of tts_batch, each with tts()'s meaning
+BATCH_KW = frozenset({"denoise_ratio", "noise_scale_vc", "length_scale",
+                      "seed", "top_k", "use_plm", "output_sr"})
+
+
+def _bucket(n: int, sizes=(200, 400, 600, 800, 1200, 1600, 2000)) -> int:
+    for s in sizes:
+        if n <= s:
+            return s
+    return ((n + 399) // 400) * 400
+
+
+def _bucket_text(n: int, sizes=(16, 32, 64, 96, 128, 192, 256, 384, 512)) -> int:
+    for s in sizes:
+        if n <= s:
+            return s
+    return ((n + 63) // 64) * 64
 
 
 @dataclass
 class PromptFeatures:
     """Per-prompt features, computed once and reused across requests."""
 
-    mel_ttv: torch.Tensor   # (1, T_pad, 80) mel of the 1600-padded prompt
+    mel_ttv: torch.Tensor   # (1, T_pad, 80) mel of the padded prompt
     mel_pair: torch.Tensor  # (2, T, 80) mel of [orig; denoised], true length
     t_samples: int
+    # (1, 2, C) the vocoder's [orig; denoised] style pair, pooled at the
+    # prompt's own length; filled by TTSPipeline.prompt_style
+    style_pair: Optional[torch.Tensor] = None
 
 
 @dataclass
 class Acoustic:
-    """Output of the acoustic stage for one request of `frames` 50 Hz
-    frames."""
+    """Output of the acoustic stage for B rows at a budget of T 50 Hz
+    frames (`frames`); `frame_lengths` holds each row's own."""
 
-    w2v: torch.Tensor         # (1, T, 1024)
-    lf0: torch.Tensor         # (1, 4T) log(f0 + 1), clipped at log(55)
-    frame_mask: torch.Tensor  # (1, T, 1)
-    x_frame: torch.Tensor     # (1, T, 256) TTV latent
-    codes: torch.Tensor       # (1, T) int32 prosody codes
+    w2v: torch.Tensor            # (B, T, 1024)
+    lf0: torch.Tensor            # (B, 4T) log(f0 + 1), clipped at log(55)
+    frame_mask: torch.Tensor     # (B, T, 1)
+    x_frame: torch.Tensor        # (B, T, 256) TTV latent
+    codes: torch.Tensor          # (B, T) int32 prosody codes
+    frame_lengths: torch.Tensor  # (B,) int32
 
     @property
     def frames(self) -> int:
         return self.w2v.shape[1]
+
+    def cut(self, row: int, t: int) -> "Acoustic":
+        """Row `row` at its first t frames."""
+        return Acoustic(self.w2v[row:row + 1, :t], self.lf0[row:row + 1, :4 * t],
+                        self.frame_mask[row:row + 1, :t],
+                        self.x_frame[row:row + 1, :t],
+                        self.codes[row:row + 1, :t],
+                        self.frame_lengths[row:row + 1])
+
+
+@dataclass
+class _Rows:
+    """B text rows and their prompts, padded for the TTV model."""
+
+    x_ids: torch.Tensor    # (B, N_pad) long
+    tone: torch.Tensor
+    lang: torch.Tensor
+    x_len: torch.Tensor    # (B,) phones per row
+    mel_ttv: torch.Tensor  # (B, T_pad, 80)
+    mel_len: torch.Tensor  # (B,) the padded prompt-mel length, every row
 
 
 @dataclass
@@ -86,72 +141,110 @@ class TTSPipeline:
                 "checkpoint or request output_sr=16000")
         return num / den
 
+    def _check_tts(self, denoise_ratio: float, use_plm: bool = True,
+                   codes=None) -> None:
+        if denoise_ratio > 0:
+            raise NotImplementedError("the denoiser is not ported")
+        if self.ttv is None or (use_plm and codes is None and self.plm is None):
+            raise ValueError("tts needs the ttv (and plm) models")
+
     @torch.inference_mode()
-    def prepare_prompt(self, prompt_audio: np.ndarray) -> PromptFeatures:
+    def prepare_prompt(self, prompt_audio: np.ndarray,
+                       denoise_ratio: float = 0.0,
+                       bucket: bool = False) -> PromptFeatures:
         """prompt_audio: (T,) float at 16 kHz. mel_ttv is the mel of the
-        prompt zero-padded to (T // 1600 + 1) * 1600 samples (always at least
-        one sample, as the reference pads); mel_pair is at the true length.
-        No denoiser is ported, so the [orig; denoised] style pair is the mel
-        of [orig; orig]."""
+        prompt zero-padded to (T // grid + 1) * grid samples (always at
+        least one sample, as the reference pads), grid 1600 (100 ms, the
+        reference's) or with bucket=True 16000 (1 s: many speakers share a
+        padded length, so they batch); mel_pair is at the true length. No
+        denoiser is ported: denoise_ratio > 0 raises, and the [orig;
+        denoised] style pair is the mel of [orig; orig]."""
+        if denoise_ratio > 0:
+            raise NotImplementedError("the denoiser is not ported")
         audio = np.asarray(prompt_audio, np.float32)
         t_a = len(audio)
-        padded = np.pad(audio, (0, (t_a // 1600 + 1) * 1600 - t_a))
+        grid = 16000 if bucket else 1600
+        padded = np.pad(audio, (0, (t_a // grid + 1) * grid - t_a))
         mel_ttv = mel_spectrogram_fixed(
             torch.from_numpy(padded[None]).to(self.device))
         pair = np.stack([audio, audio])
         mel_pair = mel_spectrogram_fixed(torch.from_numpy(pair).to(self.device))
         return PromptFeatures(mel_ttv=mel_ttv, mel_pair=mel_pair, t_samples=t_a)
 
+    @torch.inference_mode()
+    def prompt_style(self, prompt: PromptFeatures) -> torch.Tensor:
+        """(1, 2, C) vocoder style pair of a prompt, computed once and
+        cached on it (pooled at the prompt's own length)."""
+        if prompt.style_pair is None:
+            mel = prompt.mel_pair
+            prompt.style_pair = self.vocoder.style_pairs(
+                mel, torch.ones(*mel.shape[:2], 1, device=mel.device))
+        return prompt.style_pair
+
     # ---------- acoustic half ----------
 
-    def _text(self, text: str):
-        ids, tones, langs = text_frontend.process_text(text)
-        as_t = lambda v: torch.tensor([v], dtype=torch.long, device=self.device)  # noqa: E731
-        return (as_t(ids), as_t(tones), as_t(langs),
-                torch.tensor([len(ids)], device=self.device))
+    def _rows(self, texts: Sequence[str], prompts: Sequence[PromptFeatures],
+              exact: bool) -> _Rows:
+        """Phone ids, tones and languages of B texts, zero-padded to the
+        longest (exact) or to its _bucket_text; the prompts' mels (one
+        padded length for all rows)."""
+        seqs = [text_frontend.process_text(t) for t in texts]
+        n_max = max(len(ids) for ids, _, _ in seqs)
+        n_pad = n_max if exact else _bucket_text(n_max)
+        arr = np.zeros((3, len(seqs), n_pad), np.int64)
+        for i, seq in enumerate(seqs):
+            arr[:, i, :len(seq[0])] = seq
+        ids, tone, lang = torch.from_numpy(arr).to(self.device)
+        x_len = torch.tensor([len(q[0]) for q in seqs], device=self.device)
+        lens = {p.mel_ttv.shape[1] for p in prompts}
+        if len(lens) != 1:
+            raise ValueError(
+                "per-row prompts must share the padded prompt-mel length "
+                f"(got {sorted(lens)}); prepare_prompt(bucket=True) puts "
+                "speakers on a common 1 s grid")
+        if len({id(p) for p in prompts}) == 1:
+            mel = prompts[0].mel_ttv.repeat(len(prompts), 1, 1)
+        else:
+            mel = torch.cat([p.mel_ttv for p in prompts])
+        mel_len = torch.full((len(prompts),), mel.shape[1], device=self.device)
+        return _Rows(ids, tone, lang, x_len, mel, mel_len)
 
-    def _prompt_len(self, prompt: PromptFeatures):
-        return torch.tensor([prompt.mel_ttv.shape[1]], device=self.device)
+    def _prompt_rows(self, texts, prompt):
+        """(single, texts, prompts): a str or a list of texts, one prompt or
+        one per text."""
+        single = isinstance(texts, str)
+        texts = [texts] if single else list(texts)
+        prompts = (list(prompt) if isinstance(prompt, (list, tuple))
+                   else [prompt] * len(texts))
+        if len(prompts) != len(texts):
+            raise ValueError(f"{len(prompts)} prompts for {len(texts)} texts")
+        return single, texts, prompts
 
     @torch.inference_mode()
-    def duration(self, text: str, prompt: PromptFeatures,
-                 length_scale: float = 1.0) -> int:
-        """Duration pre-pass: the request's predicted 50 Hz frame count."""
-        x_ids, tone, lang, x_len = self._text(text)
-        frames = self.ttv.predict_frame_lengths(
-            x_ids, tone, lang, x_len, prompt.mel_ttv, self._prompt_len(prompt),
-            length_scale)
-        return int(frames[0])
+    def _frames(self, rows: _Rows, length_scale: float) -> np.ndarray:
+        return self.ttv.predict_frame_lengths(
+            rows.x_ids, rows.tone, rows.lang, rows.x_len, rows.mel_ttv,
+            rows.mel_len, length_scale).cpu().numpy()
 
     @torch.inference_mode()
-    def acoustic(self, text: str, prompt: PromptFeatures, frames: int,
-                 length_scale: float = 1.0, mode: str = "plm", top_k: int = 0,
-                 seed: int = 1234,
-                 codes: Optional[np.ndarray] = None) -> Acoustic:
-        """TTV latent -> prosody codes -> w2v / log-f0 -> pitch clip, at a
-        100 Hz budget of 2 * frames.
-
-        mode "plm": greedy (top_k 0) or top-k PLM decode, the top-k draws
-        from a generator on the pipeline's device seeded with `seed`;
-        "prompt": the prompt's own RVQ codes tiled to the length; "given":
-        `codes`, zero-padded or cut to the length."""
-        x_ids, tone, lang, x_len = self._text(text)
-        mel_len = self._prompt_len(prompt)
-        x_frame, g, _, frame_mask = self.ttv.inf_extract_tc_latent(
-            x_ids, tone, lang, x_len, prompt.mel_ttv, mel_len, 2 * frames,
-            length_scale=length_scale)
-        t_need = x_frame.shape[1]
+    def _acoustic(self, rows: _Rows, frames: int, length_scale: float = 1.0,
+                  mode: str = "plm", top_k: int = 0, seed: int = 1234,
+                  codes: Optional[np.ndarray] = None) -> Acoustic:
+        x_frame, g, frame_lengths, frame_mask = self.ttv.inf_extract_tc_latent(
+            rows.x_ids, rows.tone, rows.lang, rows.x_len, rows.mel_ttv,
+            rows.mel_len, 2 * frames, length_scale=length_scale)
+        b, t_need = x_frame.shape[:2]
         if mode == "plm":
             pcodes = plm_lib.decode(
                 self.plm, x_frame, top_k=top_k,
                 generator=torch.Generator(self.device).manual_seed(seed))
         elif mode == "given":
             given = torch.as_tensor(np.asarray(codes), dtype=torch.int32)
-            given = given.reshape(1, -1)[:, :t_need].to(self.device)
-            pcodes = torch.zeros(1, t_need, dtype=torch.int32, device=self.device)
+            given = given.reshape(b, -1)[:, :t_need].to(self.device)
+            pcodes = torch.zeros(b, t_need, dtype=torch.int32, device=self.device)
             pcodes[:, :given.shape[1]] = given
         elif mode == "prompt":
-            pc = self.ttv.prompt_codes(prompt.mel_ttv, mel_len)
+            pc = self.ttv.prompt_codes(rows.mel_ttv, rows.mel_len)
             reps = -(-t_need // pc.shape[1])
             pcodes = pc.repeat(1, reps)[:, :t_need]
         else:
@@ -160,40 +253,263 @@ class TTSPipeline:
         # pitch clip (inference_plm.py:169): the vocoder takes log(f0 + 1)
         # as it comes, with unvoiced frames at 0
         lf0 = torch.where(lf0 < LF0_FLOOR, torch.zeros_like(lf0), lf0)
-        return Acoustic(w2v, lf0, frame_mask, x_frame, pcodes)
+        return Acoustic(w2v, lf0, frame_mask, x_frame, pcodes, frame_lengths)
+
+    def duration(self, text, prompt, length_scale: float = 1.0,
+                 exact: bool = False):
+        """Duration pre-pass: the predicted 50 Hz frame count of `text` (an
+        int), or of each of a list of texts (an int array); `prompt` is one
+        PromptFeatures or one per text. The text pads as `tts(exact=...)`
+        pads it (the duration predictor's LSTM reads the padding)."""
+        single, texts, prompts = self._prompt_rows(text, prompt)
+        frames = self._frames(self._rows(texts, prompts, exact), length_scale)
+        return int(frames[0]) if single else frames
+
+    def acoustic(self, text, prompt, frames: int, length_scale: float = 1.0,
+                 mode: str = "plm", top_k: int = 0, seed: int = 1234,
+                 codes: Optional[np.ndarray] = None,
+                 exact: bool = False) -> Acoustic:
+        """TTV latent -> prosody codes -> w2v / log-f0 -> pitch clip, for
+        one text or a list (`prompt`: one or one per text), at a 100 Hz
+        budget of 2 * frames shared by the rows.
+
+        mode "plm": greedy (top_k 0) or top-k PLM decode, the top-k draws
+        from a generator on the pipeline's device seeded with `seed`;
+        "prompt": the prompt's own RVQ codes tiled to the length; "given":
+        `codes`, zero-padded or cut to the length."""
+        _, texts, prompts = self._prompt_rows(text, prompt)
+        return self._acoustic(self._rows(texts, prompts, exact), frames,
+                              length_scale, mode, top_k, seed, codes)
 
     def tts(self, text: str, prompt_audio: Optional[np.ndarray] = None,
             denoise_ratio: float = 0.0, noise_scale_vc: float = 0.333,
             length_scale: float = 1.0, output_sr: int = 16000,
             seed: int = 1234, top_k: int = 0, use_plm: bool = True,
-            prompt: Optional[PromptFeatures] = None,
+            prompt: Optional[PromptFeatures] = None, exact: bool = False,
             codes: Optional[np.ndarray] = None,
             return_intermediates: bool = False):
         """Text + prompt -> float32 numpy waveform at output_sr, peak 0.999.
 
-        With return_intermediates, also returns the Acoustic outputs and the
-        waveform before normalisation (on the device)."""
-        if denoise_ratio > 0:
-            raise NotImplementedError("the denoiser is not ported")
-        if self.ttv is None or (use_plm and codes is None and self.plm is None):
-            raise ValueError("tts needs the ttv (and plm) models")
-        self._check_output_sr(output_sr)  # fail before any compute
+        With return_intermediates, also returns the Acoustic outputs cut to
+        the request's frames and the waveform before normalisation (on the
+        device)."""
+        self._check_tts(denoise_ratio, use_plm, codes)
+        ratio = self._check_output_sr(output_sr)  # fail before any compute
         if prompt is None:
             if prompt_audio is None:
                 raise ValueError("need prompt_audio or prompt features")
             prompt = self.prepare_prompt(prompt_audio)
         mode = "given" if codes is not None else ("plm" if use_plm else "prompt")
-        frames = self.duration(text, prompt, length_scale)
-        ac = self.acoustic(text, prompt, frames, length_scale, mode, top_k,
-                           seed, codes)
-        raw = self.render(prompt, ac.w2v, ac.frame_mask, ac.lf0,
-                          noise_scale_vc, seed, denoise_ratio, output_sr)
+        rows = self._rows([text], [prompt], exact)
+        frames = int(self._frames(rows, length_scale)[0])
+        t_voc = frames if exact else _bucket(frames)
+        ac = self._acoustic(rows, t_voc, length_scale, mode, top_k, seed, codes)
+        wav = self._vocode(prompt, ac, noise_scale_vc, seed, denoise_ratio,
+                           output_sr)
+        raw = wav[0, :int(320 * frames * ratio)]
         out = _peak_normalise(raw.cpu().numpy())
         if return_intermediates:
-            return out, ac, raw
+            return out, ac.cut(0, frames), raw
         return out
 
-    # ---------- decode half on given features ----------
+    def tts_batch(self, texts: Sequence[str],
+                  prompt_audio: Optional[np.ndarray] = None,
+                  prompt: Optional[PromptFeatures] = None,
+                  prompts: Optional[Sequence[PromptFeatures]] = None,
+                  **kw) -> list:
+        """B texts in one pass: text padded to one bucket, the acoustic
+        stage and the vocoder at B rows and one frame bucket (the longest
+        row's), each row cut to its own length and peak-normalised.
+
+        Prompts: `prompt` / `prompt_audio`, one speaker shared by the rows
+        (its style broadcast over them), or `prompts`, one per row, which
+        must share the padded prompt-mel length (prepare_prompt(bucket=
+        True)); their style pairs are each pooled at the prompt's own
+        length (prompt_style, cached), so each row computes what its own
+        tts() call does. Unknown kwargs raise rather than give other audio
+        than tts() would."""
+        unknown = set(kw) - BATCH_KW
+        if unknown:
+            raise ValueError(
+                f"tts_batch does not support kwargs {sorted(unknown)}; "
+                "use tts() for per-request options")
+        denoise_ratio = kw.get("denoise_ratio", 0.0)
+        use_plm = kw.get("use_plm", True)
+        self._check_tts(denoise_ratio, use_plm)
+        output_sr = kw.get("output_sr", 16000)
+        ratio = self._check_output_sr(output_sr)
+        b = len(texts)
+        if prompts is not None:
+            if prompt is not None or prompt_audio is not None:
+                raise ValueError("pass either `prompts` (per-row) or a shared "
+                                 "`prompt`/`prompt_audio`, not both")
+            if len(prompts) != b:
+                raise ValueError(f"{len(prompts)} prompts for {b} texts")
+            rows = self._rows(texts, prompts, exact=False)
+        else:
+            if prompt is None:
+                if prompt_audio is None:
+                    raise ValueError("need prompt_audio, prompt or prompts")
+                prompt = self.prepare_prompt(prompt_audio)
+            rows = self._rows(texts, [prompt] * b, exact=False)
+        length_scale = kw.get("length_scale", 1.0)
+        seed = kw.get("seed", 1234)
+        frames = self._frames(rows, length_scale)
+        ac = self._acoustic(rows, _bucket(int(frames.max())), length_scale,
+                            "plm" if use_plm else "prompt", kw.get("top_k", 0),
+                            seed)
+        style = (list(prompts) if prompts is not None else prompt)
+        wav = self._vocode(style, ac, kw.get("noise_scale_vc", 0.333), seed,
+                           denoise_ratio, output_sr).cpu().numpy()
+        return [_peak_normalise(wav[i, :int(320 * int(frames[i]) * ratio)])
+                for i in range(b)]
+
+    def tts_stream(self, text: str, prompt_audio: Optional[np.ndarray] = None,
+                   denoise_ratio: float = 0.0, noise_scale_vc: float = 0.333,
+                   length_scale: float = 1.0, seed: int = 1234,
+                   top_k: int = 0, use_plm: bool = True,
+                   prompt: Optional[PromptFeatures] = None,
+                   chunk_frames: int = 200, halo_frames: int = 32,
+                   output_sr: int = 16000, sr_halo: int = 512):
+        """Streaming TTS: yields float32 numpy chunks (4 s of audio per chunk
+        at the default) as the Generator decodes them.
+
+        The vocoder splits at the Generator (HierVocoder.vc_latent /
+        decode_latent): style, posterior, flows and SourceNetwork run once
+        over the bucketed utterance; the convolutional Generator decodes
+        overlapping chunks with `halo_frames` of real latent on each inner
+        side, discarded. The first and last chunks carry no outer halo:
+        their array edge is the sequence edge, where the whole decode pads
+        each layer with zeros (a zero-input halo is not that, since biases
+        and the style make padded activations nonzero). Interior windows lie
+        wholly inside [0, t_voc); the last segment absorbs the rest. The
+        emitted total is the request's 320 * frames samples. Chunks are raw
+        tanh output, not peak-normalised (the global peak is unknown
+        mid-stream).
+
+        output_sr != 16000 super-resolves each piece with `sr_halo` real
+        samples on each inner side and one chunk of lookahead (the SR
+        stack's right halo is the next chunk); a final raw chunk shorter
+        than sr_halo is merged into the previous piece."""
+        self._check_tts(denoise_ratio, use_plm)
+        ratio = self._check_output_sr(output_sr)
+        ck, h = chunk_frames, halo_frames
+        if ck < h:
+            raise ValueError("chunk_frames must be >= halo_frames")
+        if prompt is None:
+            if prompt_audio is None:
+                raise ValueError("need prompt_audio or prompt features")
+            prompt = self.prepare_prompt(prompt_audio)
+        rows = self._rows([text], [prompt], exact=False)
+        frames = int(self._frames(rows, length_scale)[0])
+        t_voc = _bucket(frames)
+        ac = self._acoustic(rows, t_voc, length_scale,
+                            "plm" if use_plm else "prompt", top_k, seed)
+        z, e, g = self._latent(prompt, ac, noise_scale_vc, seed, denoise_ratio)
+
+        if t_voc <= ck + h:
+            segments = [("full", 0, t_voc)]
+        else:
+            s, starts = ck, []
+            while s + ck + h <= t_voc:
+                starts.append(s)
+                s += ck
+            segments = ([("first", 0, ck)] + [("mid", x, ck) for x in starts]
+                        + [("last", s, t_voc - s)])
+
+        def raw_chunks():
+            emitted = 0
+            for kind, start, length in segments:
+                chunk = self._decode_chunk(z, e, g, kind, start, length, h)
+                take = min(len(chunk), 320 * frames - emitted)
+                if take <= 0:
+                    break
+                emitted += take
+                yield chunk[:take]
+
+        if ratio == 1.0:
+            yield from raw_chunks()
+            return
+        hs = sr_halo
+        prev, prev_left = None, None
+        for r in raw_chunks():
+            if prev is not None:
+                if len(r) < hs:
+                    # too short to be a right halo: merged into the previous
+                    # piece, which then ends at the sequence edge
+                    prev = np.concatenate([prev, r])
+                    continue
+                yield self._sr_piece(prev, prev_left, r[:hs])
+                prev_left = prev[-hs:]
+            prev = r
+        if prev is not None:
+            yield self._sr_piece(prev, prev_left, None)
+
+    # ---------- decode half ----------
+
+    def _style(self, style):
+        """The vocoder's style input: (mel_pair, trg_mask) of one shared
+        prompt, or the (B, 2, C) cached style pairs of per-row prompts."""
+        if isinstance(style, PromptFeatures):
+            mel = style.mel_pair
+            return mel, torch.ones(*mel.shape[:2], 1, device=self.device)
+        return torch.cat([self.prompt_style(p) for p in style])
+
+    @torch.inference_mode()
+    def _vocode(self, style, ac: Acoustic, noise_scale: float, seed: int,
+                denoise_ratio: float, output_sr: int) -> torch.Tensor:
+        """(B, N) waveform at output_sr over the whole budget, uncut. style:
+        a PromptFeatures or a list of one per row. The posterior noise comes
+        from torch.Generator().manual_seed(seed + 1)."""
+        gen = torch.Generator().manual_seed(seed + 1)
+        f0 = ac.lf0[..., None]
+        st = self._style(style)
+        if isinstance(st, tuple):
+            wav = self.vocoder.voice_conversion(
+                ac.w2v, ac.frame_mask, *st, f0, noise_scale, gen, denoise_ratio)
+        else:
+            wav = self.vocoder.voice_conversion_from_style(
+                ac.w2v, ac.frame_mask, st, f0, noise_scale, gen, denoise_ratio)
+        if self._check_output_sr(output_sr) != 1.0:
+            wav = self.speechsr(wav)
+        return wav[..., 0]
+
+    @torch.inference_mode()
+    def _latent(self, prompt: PromptFeatures, ac: Acoustic, noise_scale: float,
+                seed: int, denoise_ratio: float):
+        mel, mask = self._style(prompt)
+        return self.vocoder.vc_latent(
+            ac.w2v, ac.frame_mask, mel, mask, ac.lf0[..., None], noise_scale,
+            torch.Generator().manual_seed(seed + 1), denoise_ratio)
+
+    @torch.inference_mode()
+    def _decode_chunk(self, z, e, g, kind: str, start: int, length: int,
+                      h: int) -> np.ndarray:
+        """One streamed Generator segment (tts_stream's plan) -> float32
+        numpy samples."""
+        if kind == "full":
+            wav = self.vocoder.decode_latent(z, e, g)
+        elif kind == "first":
+            wav = self.vocoder.decode_latent(
+                z[:, :length + h], e[:, :4 * (length + h)], g)[:, :320 * length]
+        elif kind == "mid":
+            lo, hi = start - h, start + length + h
+            wav = self.vocoder.decode_latent(
+                z[:, lo:hi], e[:, 4 * lo:4 * hi], g)[:, 320 * h:320 * (h + length)]
+        else:  # last
+            wav = self.vocoder.decode_latent(
+                z[:, start - h:], e[:, 4 * (start - h):], g)[:, 320 * h:]
+        return wav[0, :, 0].cpu().numpy()
+
+    @torch.inference_mode()
+    def _sr_piece(self, mid: np.ndarray, left, right) -> np.ndarray:
+        """SpeechSR of one streamed piece with its real-sample halos (None at
+        a sequence edge), cut to the piece's own output samples."""
+        num, den = self.speechsr.rate_num, self.speechsr.rate_den
+        x = np.concatenate([p for p in (left, mid, right) if p is not None])
+        y = self.speechsr(torch.from_numpy(x).to(self.device)[None, :, None])
+        start = 0 if left is None else len(left) * num // den
+        return y[0, start:start + len(mid) * num // den, 0].cpu().numpy()
 
     @torch.inference_mode()
     def render(self, prompt: PromptFeatures, w2v, frame_mask, lf0,
@@ -207,9 +523,8 @@ class TTSPipeline:
         ratio = self._check_output_sr(output_sr)
         t_frames = w2v.shape[1]
         dev = self.device
-        trg_mask = torch.ones(*prompt.mel_pair.shape[:2], 1, device=dev)
         wav = self.vocoder.voice_conversion(
-            w2v.to(dev), frame_mask.to(dev), prompt.mel_pair, trg_mask,
+            w2v.to(dev), frame_mask.to(dev), *self._style(prompt),
             lf0.to(dev)[..., None], noise_scale,
             torch.Generator().manual_seed(seed + 1), denoise_ratio)
         if ratio != 1.0:
@@ -230,4 +545,3 @@ class TTSPipeline:
 def _peak_normalise(wav: np.ndarray) -> np.ndarray:
     peak = np.abs(wav).max()
     return (wav / max(peak, 1e-8) * 0.999).astype(np.float32)
-

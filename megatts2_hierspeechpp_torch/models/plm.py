@@ -8,10 +8,13 @@ embedding 20) with sinusoidal positions scaled by a learnt alpha; go token
 ff.0,ff.3}`, `predict_layer`); the reference's dropouts are Identity
 placeholders that keep those indices.
 
-`decode` dispatches as the JAX `decode` does: greedy, B=1 and float32 go to
-the kernel wrapper (`ops/plm_decode.py`), which launches the hand-written
-kernel on a CUDA tensor and takes its plain version on a CPU one; everything
-else takes the plain KV-cached loop.
+`decode` dispatches as the JAX `decode` does: a greedy float32 latent goes
+to the kernel wrapper (`ops/plm_decode.py`), which launches the hand-written
+kernel on a CUDA tensor and takes its plain version on a CPU one; a batch
+of B rows is B such calls, one per row (greedy causal decode is independent
+per row, as the JAX B > 1 scan computes it); top-k sampling takes the plain
+KV-cached loop over the whole batch. Weights and KV cache are float32 unless
+the caller asks for bf16 (ops/plm_decode.py says why that is the default).
 """
 from __future__ import annotations
 
@@ -187,13 +190,17 @@ def teacher_forced_gap(model: ProsodyLM, tc_latent: torch.Tensor,
 @torch.inference_mode()
 def decode(model: ProsodyLM, tc_latent: torch.Tensor, top_k: int = 0,
            temperature: float = 1.0,
-           generator: Optional[torch.Generator] = None) -> torch.Tensor:
-    """tc_latent (B, T, 256) -> codes (B, T) int32: greedy when top_k == 0,
-    else top-k sampling from `generator` (a torch.Generator on tc_latent's
-    device)."""
+           generator: Optional[torch.Generator] = None,
+           weight_dtype: torch.dtype = torch.float32,
+           cache_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """tc_latent (B, T, 256) -> codes (B, T) int32: greedy when top_k == 0
+    (one kernel call per row), else top-k sampling from `generator` (a
+    torch.Generator on tc_latent's device)."""
     w = model.packed()
-    if (top_k == 0 and tc_latent.shape[0] == 1
-            and tc_latent.dtype == torch.float32):
-        return plm_decode_greedy(w, tc_latent, model.go_id)
+    if top_k == 0 and tc_latent.dtype == torch.float32:
+        return torch.cat([
+            plm_decode_greedy(w, tc_latent[i:i + 1], model.go_id,
+                              weight_dtype, cache_dtype)
+            for i in range(tc_latent.shape[0])])
     return plain_decode(w, tc_latent, model.go_id, top_k, temperature,
-                        generator)
+                        generator, weight_dtype, cache_dtype)

@@ -302,6 +302,25 @@ class HierVocoder(nn.Module):
         g_all = self.emb_g(trg_mel, trg_mask)
         return g_all.reshape(-1, 2, g_all.shape[-1])
 
+    def vc_latent_from_style(self, src_w2v, src_mask, g_pair, f0,
+                             noise_scale: float = 0.333, generator=None,
+                             denoise_ratio: float = 0.0):
+        """vc_latent with style pairs computed beforehand: g_pair (1 or B,
+        2, C) from style_pairs, [orig; denoised] interpolated by
+        denoise_ratio per row."""
+        g = (1 - denoise_ratio) * g_pair[:, 0] + denoise_ratio * g_pair[:, 1]
+        return self._vc_core(src_w2v, src_mask, g, f0, noise_scale, generator)
+
+    def voice_conversion_from_style(self, src_w2v, src_mask, g_pair, f0,
+                                    noise_scale: float = 0.333, generator=None,
+                                    denoise_ratio: float = 0.0):
+        """voice_conversion with one cached style pair per row (B rows of
+        src_w2v, 1 or B rows of g_pair) -> (B, 320T, 1)."""
+        z, e, g = self.vc_latent_from_style(src_w2v, src_mask, g_pair, f0,
+                                            noise_scale, generator,
+                                            denoise_ratio)
+        return self.dec(z, e, g=g)
+
     def decode_latent(self, z, e, g):
         """Generator-only decode of vc_latent outputs."""
         return self.dec(z, e, g=g)

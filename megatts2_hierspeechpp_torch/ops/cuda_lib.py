@@ -31,7 +31,7 @@ NVCC_FLAGS = ARCH_FLAGS + ["-O3", "-std=c++17", "-Xcompiler", "-fPIC",
                            "-Xptxas", "-v"]
 
 LAUNCHES = {"aa_snakebeta": 0, "ampblock": 0, "amp_triple": 0,
-            "plm_decode": 0}
+            "plm_decode": 0, "plm_decode_bf16": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -49,8 +49,8 @@ _SIGNATURES = {
     "triple_post_fwd": [_P] * 7 + [_I] * 5 + [_P, _P],
     # tc, pe, emb, wqkv, bqkv, wo, bo, ln, ff0, ff0b, ff1, ff1b, pred, cache,
     # xch, codes, stamps, T, L, D, TC, H, F, BINS, go_id, grid, smem_bytes,
-    # xch_pairs, stream
-    "plm_decode_fwd": [_P] * 17 + [_I] * 11 + [_P],
+    # xch_pairs, wbytes, cbytes, stream
+    "plm_decode_fwd": [_P] * 17 + [_I] * 13 + [_P],
     # iscratch, n, stream
     "plm_barrier_probe": [_P, _I, _P],
 }
@@ -145,13 +145,14 @@ def call(name: str, *args) -> None:
 
 
 def check(t: torch.Tensor, name: str, device: torch.device,
-          shape: tuple | None = None) -> None:
-    """Raise unless `t` is a contiguous float32 tensor on `device` of
+          shape: tuple | None = None,
+          dtype: torch.dtype = torch.float32) -> None:
+    """Raise unless `t` is a contiguous `dtype` tensor on `device` of
     `shape`."""
     if t.device != device:
         raise ValueError(f"{name} is on {t.device}, expected {device}")
-    if t.dtype != torch.float32:
-        raise TypeError(f"{name} must be float32, got {t.dtype}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
     if shape is not None and tuple(t.shape) != tuple(shape):

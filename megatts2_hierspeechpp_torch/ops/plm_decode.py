@@ -1,5 +1,5 @@
 """Greedy KV-cached decode of the prosody LM: hand-written CUDA kernel and
-its plain version.
+its plain version, with float32 or bf16 weights and KV cache.
 
 Replaces the TPU kernel `megatts2_hierspeechpp_tpu/ops/pallas_plm_decode.py`
 (`_kernel` behind `plm_decode_greedy`): the whole B=1 greedy token loop of
@@ -19,12 +19,28 @@ not fit raises ValueError, with no fallback.
 
 `plain_decode` is the same loop in plain PyTorch (B >= 1, greedy or top-k
 sampling); CPU tensors take it, and it is the kernel's yardstick.
+
+`weight_dtype` / `cache_dtype` (float32 or bfloat16, chosen apart) are the
+TPU kernel's configuration (`pallas_plm_decode.plm_decode_greedy`): bf16
+matrices (wqkv, wo, ff0, ff1, pred) with every product's vector rounded to
+bf16 first (the LayerNorm outputs, att, h, and x before the logits), and a
+bf16 KV cache for the earlier tokens (this token's k and v stay float32);
+biases, LayerNorm, embeddings, positions and all sums in float32. The
+plain version rounds at the same points. Their default here is float32,
+which keeps the greedy codes exact against the plain decode; the JAX
+package serves with bf16 by default, from a TPU A/B that says nothing of
+this card. That is the one deliberate difference from the JAX default.
+bf16 halves a block's share of the matrices in shared memory (`plan`).
+`plain_gap` checks greedy codes against the plain loop in either dtype;
+in bf16 two orders of the same sums round a value near a bf16 boundary
+apart, so bf16 codes are held to one bf16 step of the logits' scale
+(chip_smoke.py), float32 codes to float error.
 """
 from __future__ import annotations
 
 import functools
 import math
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Optional
 
 import torch
@@ -50,6 +66,13 @@ def _up4(n: int) -> int:
     return (n + 3) // 4 * 4
 
 
+def _up(n: int, m: int) -> int:
+    return -(-n // m) * m
+
+
+WEIGHT_BYTES = {torch.float32: 4, torch.bfloat16: 2}
+
+
 def owned(rows: int, block: int, grid: int) -> int:
     """Rows of a matrix of `rows` output rows that `block` owns: the rows
     j = block (mod grid), row j in slot j // grid."""
@@ -58,38 +81,43 @@ def owned(rows: int, block: int, grid: int) -> int:
 
 @functools.lru_cache(maxsize=16)
 def plan(d: int, f: int, n_layers: int, bins: int, grid: int,
-         n_heads: int) -> dict:
+         n_heads: int, wbytes: int = 4) -> dict:
     """The kernel's layout (`make_plan` in csrc/plm_decode.cu, which checks
-    "bytes" and "pairs" against its own): row slots per block of each matrix,
-    the block's dynamic shared memory in bytes, and the exchange buffer's
-    length in 64-bit pairs."""
+    "bytes" and "pairs" against its own) for matrices of `wbytes` bytes per
+    weight (4 float32, 2 bf16): row slots per block of each matrix, the row
+    strides in weights ("rd" for D inputs, "rf" for F inputs: whole 16-byte
+    units), the block's dynamic shared memory in bytes, and the exchange
+    buffer's length in 64-bit pairs."""
     slots = {"wqkv": _cdiv(3 * d, grid), "wo": _cdiv(d, grid),
              "ff0": _cdiv(f, grid), "ff1": _cdiv(d, grid),
              "pred": _cdiv(bins, grid)}
-    w_layer = (slots["wqkv"] + slots["wo"] + slots["ff0"]) * d + slots["ff1"] * f
+    rd, rf = _up(d, 16 // wbytes), _up(f, 16 // wbytes)
+    w_layer = (slots["wqkv"] + slots["wo"] + slots["ff0"]) * rd + slots["ff1"] * rf
     n_bias = slots["wqkv"] + slots["wo"] + slots["ff0"] + slots["ff1"]
-    floats = (n_layers * w_layer + slots["pred"] * d + n_layers * 4 * d
+    matrices = n_layers * w_layer + slots["pred"] * rd  # weights
+    floats = (_up4(_cdiv(matrices * wbytes, 4)) + n_layers * 4 * d
               + _up4(n_layers * n_bias) + 3 * _up4(d))
     hd = d // n_heads
     nsplit_max = max(1, min(MAX_PARTS // n_heads, grid // n_heads))
     work = max(f, 2 * KEY_CHUNK * hd + 2 * KEY_CHUNK + _up4(hd),
                n_heads * nsplit_max * (hd + 3) + n_heads)
     layer_pairs = 3 * d + n_heads * nsplit_max * (hd + 2) + 2 * d + f
-    return {"slots": slots, "bytes": 4 * (floats + _up4(work)),
+    return {"slots": slots, "rd": rd, "rf": rf,
+            "bytes": 4 * (floats + _up4(work)),
             "pairs": 2 * (n_layers * layer_pairs + 2 * grid)}
 
 
 def smem_plan(d: int, f: int, n_layers: int, bins: int, grid: int,
-              n_heads: int = 4) -> int:
+              n_heads: int = 4, wbytes: int = 4) -> int:
     """Shared memory bytes per block that the kernel takes at this grid."""
-    return plan(d, f, n_layers, bins, grid, n_heads)["bytes"] + STATIC_SMEM
+    return plan(d, f, n_layers, bins, grid, n_heads, wbytes)["bytes"] + STATIC_SMEM
 
 
 def check_plan(d: int, f: int, n_layers: int, bins: int, grid: int,
-               n_heads: int) -> dict:
+               n_heads: int, wbytes: int = 4) -> dict:
     """plan(...), or ValueError when a block's share of the weights does
     not fit its shared memory at this grid."""
-    layout = plan(d, f, n_layers, bins, grid, n_heads)
+    layout = plan(d, f, n_layers, bins, grid, n_heads, wbytes)
     need = layout["bytes"] + STATIC_SMEM
     if need > SMEM_LIMIT:
         raise ValueError(
@@ -117,11 +145,26 @@ class PLMWeights:
     ff1b: torch.Tensor       # (L, D)
     pred: torch.Tensor       # (BINS, D)
     n_heads: int
+    _kernel: dict = field(default_factory=dict, repr=False, compare=False)
 
     def tensors(self):
         return (self.emb, self.pos_alpha, self.wqkv, self.bqkv, self.wo,
                 self.bo, self.ln, self.ff0, self.ff0b, self.ff1, self.ff1b,
                 self.pred)
+
+    def matrices(self, dtype: torch.dtype = torch.float32):
+        """(wqkv, wo, ff0, ff1, pred) as the kernel takes them in `dtype`:
+        float32 as they are; bf16 rounded once (cached), each row padded
+        with zeros to a multiple of 8 weights (16 bytes) for the bulk
+        copies."""
+        mats = (self.wqkv, self.wo, self.ff0, self.ff1, self.pred)
+        if dtype == torch.float32:
+            return mats
+        if dtype not in self._kernel:
+            self._kernel[dtype] = tuple(
+                F.pad(m.to(dtype), (0, _up(m.shape[-1], 8) - m.shape[-1]))
+                .contiguous() for m in mats)
+        return self._kernel[dtype]
 
 
 def sine_positions(t_max: int, dim: int, device=None) -> torch.Tensor:
@@ -139,19 +182,34 @@ def _scaled_positions(w: PLMWeights, t: int, d: int, device) -> torch.Tensor:
     return w.pos_alpha * sine_positions(t, d, device)
 
 
-def plain_decode(w: PLMWeights, tc_latent: torch.Tensor, go_id: int = 1024,
-                 top_k: int = 0, temperature: float = 1.0,
-                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
-    """KV-cached decode loop: tc_latent (B, T, TC) -> codes (B, T) int32.
+def _check_dtype(name: str, dtype: torch.dtype) -> int:
+    if dtype not in WEIGHT_BYTES:
+        raise ValueError(f"plm_decode {name} must be float32 or bfloat16, "
+                         f"got {dtype}")
+    return WEIGHT_BYTES[dtype]
 
-    Greedy (first argmax) when top_k == 0; otherwise top-k sampling at
-    `temperature`, drawn on tc_latent's device from `generator` (a
-    torch.Generator on that device)."""
+
+def _rounder(dtype: torch.dtype):
+    """Values rounded to `dtype` and back to float32 (float32: unchanged)."""
+    if dtype == torch.float32:
+        return lambda v: v
+    return lambda v: v.to(dtype).float()
+
+
+def _plain_loop(w: PLMWeights, tc_latent: torch.Tensor, go_id: int, pick,
+                weight_dtype: torch.dtype, cache_dtype: torch.dtype):
+    """The KV-cached token loop; pick(step, logits) -> the (B,) codes fed
+    back. Returns the codes (B, T) int32."""
+    _check_dtype("weight_dtype", weight_dtype)
+    _check_dtype("cache_dtype", cache_dtype)
+    rw, rc = _rounder(weight_dtype), _rounder(cache_dtype)
     b, t, _ = tc_latent.shape
     dev = tc_latent.device
     n_layers, d = w.wo.shape[0], w.wo.shape[1]
     h = w.n_heads
     hd = d // h
+    wqkv, wo, ff0, ff1, pred = (rw(m) for m in (w.wqkv, w.wo, w.ff0, w.ff1,
+                                                 w.pred))
     pe = _scaled_positions(w, t, d, dev)
     k_cache = torch.zeros(n_layers, b, h, t, hd, device=dev)
     v_cache = torch.zeros_like(k_cache)
@@ -161,39 +219,85 @@ def plain_decode(w: PLMWeights, tc_latent: torch.Tensor, go_id: int = 1024,
         x = torch.cat([tc_latent[:, step], w.emb[prev]], dim=-1) + pe[step]
         for i in range(n_layers):
             yn = F.layer_norm(x, (d,), w.ln[i, 0], w.ln[i, 1], 1e-5)
-            qkv = F.linear(yn, w.wqkv[i], w.bqkv[i])
+            qkv = F.linear(rw(yn), wqkv[i], w.bqkv[i])
             q = qkv[:, :d].reshape(b, h, hd)
-            k_cache[i, :, :, step] = qkv[:, d:2 * d].reshape(b, h, hd)
-            v_cache[i, :, :, step] = qkv[:, 2 * d:].reshape(b, h, hd)
-            kc = k_cache[i, :, :, :step + 1]
-            vc = v_cache[i, :, :, :step + 1]
+            k = qkv[:, d:2 * d].reshape(b, h, hd)
+            v = qkv[:, 2 * d:].reshape(b, h, hd)
+            k_cache[i, :, :, step] = rc(k)
+            v_cache[i, :, :, step] = rc(v)
+            # the earlier tokens from the cache, this one as computed
+            kc = torch.cat([k_cache[i, :, :, :step], k[:, :, None]], dim=2)
+            vc = torch.cat([v_cache[i, :, :, :step], v[:, :, None]], dim=2)
             scores = torch.einsum("bhd,bhkd->bhk", q, kc) / math.sqrt(hd)
             p = torch.softmax(scores, dim=-1)
             att = torch.einsum("bhk,bhkd->bhd", p, vc).reshape(b, d)
-            x = x + F.linear(att, w.wo[i], w.bo[i])
+            x = x + F.linear(rw(att), wo[i], w.bo[i])
             yn = F.layer_norm(x, (d,), w.ln[i, 2], w.ln[i, 3], 1e-5)
-            x = x + F.linear(torch.relu(F.linear(yn, w.ff0[i], w.ff0b[i])),
-                             w.ff1[i], w.ff1b[i])
-        logits = F.linear(x, w.pred)
-        if top_k > 0:
-            vals, idxs = torch.topk(logits / temperature, top_k, dim=-1)
-            probs = torch.softmax(vals, dim=-1)
-            choice = torch.multinomial(probs, 1, generator=generator)
-            nxt = torch.gather(idxs, 1, choice)[:, 0]
-        else:
-            nxt = torch.argmax(logits, dim=-1)
+            hid = torch.relu(F.linear(rw(yn), ff0[i], w.ff0b[i]))
+            x = x + F.linear(rw(hid), ff1[i], w.ff1b[i])
+        nxt = pick(step, F.linear(rw(x), pred))
         codes[:, step] = nxt.to(torch.int32)
-        prev = nxt
+        prev = nxt.long()
     return codes
 
 
+def plain_decode(w: PLMWeights, tc_latent: torch.Tensor, go_id: int = 1024,
+                 top_k: int = 0, temperature: float = 1.0,
+                 generator: Optional[torch.Generator] = None,
+                 weight_dtype: torch.dtype = torch.float32,
+                 cache_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """KV-cached decode loop: tc_latent (B, T, TC) -> codes (B, T) int32.
+
+    Greedy (first argmax) when top_k == 0; otherwise top-k sampling at
+    `temperature`, drawn on tc_latent's device from `generator` (a
+    torch.Generator on that device). With bf16 weight / cache dtypes, the
+    matrices, each product's vector and each cached k, v row are rounded
+    to bf16 where the kernel rounds them (module docstring); the math is
+    float32."""
+
+    def pick(step, logits):
+        if top_k == 0:
+            return torch.argmax(logits, dim=-1)
+        vals, idxs = torch.topk(logits / temperature, top_k, dim=-1)
+        choice = torch.multinomial(torch.softmax(vals, dim=-1), 1,
+                                   generator=generator)
+        return torch.gather(idxs, 1, choice)[:, 0]
+
+    return _plain_loop(w, tc_latent, go_id, pick, weight_dtype, cache_dtype)
+
+
+def plain_gap(w: PLMWeights, tc_latent: torch.Tensor, codes: torch.Tensor,
+              go_id: int = 1024, weight_dtype: torch.dtype = torch.float32,
+              cache_dtype: torch.dtype = torch.float32) -> tuple[float, float]:
+    """Teacher-forced check of greedy codes against the plain loop in the
+    same dtypes: with `codes` fed back, (the largest row max - logit of the
+    code taken, max|logits|). 0 for codes the plain greedy loop itself
+    gives; a decode that flips a near tie keeps it within its float error
+    of the scale."""
+    gaps, scales = [], []
+    codes = codes.to(tc_latent.device).long()
+
+    def pick(step, logits):
+        chosen = logits.gather(-1, codes[:, step:step + 1])[:, 0]
+        gaps.append((logits.amax(-1) - chosen).max())
+        scales.append(logits.abs().max())
+        return codes[:, step]
+
+    _plain_loop(w, tc_latent, go_id, pick, weight_dtype, cache_dtype)
+    return float(torch.stack(gaps).max()), float(torch.stack(scales).max())
+
+
 def _launch(w: PLMWeights, tc_latent: torch.Tensor, go_id: int,
-            stamps: Optional[torch.Tensor] = None) -> torch.Tensor:
+            stamps: Optional[torch.Tensor] = None,
+            weight_dtype: torch.dtype = torch.float32,
+            cache_dtype: torch.dtype = torch.float32) -> torch.Tensor:
     dev = tc_latent.device
     _, t, tc_dim = tc_latent.shape
     n_layers, d = w.wo.shape[0], w.wo.shape[1]
     f, bins = w.ff0.shape[1], w.pred.shape[0]
     h = w.n_heads
+    wbytes = _check_dtype("weight_dtype", weight_dtype)
+    cbytes = _check_dtype("cache_dtype", cache_dtype)
     if t < 1:
         raise ValueError("plm_decode needs T >= 1")
     if d % 4 or f % 4 or d % h or d > 512 or tc_dim >= d or h > MAX_PARTS:
@@ -202,48 +306,60 @@ def _launch(w: PLMWeights, tc_latent: torch.Tensor, go_id: int,
                MAX_GRID)
     if grid < h:
         raise ValueError(f"plm_decode needs a grid of >= {h} blocks, got {grid}")
-    layout = check_plan(d, f, n_layers, bins, grid, h)
+    layout = check_plan(d, f, n_layers, bins, grid, h, wbytes)
+    rd, rf = layout["rd"], layout["rf"]
     cuda_lib.check(tc_latent, "tc_latent", dev)
-    shapes = ((w.emb.shape[0], d - tc_dim), (1,), (n_layers, 3 * d, d),
-              (n_layers, 3 * d), (n_layers, d, d), (n_layers, d),
-              (n_layers, 4, d), (n_layers, f, d), (n_layers, f),
-              (n_layers, d, f), (n_layers, d), (bins, d))
+    wqkv, wo, ff0, ff1, pred = w.matrices(weight_dtype)
+    tensors = (w.emb, w.pos_alpha, wqkv, w.bqkv, wo, w.bo, w.ln, ff0, w.ff0b,
+               ff1, w.ff1b, pred)
+    shapes = ((w.emb.shape[0], d - tc_dim), (1,), (n_layers, 3 * d, rd),
+              (n_layers, 3 * d), (n_layers, d, rd), (n_layers, d),
+              (n_layers, 4, d), (n_layers, f, rd), (n_layers, f),
+              (n_layers, d, rf), (n_layers, d), (bins, rd))
     names = ("emb", "pos_alpha", "wqkv", "bqkv", "wo", "bo", "ln", "ff0",
              "ff0b", "ff1", "ff1b", "pred")
-    for name, tensor, shape in zip(names, w.tensors(), shapes):
-        cuda_lib.check(tensor, name, dev, shape)
-        if (name in ("wqkv", "wo", "ff0", "ff1", "pred", "ln")
-                and tensor.data_ptr() % 16):
+    mats = ("wqkv", "wo", "ff0", "ff1", "pred")
+    for name, tensor, shape in zip(names, tensors, shapes):
+        cuda_lib.check(tensor, name, dev, shape,
+                       weight_dtype if name in mats else torch.float32)
+        if name in mats + ("ln",) and tensor.data_ptr() % 16:
             raise ValueError(f"{name} must be 16-byte aligned (bulk copies)")
     pe = _scaled_positions(w, t, d, dev).contiguous()
-    cache = torch.empty(n_layers, t, 2, d, device=dev)
+    cache = torch.empty(n_layers, t, 2, d, dtype=cache_dtype, device=dev)
     # epochs start at 1: a zeroed buffer holds no stale pair
     xch = torch.zeros(layout["pairs"], dtype=torch.int64, device=dev)
     codes = torch.empty(t, dtype=torch.int32, device=dev)
     p = cuda_lib.ptr
-    cuda_lib.call("plm_decode_fwd", p(tc_latent), p(pe), p(w.emb), p(w.wqkv),
-                  p(w.bqkv), p(w.wo), p(w.bo), p(w.ln), p(w.ff0), p(w.ff0b),
-                  p(w.ff1), p(w.ff1b), p(w.pred), p(cache), p(xch), p(codes),
+    cuda_lib.call("plm_decode_fwd", p(tc_latent), p(pe), p(w.emb), p(wqkv),
+                  p(w.bqkv), p(wo), p(w.bo), p(w.ln), p(ff0), p(w.ff0b),
+                  p(ff1), p(w.ff1b), p(pred), p(cache), p(xch), p(codes),
                   p(stamps), t, n_layers, d, tc_dim, h, f, bins, go_id, grid,
-                  layout["bytes"], layout["pairs"], cuda_lib.stream(dev))
-    cuda_lib.LAUNCHES["plm_decode"] += 1
+                  layout["bytes"], layout["pairs"], wbytes, cbytes,
+                  cuda_lib.stream(dev))
+    key = ("plm_decode" if wbytes == cbytes == 4 else "plm_decode_bf16")
+    cuda_lib.LAUNCHES[key] += 1
     return codes[None]
 
 
 def plm_decode_greedy(w: PLMWeights, tc_latent: torch.Tensor,
-                      go_id: int = 1024) -> torch.Tensor:
+                      go_id: int = 1024,
+                      weight_dtype: torch.dtype = torch.float32,
+                      cache_dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """Greedy decode, tc_latent (1, T, TC) float32 -> codes (1, T) int32.
 
-    CUDA tensors run the kernel (B=1, float32, any T >= 1); CPU tensors run
-    the plain version."""
+    CUDA tensors run the kernel (B=1, any T >= 1); CPU tensors run the
+    plain version. Weights and cache in float32 (the default) or bf16; a
+    launch with either in bf16 counts as `plm_decode_bf16`."""
     if tc_latent.dim() != 3 or tc_latent.shape[0] != 1:
         raise ValueError(
             f"plm_decode takes tc_latent (1, T, C), got {tuple(tc_latent.shape)}")
     if tc_latent.device.type == "cpu":
-        return plain_decode(w, tc_latent, go_id)
+        return plain_decode(w, tc_latent, go_id, weight_dtype=weight_dtype,
+                            cache_dtype=cache_dtype)
     if tc_latent.device.type != "cuda":
         raise ValueError(f"unsupported device {tc_latent.device}")
-    return _launch(w, tc_latent.contiguous(), go_id)
+    return _launch(w, tc_latent.contiguous(), go_id, None, weight_dtype,
+                   cache_dtype)
 
 
 def phase_stamps(w: PLMWeights, tc_latent: torch.Tensor,

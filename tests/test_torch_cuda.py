@@ -9,7 +9,12 @@ Tolerance: atol 1e-5, rtol 1e-4 for the snake and the triple's average;
 (accumulation order over k*C terms; the split-TF32 products are as accurate
 as float32, a single TF32 pass would fail it, see test_torch_tf32split.py). The PLM decode kernel's codes must pass
 the teacher-forced check (each code within 1e-4 x max|logits| of its row's
-max logit), since one near-tie flip changes every later step."""
+max logit), since one near-tie flip changes every later step; its bf16
+configurations the same check against the bf16 plain twin (plain_gap)
+within one bf16 step, 2^-8 x max|logits| (the twin on the CPU and on the
+card, whose sums differ only in order, already differ by several 1e-4 x
+max|logits| at T = 500: a value within float error of a bf16 rounding
+boundary rounds either way)."""
 import numpy as np
 import pytest
 import torch
@@ -17,10 +22,12 @@ import torch
 from megatts2_hierspeechpp_torch.models import plm
 from megatts2_hierspeechpp_torch.nn.conv import conv1d_op
 from megatts2_hierspeechpp_torch.ops import amp_triple, ampblock, cuda_lib, snake
-from megatts2_hierspeechpp_torch.ops.plm_decode import plain_decode, plm_decode_greedy
+from megatts2_hierspeechpp_torch.ops.plm_decode import (
+    plain_decode, plain_gap, plm_decode_greedy)
 from megatts2_hierspeechpp_torch.ops.resample import activation1d
 
 DIL = (1, 3, 5)
+BF16_MARGIN = 2.0 ** -8  # the bf16 decode's teacher-forced gap, x max|logits|
 CHANNELS = (7, 8, 16, 32, 48, 64, 128)  # 7: the 4-byte copy path, ragged tiles
 KERNEL_SIZES = (3, 5, 7, 11)
 # T = 1, 7, both sides of a time tile edge (snake_conv's tiles are 32, 64 or
@@ -94,7 +101,8 @@ def test_kernels_match_plain(dev, t, c, k):
                 atol=1e-4, rtol=1e-4)
     torch.cuda.synchronize()
     assert cuda_lib.LAUNCHES == {"aa_snakebeta": 1, "ampblock": 1,
-                                 "amp_triple": 2, "plm_decode": 0}
+                                 "amp_triple": 2, "plm_decode": 0,
+                                 "plm_decode_bf16": 0}
 
 
 @pytest.mark.cuda
@@ -213,6 +221,55 @@ def test_plm_decode_kernel_is_deterministic(dev):
         first = plm_decode_greedy(w, tc, model.go_id)
         for _ in range(9):
             assert torch.equal(plm_decode_greedy(w, tc, model.go_id), first)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t", [1, 37, 500, 1100])
+@pytest.mark.parametrize("wdt,cdt", [("bf16", "bf16"), ("bf16", "f32"),
+                                     ("f32", "bf16")])
+def test_plm_decode_bf16_kernel_matches_its_plain_twin(dev, t, wdt, cdt):
+    """The bf16 configurations (weights, KV cache or both in bf16): one
+    launch, counted as plm_decode_bf16, codes that pass the teacher-forced
+    check against the plain twin in the same dtypes (gap <= 2^-8 x
+    max|logits|, see the module docstring), two launches identical."""
+    dt = {"bf16": torch.bfloat16, "f32": torch.float32}
+    wd, cd = dt[wdt], dt[cdt]
+    model = plm.ProsodyLM(seed=5, device="cuda")
+    tc = _rand(np.random.default_rng(t + 7), dev, 1, t, 256)
+    w = model.packed()
+    cuda_lib.reset_launches()
+    with torch.inference_mode():
+        got = plm_decode_greedy(w, tc, model.go_id, wd, cd)
+        torch.cuda.synchronize()
+        assert cuda_lib.LAUNCHES == dict(cuda_lib.LAUNCHES, plm_decode=0,
+                                         plm_decode_bf16=1)
+        assert torch.equal(plm_decode_greedy(w, tc, model.go_id, wd, cd), got)
+        gap, scale = plain_gap(w, tc, got, model.go_id, wd, cd)
+    assert got.shape == (1, t) and got.dtype == torch.int32
+    assert gap <= BF16_MARGIN * scale, (gap, scale)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_plm_decode_per_row_batch(dev, dtype):
+    """A greedy batch decodes row by row: B kernel launches, never the
+    plain loop; each row's codes are its own single-row decode's, and pass
+    the teacher-forced check against plain_decode's batch."""
+    model = plm.ProsodyLM(seed=6, device="cuda")
+    tc = _rand(np.random.default_rng(11), dev, 4, 120, 256)
+    key = "plm_decode" if dtype == torch.float32 else "plm_decode_bf16"
+    cuda_lib.reset_launches()
+    with torch.inference_mode():
+        got = plm.decode(model, tc, weight_dtype=dtype, cache_dtype=dtype)
+        torch.cuda.synchronize()
+        assert cuda_lib.LAUNCHES[key] == 4
+        for i in range(4):
+            assert torch.equal(plm.decode(model, tc[i:i + 1], weight_dtype=dtype,
+                                          cache_dtype=dtype), got[i:i + 1])
+        gap, scale = plain_gap(model.packed(), tc, got, model.go_id, dtype, dtype)
+    assert got.shape == (4, 120)
+    assert gap <= (1e-4 if dtype == torch.float32 else BF16_MARGIN) * scale, (
+        gap, scale)
 
 
 @pytest.mark.cuda

@@ -134,7 +134,8 @@ def test_launch_counts_stay_zero_on_cpu():
     lm = plm.ProsodyLM(n_layers=1, tc_latent_dim=12, device="cpu")
     plm_decode.plm_decode_greedy(lm.packed(), torch.zeros(1, 5, 12), lm.go_id)
     assert cuda_lib.LAUNCHES == {"aa_snakebeta": 0, "ampblock": 0,
-                                 "amp_triple": 0, "plm_decode": 0}
+                                 "amp_triple": 0, "plm_decode": 0,
+                                 "plm_decode_bf16": 0}
 
 
 def test_taps_header_matches_polyphase_taps():

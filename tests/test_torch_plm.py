@@ -1,8 +1,9 @@
 """The port's prosody LM against the JAX package on the CPU: the
 teacher-forced forward, the plain KV-cached decode (greedy and top-k), the
 decode's dispatch, and the TTV / PLM weight carry-over round trips at
-reference depth. The CUDA decode kernel is held against the plain version
-on a card in test_torch_cuda.py and chip_smoke.py.
+reference depth; the bf16 configuration's plain twin against the JAX
+kernel's bf16 default. The CUDA decode kernel is held against the plain
+version on a card in test_torch_cuda.py and chip_smoke.py.
 
 Small configuration: ProsodyLM(n_layers=2, tc_latent_dim=44) (d = 64, 4
 heads) with seeded random params, as tests/test_pallas_plm_decode.py sizes
@@ -143,3 +144,31 @@ def test_weight_roundtrip_reference_depth():
         for k, v in sd.items():
             assert out[k].shape == v.shape and torch.equal(out[k], v.float()), k
         model.load_state_dict(out, strict=True)
+
+
+def test_bf16_plain_twin_matches_jax_bf16_kernel(plms):
+    """The bf16 configuration (weights and KV cache bf16, float32 sums): the
+    plain twin against the JAX kernel in interpret mode with its bf16
+    defaults, at T = 48, 2 layers, as tests/test_pallas_plm_decode.py sizes
+    it. Codes agree; a flip must be a near tie: the twin's teacher-forced
+    gap on the JAX codes <= 1e-3 x max|logits|."""
+    from megatts2_hierspeechpp_tpu.ops.pallas_plm_decode import (
+        plm_decode_greedy as jax_kernel)
+
+    _, params, tm = plms
+    t = 48
+    tc = _tc(t, 3)
+    want = np.array(jax_kernel(params, jnp.asarray(tc), n_layers=2,
+                               n_heads=4, go_id=1024, chunk=16,
+                               interpret=True))
+    bf = torch.bfloat16
+    w = tm.packed()
+    got = tplm.decode(tm, torch.from_numpy(tc), weight_dtype=bf,
+                      cache_dtype=bf)
+    assert got.shape == (1, t) and got.dtype == torch.int32
+    gap, scale = tdec.plain_gap(w, torch.from_numpy(tc), torch.from_numpy(want),
+                                tm.go_id, bf, bf)
+    assert gap <= 1e-3 * scale, (gap, scale)
+    np.testing.assert_array_equal(got.numpy(), want)
+    # the twin's own codes are its greedy codes: gap 0
+    assert tdec.plain_gap(w, torch.from_numpy(tc), got, tm.go_id, bf, bf)[0] == 0

@@ -1,7 +1,9 @@
-"""The port's whole zero-shot path, TTSPipeline.tts (text + prompt audio ->
-48 kHz waveform), against the JAX TTSPipeline.tts(..., exact=True) on the
-CPU, for use_plm=True (greedy PLM decode) and use_plm=False (the prompt's
-own RVQ codes); and the log-f0 convention at the vocoder's input.
+"""The port's whole zero-shot path, TTSPipeline.tts(..., exact=True) (text +
+prompt audio -> 48 kHz waveform), against the JAX TTSPipeline.tts(...,
+exact=True) on the CPU, for use_plm=True (greedy PLM decode) and
+use_plm=False (the prompt's own RVQ codes); and the log-f0 convention at
+the vocoder's input. The bucketed default, exact=False, is held against
+the JAX default in test_torch_serving.py.
 
 Small configuration: TTVModel(text_layers=1, mel_enc_layers=1,
 w2v_enc_layers=1, w2v_dec_layers=2), ProsodyLM(n_layers=2) at full width
@@ -65,7 +67,8 @@ def test_tts_matches_jax_exact(pipelines, use_plm):
     jp, tp, audio = pipelines
     kw = dict(noise_scale_vc=0.0, output_sr=48000, use_plm=use_plm, seed=5)
     want, inter = jp.tts(TEXT, audio, exact=True, return_intermediates=True, **kw)
-    got, ac, raw = tp.tts(TEXT, audio, return_intermediates=True, **kw)
+    got, ac, raw = tp.tts(TEXT, audio, exact=True, return_intermediates=True,
+                          **kw)
 
     t = inter["frame_lengths"]
     assert ac.frames == t and ac.w2v.shape == (1, t, 1024)
