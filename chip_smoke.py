@@ -54,7 +54,22 @@ Phases, in order; any failure exits non-zero:
      for 4 speakers through TTSServer (ms per request, tts_batch calls);
      then every kernel against its plain version at each distinct launch
      shape these paths gave it (`new_shape` lines; the AA-snake and the
-     epilogue with their device ms; the shared-prompt batch profiled).
+     epilogue with their device ms; the shared-prompt batch profiled);
+  9. the denoiser and voice conversion at full width: `denoise`, MP-SENet
+     (dense_channel 64, 4 TS blocks) on the 3 s prompt (49,600 padded
+     samples, 497 STFT frames): ms by CUDA events, peak memory, the
+     query-chunked attention against the dense form, card against CPU;
+     `tts_denoise`, the 10 s tts request from prompt audio at
+     denoise_ratio 0.8 (ms, kernel calls, stage ms with the denoise stage)
+     and the 2 s one card against CPU; `vc`, a full-width Wav2Vec2 (7 of
+     mms-300m's layers) on a 5 s source and a 3 s target at 16 and 48 kHz,
+     denoise_ratio 0 and 0.8 (ms per call, stage ms, kernel calls, launch
+     shapes), YIN card against CPU, and one call card against CPU. The
+     card-vs-CPU gates feed both sides one STFT for the denoiser and, for
+     vc, one f0 (the first STFT frame's phases are +-pi by the FFT's
+     rounding, and a YIN frame at its threshold can flip; both are held on
+     their own). These paths' launch shapes join the `new_shape` lines,
+     which run last.
 Then one JSON line with every kernel's numbers (launches: the f32 rows
 from the tts requests of phase 5, the bf16 row from its batch decode of
 phase 3), the card's name and power limit from phase 1 printed first, and
@@ -106,6 +121,16 @@ SERVER_REQUESTS, SERVER_THREADS, SERVER_SPEAKERS = 8, 4, 4
 SYLLABLES_PER_S = 5.18
 PHRASE_SYLLABLES = 8
 CPU_TOL = 1e-3          # card vs CPU, 48 kHz waveform before normalisation
+DENOISE_TOL = 1e-3      # card vs CPU denoised waveform: relative L2, and max abs
+                        # over the peak
+CHUNK_TOL = 1e-5        # chunked vs dense denoiser attention on the card, x peak
+DENOISE_CHUNK = 128     # the chunked form's query rows
+DENOISE_RATIO = 0.8     # the reference CLI's documented setting
+VC_SECONDS = (5.0, 3.0)     # vc source, target
+VC_CONFIGS = ((16000, 0.0), (16000, DENOISE_RATIO), (48000, 0.0),
+              (48000, DENOISE_RATIO))
+YIN_AGREE = 0.99        # YIN card vs CPU: voicing agreement, and the share of
+                        # frames voiced on both within 1e-4 relative
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
 F32_FLOPS_PER_S = 67e12     # H100 SXM data sheet, non-tensor float32
 TF32_FLOPS_PER_S = 495e12   # H100 SXM data sheet, dense TF32 tensor cores
@@ -905,7 +930,7 @@ def event_ms(torch, fn):
     return out, start.elapsed_time(end)
 
 
-def tts_stages(torch, pipe, prompt, text, ls):
+def tts_stages(torch, pipe, prompt, text, ls, denoise_ratio: float = 0.0):
     """ms of each stage of one tts request, the public stages called one by
     one as `tts` calls them: duration pre-pass, acoustic (of which the PLM
     decode, timed alone on the same latent), vocoder (render at 16 kHz) and
@@ -919,7 +944,8 @@ def tts_stages(torch, pipe, prompt, text, ls):
         torch, lambda: pipe.acoustic(text, prompt, n, ls, exact=True))
     _, ms["decode_ms"] = event_ms(torch, lambda: decode(pipe.plm, ac.x_frame))
     wav, ms["vocode_ms"] = event_ms(torch, lambda: pipe.render(
-        prompt, ac.w2v, ac.frame_mask, ac.lf0, output_sr=16000))
+        prompt, ac.w2v, ac.frame_mask, ac.lf0, denoise_ratio=denoise_ratio,
+        output_sr=16000))
     with torch.inference_mode():
         _, ms["sr_ms"] = event_ms(torch, lambda: pipe.speechsr(wav[None, :, None]))
     return ms
@@ -1270,9 +1296,10 @@ def new_shapes_phase(torch, dev, shapes):
     one launch and one plain call each. The AA-snake and the epilogue (whose
     plans were picked at B=1, T=2000) also with their device ms per launch
     (profiler; "device_ms": null where the profiler recorded too few of
-    the launches, which it does late in a long run). One line per kernel
-    and shape (snake_conv: per B, T, C), with the worst error over the
-    tolerance."""
+    the launches, which it does late in a long run), and snake_conv at the
+    vc path's shapes (summed per B, T, C). One line per kernel and shape
+    (snake_conv: per B, T, C), with the worst error over the tolerance and
+    the bound (for snake_conv summed over the launch shapes)."""
     from megatts2_hierspeechpp_torch.models.plm import ProsodyLM, teacher_forced_gap
     from megatts2_hierspeechpp_torch.nn.conv import conv1d_op
     from megatts2_hierspeechpp_torch.ops.amp_triple import (
@@ -1308,9 +1335,12 @@ def new_shapes_phase(torch, dev, shapes):
                 ib = inverse_beta(be)
                 fn = lambda: fused_aa_snakebeta(x, a, be, ib)  # noqa: E731
                 err, scale = err_of(fn(), composed_snakebeta(x, a, be))
+                n = b * t * c
                 line.update(shape=f"B={b} T={t} C={c}",
                             device_ms=device_ms(torch, fn, ("aa_snakebeta",), 10,
                                                 required=False))
+                line["bound_ms"], line["bound_by"] = bound_ms(
+                    4.0 * (2 * n + 2 * c), SNAKE_FLOPS * n)
             elif kind in ("triple_avg", "triple_post"):
                 _, b, t, c = key
                 rs = [randn(b, t, c, scale=3.0) for _ in range(3)]
@@ -1318,9 +1348,14 @@ def new_shapes_phase(torch, dev, shapes):
                         if kind == "triple_post" else None)
                 fn = lambda: fused_epilogue(*rs, post)  # noqa: E731
                 err, scale = err_of(fn(), composed_epilogue(*rs, post))
+                n = b * t * c
                 line.update(shape=f"B={b} T={t} C={c}",
                             device_ms=device_ms(torch, fn, (kind + "_kernel",), 10,
                                                 required=False))
+                line["bound_ms"], line["bound_by"] = bound_ms(
+                    *((4.0 * (3 * n + b * t + 9 * c),
+                       3.0 * n + (SNAKE_FLOPS + 14) * n + b * t)
+                      if post is not None else (16.0 * n, 3.0 * n)))
             elif kind == "snake_conv":
                 _, b, t, c, k, d, has_res = key
                 x = randn(b, t, c)
@@ -1334,6 +1369,13 @@ def new_shapes_phase(torch, dev, shapes):
                 if res is not None:
                     ref = ref + res
                 err, scale = err_of(y, ref)
+                n, n_io = b * t * c, 3 if has_res else 2
+                conv_bound = bound_ms(4.0 * (n_io * n + k * c * c + 3 * c),
+                                      SNAKE_FLOPS * n + (n_io - 1) * n,
+                                      2.0 * n * c * k)[0]
+                conv_dev = (device_ms(torch, lambda: snake_conv(
+                    x, a, ib, w, bias, d, res=res), ("snake_conv",), 10,
+                    required=False) if path.startswith("vc") else None)
                 del x, res, y, ref
             else:  # plm_decode at a new length
                 _, t, wb, cb = key
@@ -1359,8 +1401,12 @@ def new_shapes_phase(torch, dev, shapes):
                                  {"phase": "new_shape", "kernel": "snake_conv",
                                   "path": path,
                                   "shape": f"B={key[1]} T={key[2]} C={key[3]}",
-                                  "launch_shapes": 0, "worst_err_over_tol": 0.0})
+                                  "launch_shapes": 0, "worst_err_over_tol": 0.0,
+                                  "bound_ms": 0.0, "device_ms": 0.0})
             g["launch_shapes"] += 1
+            g["bound_ms"] += conv_bound
+            g["device_ms"] = (None if conv_dev is None or g["device_ms"] is None
+                              else g["device_ms"] + conv_dev)
             g["worst_err_over_tol"] = max(g["worst_err_over_tol"],
                                           err / (tol * scale))
             continue
@@ -1439,7 +1485,8 @@ def cpu_phase(torch, pipe, cpu_pipe, prompt, cpu_prompt, inputs):
         fail(f"card vs CPU waveform differs by {diff} > {CPU_TOL}")
 
 
-def cpu_tts_phase(torch, pipe, cpu_pipe, prompt, cpu_prompt, reqs):
+def cpu_tts_phase(torch, pipe, cpu_pipe, prompt, cpu_prompt, reqs,
+                  denoise_ratio: float = 0.0, path: str = "tts"):
     """The 100-frame tts request on the CPU with the card's prosody codes
     (a near-tie flip in the decode cannot fail it): the same frame count and
     the same waveform before normalisation. Also the share of the CPU plain
@@ -1447,24 +1494,318 @@ def cpu_tts_phase(torch, pipe, cpu_pipe, prompt, cpu_prompt, reqs):
     from megatts2_hierspeechpp_torch.models.plm import decode
 
     _, text, ls, _ = reqs[0]
-    _, ac, raw = pipe.tts(text, prompt=prompt, length_scale=ls,
-                          output_sr=48000, exact=True,
-                          return_intermediates=True)
+    kw = dict(length_scale=ls, output_sr=48000, exact=True,
+              denoise_ratio=denoise_ratio, return_intermediates=True)
+    _, ac, raw = pipe.tts(text, prompt=prompt, **kw)
     codes = ac.codes.cpu().numpy()
-    _, cac, craw = cpu_pipe.tts(text, prompt=cpu_prompt, length_scale=ls,
-                                output_sr=48000, exact=True, codes=codes,
-                                return_intermediates=True)
+    _, cac, craw = cpu_pipe.tts(text, prompt=cpu_prompt, codes=codes, **kw)
     agree = float((decode(cpu_pipe.plm, cac.x_frame).numpy() == codes).mean())
     if cac.frames != ac.frames:
         fail(f"tts card vs CPU: {ac.frames} vs {cac.frames} frames")
     card, cpu = raw.cpu().numpy(), craw.numpy()
     diff = float(np.abs(card - cpu).max())
-    line = {"phase": "card_vs_cpu", "path": "tts", "frames": ac.frames,
+    line = {"phase": "card_vs_cpu", "path": path, "frames": ac.frames,
             "max_abs_diff": diff, "max_abs_cpu": float(np.abs(cpu).max()),
             "tolerance": CPU_TOL, "cpu_plain_decode_agreement": agree}
     print(json.dumps(line), flush=True)
     if not diff <= CPU_TOL:
-        fail(f"tts card vs CPU waveform differs by {diff} > {CPU_TOL}")
+        fail(f"{path} card vs CPU waveform differs by {diff} > {CPU_TOL}")
+
+
+def speech_like(seconds: float, f_base: float, seed: int) -> np.ndarray:
+    """Synthetic 16 kHz voice: a harmonic tone gliding +-20 % around f_base,
+    gated into 2.5 syllables per second with silent gaps (so YIN sees
+    voiced and unvoiced frames), plus a little noise."""
+    rng = np.random.default_rng(seed)
+    n = int(seconds * 16000)
+    t = np.arange(n) / 16000.0
+    f = f_base * (1.0 + 0.2 * np.sin(2 * np.pi * 0.4 * t))
+    phase = 2 * np.pi * np.cumsum(f) / 16000.0
+    env = np.clip(1.5 * np.sin(2 * np.pi * 1.25 * t + 0.3), 0.0, 1.0)
+    y = env * sum(0.25 / h * np.sin(h * phase) for h in range(1, 7))
+    return (y + 0.005 * rng.standard_normal(n)).astype(np.float32)
+
+
+class one_stft:
+    """While active, the pipelines' denoiser STFT is taken once, on the CPU,
+    from the first call's input (the CPU pipeline's, which runs first), and
+    every later call gets the same magnitude and phase on its own device:
+    so a card-vs-CPU comparison of one audio feeds both sides one STFT. The
+    first frame of the reflect-padded STFT is real, and each bin with a
+    negative real part gets a phase of +pi or -pi by the sign of the
+    rounding in its imaginary part, which the denoiser reads as an input
+    (tests/test_torch_denoiser.py): a one-ulp change of the input (the
+    card's RMS scaling) or another FFT can flip it."""
+
+    def __enter__(self):
+        from megatts2_hierspeechpp_torch.infer import pipeline as tpipe
+
+        self.mod, self.orig, self.saved = tpipe, tpipe.mag_pha_stft, None
+
+        def stft(y, *args):
+            if self.saved is None:
+                self.saved = self.orig(y.cpu(), *args)
+            return tuple(a.to(y.device) for a in self.saved)
+
+        tpipe.mag_pha_stft = stft
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.mag_pha_stft = self.orig
+
+
+def pad_to(audio: np.ndarray, grid: int) -> np.ndarray:
+    """Zero-padded to (T // grid + 1) * grid samples, as the pipeline pads."""
+    return np.pad(audio, (0, (len(audio) // grid + 1) * grid - len(audio)))
+
+
+def denoise_phase(torch, dev, pipe, cpu_pipe, audio):
+    """MP-SENet at the reference widths on the 3 s prompt, through the
+    pipeline's `denoise` (RMS normalisation, STFT, MPNet, iSTFT): CUDA-event
+    ms and peak memory of the dense and the query-chunked attention (the
+    chunked form against the dense, on the card); card against CPU with one
+    STFT fed to both (gated), and with each side's own STFT (reported: the
+    first frame's +-pi phases differ between cuFFT and the CPU's FFT)."""
+    from megatts2_hierspeechpp_torch.models.denoiser import MPNet
+    from megatts2_hierspeechpp_torch.ops.stft import mag_pha_stft
+
+    cfg = pipe.denoiser_cfg
+    pipe.denoiser = MPNet(seed=5678, device=dev)
+    cpu_pipe.denoiser = MPNet(seed=5678, device="cpu")
+    padded = pad_to(audio, 1600)
+    frames = len(padded) // cfg["hop"] + 1
+
+    def measured():
+        pipe.denoise(padded)  # warm-up
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        ms = [event_ms(torch, lambda: pipe.denoise(padded))[1] for _ in range(3)]
+        extra = (torch.cuda.max_memory_allocated() - base) / 2 ** 20
+        return pipe.denoise(padded).cpu().numpy(), ms, extra
+
+    own, ms, extra_mb = measured()
+    pipe.denoiser.set_attn_chunk(DENOISE_CHUNK)
+    try:
+        chunked, chunk_ms, chunk_extra_mb = measured()
+    finally:
+        pipe.denoiser.set_attn_chunk(None)
+    cpu_own = cpu_pipe.denoise(padded).numpy()
+    with one_stft():
+        cpu = cpu_pipe.denoise(padded).numpy()
+        card = pipe.denoise(padded).cpu().numpy()
+    with torch.inference_mode():
+        x = torch.from_numpy(padded)[None]
+        args = (cfg["n_fft"], cfg["hop"], cfg["win"], cfg["compress"])
+        p_cpu = mag_pha_stft(x, *args)[1][0]
+        p_card = mag_pha_stft(x.to(dev), *args)[1][0].cpu()
+    flips = (p_card - p_cpu).abs() > math.pi
+    peak = float(np.abs(cpu).max())
+
+    def rel_l2(a, b):
+        return float(np.linalg.norm(a - b) / np.linalg.norm(b))
+
+    line = {"phase": "denoise", "samples": len(padded), "stft_frames": frames,
+            "dense_ms": ms, "chunked_ms": chunk_ms, "chunk": DENOISE_CHUNK,
+            "extra_peak_memory_mb": {"dense": extra_mb, "chunked": chunk_extra_mb},
+            "chunked_vs_dense_max_abs": float(np.abs(chunked - own).max()),
+            "chunked_equals_dense": bool(np.array_equal(chunked, own)),
+            "card_vs_cpu_one_stft": {"rel_l2": rel_l2(card, cpu),
+                                     "max_abs": float(np.abs(card - cpu).max()),
+                                     "peak": peak},
+            "card_vs_cpu_own_stft": {"rel_l2": rel_l2(own, cpu_own),
+                                     "max_abs": float(np.abs(own - cpu_own).max()),
+                                     "phase_flips": int(flips.sum()),
+                                     "phase_flips_first_frame": int(flips[0].sum())},
+            "tolerance": f"rel L2 and max abs / peak {DENOISE_TOL:g}; chunked "
+                         f"{CHUNK_TOL:g} x peak"}
+    print(json.dumps(line), flush=True)
+    c = line["card_vs_cpu_one_stft"]
+    if own.shape != (len(padded),) or not np.isfinite(own).all():
+        fail(f"denoise: {own.shape} output, finite {np.isfinite(own).all()}")
+    if not (c["rel_l2"] <= DENOISE_TOL and c["max_abs"] <= DENOISE_TOL * peak):
+        fail(f"denoise card vs CPU: {c}")
+    if not line["chunked_vs_dense_max_abs"] <= CHUNK_TOL * peak:
+        fail(f"denoise: chunked attention differs from dense by "
+             f"{line['chunked_vs_dense_max_abs']}")
+
+
+def tts_denoise_phase(torch, pipe, cpu_pipe, audio, reqs, shapes):
+    """The 10 s tts request from prompt audio at denoise_ratio 0.8, 48 kHz,
+    exact lengths: ms on the host clock, kernel calls, launch shapes, and
+    the stages under CUDA events, the denoise stage beside the others
+    (prepare_prompt's ms holds it); then the 2 s request card against CPU
+    with the card's codes and one STFT."""
+    from megatts2_hierspeechpp_torch.ops import cuda_lib
+
+    if pipe.denoiser is None or cpu_pipe.denoiser is None:
+        fail("tts_denoise: no denoiser attached (denoise_phase attaches it)")
+    f, text, ls, n = reqs[-1]
+    kw = dict(length_scale=ls, output_sr=48000, exact=True,
+              denoise_ratio=DENOISE_RATIO)
+    pipe.tts(text, audio, **kw)  # warm-up
+    t0 = time.perf_counter()
+    out, counts = run_path(torch, cuda_lib, shapes, "tts_denoise",
+                           lambda: pipe.tts(text, audio, **kw))
+    ms = 1e3 * (time.perf_counter() - t0)
+    _, den_ms = event_ms(torch, lambda: pipe.denoise(pad_to(audio, 1600)))
+    prompt, prep_ms = event_ms(
+        torch, lambda: pipe.prepare_prompt(audio, DENOISE_RATIO))
+    stages = dict(denoise_ms=den_ms, prepare_prompt_ms=prep_ms,
+                  **tts_stages(torch, pipe, prompt, text, ls, DENOISE_RATIO))
+    peak = float(np.abs(out).max())
+    line = {"phase": "tts_denoise", "denoise_ratio": DENOISE_RATIO,
+            "frames": n, "samples": int(out.shape[0]), "ms": ms,
+            "audio_s_per_s": (out.shape[0] / 48000) / (ms / 1e3),
+            "peak": peak, "calls": counts, "stages_ms": stages}
+    print(json.dumps(line), flush=True)
+    if out.shape != (960 * n,) or not np.isfinite(out).all():
+        fail(f"tts_denoise: {out.shape} samples, expected {960 * n}, finite")
+    if abs(peak - 0.999) > 1e-5 or counts != TTS_CALLS:
+        fail(f"tts_denoise: peak {peak}, kernel calls {counts}")
+    with one_stft():
+        cpu_prompt = cpu_pipe.prepare_prompt(audio, DENOISE_RATIO)
+        prompt = pipe.prepare_prompt(audio, DENOISE_RATIO)
+    cpu_tts_phase(torch, pipe, cpu_pipe, prompt, cpu_prompt, reqs,
+                  DENOISE_RATIO, "tts_denoise")
+
+
+class StageEvents:
+    """CUDA events around calls of the pipeline's own stages while active:
+    {stage: summed ms}, read after the call and a synchronise."""
+
+    def __init__(self, torch, targets):
+        self.torch, self.targets, self.spans = torch, targets, []
+
+    def __enter__(self):
+        self.saved = []
+        for obj, name, key in self.targets:
+            fn = getattr(obj, name)
+            self.saved.append((obj, name, fn, name in vars(obj)))
+            setattr(obj, name, self._timed(key, fn))
+        return self
+
+    def _timed(self, key, fn):
+        def run(*a, **k):
+            ev = [self.torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            out = fn(*a, **k)
+            ev[1].record()
+            self.spans.append((key, *ev))
+            return out
+        return run
+
+    def __exit__(self, *exc):
+        for obj, name, fn, own in reversed(self.saved):
+            if own:
+                setattr(obj, name, fn)
+            else:
+                delattr(obj, name)
+
+    def ms(self) -> dict:
+        self.torch.cuda.synchronize()
+        out = {}
+        for key, a, b in self.spans:
+            out[key] = out.get(key, 0.0) + a.elapsed_time(b)
+        return out
+
+
+def vc_phase(torch, dev, pipe, cpu_pipe, shapes):
+    """TTSPipeline.vc with a full-width Wav2Vec2 (mms-300m widths, its first
+    7 layers) on a 5 s source and a 3 s target, at 16 and 48 kHz and
+    denoise_ratio 0 and 0.8: ms per call (host clock, after a warm-up),
+    stage ms by CUDA events (w2v, f0, denoise, vocode, sr), kernel calls
+    and launch shapes; one call profiled; YIN card against CPU on both
+    signals; the 48 kHz denoise_ratio 0.8 call card against CPU with the
+    f0 and the denoiser's STFT computed once on the CPU (the w2v features
+    held on their own, and the rest of the path also on the CPU's
+    features)."""
+    from megatts2_hierspeechpp_torch.infer import pipeline as tpipe
+    from megatts2_hierspeechpp_torch.models.wav2vec2 import Wav2Vec2
+    from megatts2_hierspeechpp_torch.ops import cuda_lib
+    from megatts2_hierspeechpp_torch.ops.f0 import yin_f0
+
+    if pipe.denoiser is None or cpu_pipe.denoiser is None:
+        fail("vc: no denoiser attached (denoise_phase attaches it)")
+    w2v = Wav2Vec2(seed=6789, device=dev)
+    src = speech_like(VC_SECONDS[0], 130.0, 41)
+    trg = speech_like(VC_SECONDS[1], 210.0, 42)
+    t_frames = len(pad_to(src, 1280)) // 320
+    for sr, ratio in VC_CONFIGS:  # warm-up of every shape
+        pipe.vc(src, trg, w2v, ratio, output_sr=sr)
+    for sr, ratio in VC_CONFIGS:
+        label = f"vc {sr // 1000} kHz denoise {ratio}"
+        t0 = time.perf_counter()
+        out, counts = run_path(torch, cuda_lib, shapes, label,
+                               lambda: pipe.vc(src, trg, w2v, ratio, output_sr=sr))
+        ms = 1e3 * (time.perf_counter() - t0)
+        stages = StageEvents(torch, [
+            (w2v, "forward", "w2v_ms"), (tpipe, "yin_f0", "f0_ms"),
+            (pipe, "denoise", "denoise_ms"),
+            (pipe.vocoder, "voice_conversion", "vocode_ms"),
+            (pipe.speechsr, "forward", "sr_ms")])
+        with stages:
+            pipe.vc(src, trg, w2v, ratio, output_sr=sr)
+        # SpeechSR's one triple launch runs at 48 kHz only
+        want_calls = dict(EXPECTED_CALLS, amp_triple=EXPECTED_CALLS["amp_triple"]
+                          - (sr != 48000))
+        n = 320 * t_frames * sr // 16000
+        peak = float(np.abs(out).max())
+        line = {"phase": "vc", "output_sr": sr, "denoise_ratio": ratio,
+                "source_s": VC_SECONDS[0], "target_s": VC_SECONDS[1],
+                "frames": t_frames, "samples": int(out.shape[0]), "ms": ms,
+                "audio_s_per_s": (out.shape[0] / sr) / (ms / 1e3),
+                "stages_ms": stages.ms(), "peak": peak, "calls": counts}
+        print(json.dumps(line), flush=True)
+        if out.shape != (n,) or not np.isfinite(out).all():
+            fail(f"{label}: {out.shape} samples, expected {n}, finite")
+        if abs(peak - 0.999) > 1e-5 or counts != want_calls:
+            fail(f"{label}: peak {peak}, kernel calls {counts}, expected "
+                 f"{want_calls}")
+    profile_phase(torch, f"vc 48 kHz denoise {DENOISE_RATIO}", t_frames,
+                  lambda: pipe.vc(src, trg, w2v, DENOISE_RATIO, output_sr=48000))
+
+    f0s = {}
+    for name, x in (("source", pad_to(src, 1280)), ("target", trg)):
+        with torch.inference_mode():
+            xt = torch.from_numpy(x)[None]
+            f_cpu = yin_f0(xt)[0].numpy()
+            f_card = yin_f0(xt.to(dev))[0].cpu().numpy()
+        f0s[name] = f_cpu
+        both = (f_cpu > 0) & (f_card > 0)
+        rel = np.abs(f_card[both] - f_cpu[both]) / f_cpu[both]
+        line = {"phase": "yin_card_vs_cpu", "signal": name,
+                "frames": int(f_cpu.shape[0]),
+                "voiced_share": float((f_cpu > 0).mean()),
+                "voicing_agreement": float(((f_cpu > 0) == (f_card > 0)).mean()),
+                "within_1e-4_share": float((rel <= 1e-4).mean()),
+                "max_rel_diff": float(rel.max()), "tolerance": YIN_AGREE}
+        print(json.dumps(line), flush=True)
+        if not (line["voicing_agreement"] >= YIN_AGREE
+                and line["within_1e-4_share"] >= YIN_AGREE):
+            fail(f"yin_f0 card vs CPU on the {name}: {line}")
+
+    cpu_w2v = Wav2Vec2(seed=6789, device="cpu")
+    kw = dict(denoise_ratio=DENOISE_RATIO, output_sr=48000,
+              src_f0=f0s["source"], trg_f0=f0s["target"],
+              return_intermediates=True)
+    with one_stft():
+        cpu, cpu_i = cpu_pipe.vc(src, trg, cpu_w2v, **kw)
+        card, card_i = pipe.vc(src, trg, w2v, **kw)
+        feats = cpu_i["w2v"]
+        same, _ = pipe.vc(src, trg, lambda x: feats.to(dev), **kw)
+    w2v_err = (card_i["w2v"].cpu() - feats).abs().max().item()
+    line = {"phase": "card_vs_cpu", "path": f"vc 48 kHz denoise {DENOISE_RATIO}",
+            "frames": t_frames, "max_abs_diff": float(np.abs(card - cpu).max()),
+            "max_abs_diff_cpu_w2v": float(np.abs(same - cpu).max()),
+            "w2v_max_abs_diff": w2v_err,
+            "w2v_max_abs": feats.abs().max().item(),
+            "max_abs_cpu": float(np.abs(cpu).max()), "tolerance": CPU_TOL,
+            "note": "after peak normalisation; f0 and STFT given"}
+    print(json.dumps(line), flush=True)
+    if not line["max_abs_diff"] <= CPU_TOL:
+        fail(f"vc card vs CPU waveform differs by {line['max_abs_diff']} > "
+             f"{CPU_TOL}")
 
 
 def main() -> int:
@@ -1516,6 +1857,9 @@ def main() -> int:
     serve_batch_phase(torch, pipe, prompt, reqs[-1][2], shapes)
     serve_stream_phase(torch, pipe, prompt, reqs[-1], shapes)
     serve_server_phase(torch, pipe, reqs, shapes)
+    denoise_phase(torch, dev, pipe, cpu_pipe, audio)
+    tts_denoise_phase(torch, pipe, cpu_pipe, audio, reqs, shapes)
+    vc_phase(torch, dev, pipe, cpu_pipe, shapes)
     new_shapes_phase(torch, dev, shapes)
 
     # ms: CUDA events around the wrapper on every row, as in earlier runs;

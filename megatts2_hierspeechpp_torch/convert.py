@@ -1,12 +1,15 @@
 """Weight carry-over: JAX param trees -> the port's state_dicts.
 
 `vocoder_from_jax(params)`, `speechsr_from_jax(params)`,
-`ttv_from_jax({"params", "vq"})` and `plm_from_jax(params)` take the flax
-variables of the JAX HierVocoder / SpeechSR / TTVModel / ProsodyLM (nested
-dicts of arrays) and return `state_dict`s for the port's modules, whose
-names are the reference checkpoint's. Depths (WN layers, flows, DiT blocks,
-upsample stages, resblocks, encoder and LSTM layers, PLM layers) are read
-from the tree, so reduced test configurations convert too.
+`ttv_from_jax({"params", "vq"})`, `plm_from_jax(params)`,
+`wav2vec2_from_jax(params)` and `denoiser_from_jax({"params",
+"batch_stats"})` take the flax variables of the JAX HierVocoder / SpeechSR /
+TTVModel / ProsodyLM / Wav2Vec2 / MPNet (nested dicts of arrays) and return
+`state_dict`s for the port's modules, whose names are the reference
+checkpoint's (HF Wav2Vec2Model's for Wav2Vec2). Depths (WN layers, flows,
+DiT blocks, upsample stages, resblocks, encoder and LSTM layers, PLM
+layers, w2v layers, TS conformer blocks) are read from the tree, so
+reduced test configurations convert too.
 
 Layouts (inverse of megatts2_hierspeechpp_tpu/utils/torch_compat.py):
   Conv1d kernel (K, Cin, Cout)             -> weight (Cout, Cin, K)
@@ -18,6 +21,13 @@ Layouts (inverse of megatts2_hierspeechpp_tpu/utils/torch_compat.py):
   LayerNorm scale, bias                    -> gamma, beta (VITS) or weight, bias
   LSTM w_ih (In, 4H), w_hh (H, 4H), b      -> weight_ih (4H, In), weight_hh (4H, H),
                                               bias_ih = b, bias_hh = 0
+  Conv2d kernel (Kh, Kw, Cin, Cout)        -> weight (Cout, Cin, Kh, Kw)
+  ConvTranspose2d (1, 3) up_kernel flipped (3, Cin, Cout)
+                                           -> weight (Cin, Cout, 1, 3)
+  fused w2v pos_conv kernel (K, Cin/g, Cout)
+                                           -> weight_v (Cout, Cin/g, K) = w,
+                                              weight_g (1, 1, K) = ||w|| over Cout, Cin/g
+  BatchNorm batch_stats mean, var          -> running_mean, running_var
 """
 from __future__ import annotations
 
@@ -293,4 +303,112 @@ def plm_from_jax(params: dict) -> dict:
         linear(out, f"{p}.ff.0", tree["ff_0"])
         linear(out, f"{p}.ff.3", tree["ff_1"])
     linear(out, "predict_layer", params["predict_layer"])
+    return out
+
+
+# ---------- vc front-end (Wav2Vec2) and the denoiser (MPNet) ----------
+
+
+def wav2vec2_from_jax(params: dict) -> dict:
+    """JAX Wav2Vec2 params -> port state_dict (HF Wav2Vec2Model names)."""
+    out = {}
+    fe = params["feature_extractor"]
+    for i in range(_count(fe, "conv")):
+        p = f"feature_extractor.conv_layers.{i}"
+        conv1d(out, f"{p}.conv", fe[f"conv_{i}"])
+        layer_norm(out, f"{p}.layer_norm", fe[f"ln_{i}"], ("weight", "bias"))
+    layer_norm(out, "feature_projection.layer_norm", params["fp_ln"],
+               ("weight", "bias"))
+    linear(out, "feature_projection.projection", params["fp_proj"])
+    w = np.transpose(np.asarray(params["pos_conv"]["kernel"], np.float32),
+                     (2, 1, 0))
+    p = "encoder.pos_conv_embed.conv"
+    out[f"{p}.weight_v"] = _t(w)
+    out[f"{p}.weight_g"] = _t(np.sqrt((w ** 2).sum(axis=(0, 1), keepdims=True)))
+    out[f"{p}.bias"] = _t(params["pos_conv"]["bias"])
+    for i in range(_count(params, "layer")):
+        tree, p = params[f"layer_{i}"], f"encoder.layers.{i}"
+        layer_norm(out, f"{p}.layer_norm", tree["attn_ln"], ("weight", "bias"))
+        for name in ("q_proj", "k_proj", "v_proj", "out_proj"):
+            linear(out, f"{p}.attention.{name}", tree["attn"][name])
+        layer_norm(out, f"{p}.final_layer_norm", tree["ffn_ln"],
+                   ("weight", "bias"))
+        linear(out, f"{p}.feed_forward.intermediate_dense", tree["ff1"])
+        linear(out, f"{p}.feed_forward.output_dense", tree["ff2"])
+    return out
+
+
+def conv2d(out, p, tree):
+    out[_k(p, "weight")] = _t(np.transpose(tree["kernel"], (3, 2, 0, 1)))
+    _bias(out, p, tree)
+
+
+def _norm_act(out, p, i, tree, norm, act):
+    """InstanceNorm2d at `{p}.{i}`, PReLU at `{p}.{i + 1}`."""
+    out[f"{p}.{i}.weight"] = _t(tree[norm]["scale"])
+    out[f"{p}.{i}.bias"] = _t(tree[norm]["bias"])
+    out[f"{p}.{i + 1}.weight"] = _t(tree[act]["alpha"])
+
+
+def _dense_block(out, p, tree):
+    for i in range(_count(tree, "conv")):
+        conv2d(out, f"{p}.dense_block.{i}.0", tree[f"conv_{i}"])
+        _norm_act(out, f"{p}.dense_block.{i}", 1, tree, f"norm_{i}", f"act_{i}")
+
+
+def _conv_transpose2d_1x3(out, p, tree):
+    w = np.asarray(tree["up_kernel"])[::-1]  # unflip: (3, Cin, Cout)
+    out[f"{p}.weight"] = _t(np.transpose(w, (1, 2, 0))[:, :, None, :])
+    out[f"{p}.bias"] = _t(tree["up_bias"])
+
+
+def _conformer(out, p, tree, stats):
+    for ffm in ("ffm1", "ffm2"):
+        layer_norm(out, f"{p}.{ffm}.ffm.0", tree[ffm]["norm"], ("weight", "bias"))
+        linear(out, f"{p}.{ffm}.ffm.1", tree[ffm]["fc1"])
+        linear(out, f"{p}.{ffm}.ffm.4", tree[ffm]["fc2"])
+    layer_norm(out, f"{p}.attn.layernorm", tree["attn_norm"], ("weight", "bias"))
+    attn = tree["attn"]
+    out[f"{p}.attn.attn.in_proj_weight"] = _t(attn["in_proj_weight"])
+    out[f"{p}.attn.attn.in_proj_bias"] = _t(attn["in_proj_bias"])
+    linear(out, f"{p}.attn.attn.out_proj", attn["out_proj"])
+    ccm, c = tree["ccm"], f"{p}.ccm.ccm"
+    layer_norm(out, f"{c}.0", ccm["norm"], ("weight", "bias"))
+    conv1d(out, f"{c}.2", ccm["pw1"])
+    conv1d(out, f"{c}.4", ccm["dw"])
+    layer_norm(out, f"{c}.5", ccm["bn"], ("weight", "bias"))
+    out[f"{c}.5.running_mean"] = _t(stats["ccm"]["bn"]["mean"])
+    out[f"{c}.5.running_var"] = _t(stats["ccm"]["bn"]["var"])
+    out[f"{c}.5.num_batches_tracked"] = torch.zeros((), dtype=torch.long)
+    conv1d(out, f"{c}.7", ccm["pw2"])
+    layer_norm(out, f"{p}.post_norm", tree["post_norm"], ("weight", "bias"))
+
+
+def denoiser_from_jax(variables: dict) -> dict:
+    """JAX MPNet variables {"params", "batch_stats"} -> port state_dict."""
+    params, stats, out = variables["params"], variables["batch_stats"], {}
+    enc = params["dense_encoder"]
+    conv2d(out, "dense_encoder.dense_conv_1.0", enc["conv1"])
+    _norm_act(out, "dense_encoder.dense_conv_1", 1, enc, "norm1", "act1")
+    _dense_block(out, "dense_encoder.dense_block", enc["dense"])
+    conv2d(out, "dense_encoder.dense_conv_2.0", enc["conv2"])
+    _norm_act(out, "dense_encoder.dense_conv_2", 1, enc, "norm2", "act2")
+    for i in range(_count(params, "ts")):
+        for jname, name in (("time", "time_conformer"), ("freq", "freq_conformer")):
+            _conformer(out, f"TSConformer.{i}.{name}", params[f"ts_{i}"][jname],
+                       stats[f"ts_{i}"][jname])
+    md = params["mask_decoder"]
+    _dense_block(out, "mask_decoder.dense_block", md["dense"])
+    _conv_transpose2d_1x3(out, "mask_decoder.mask_conv.0", md)
+    conv2d(out, "mask_decoder.mask_conv.1", md["conv1"])
+    _norm_act(out, "mask_decoder.mask_conv", 2, md, "norm", "act")
+    conv2d(out, "mask_decoder.mask_conv.4", md["conv2"])
+    out["mask_decoder.lsigmoid.slope"] = _t(
+        np.reshape(md["lsigmoid"]["slope"], (-1, 1)))
+    pd = params["phase_decoder"]
+    _dense_block(out, "phase_decoder.dense_block", pd["dense"])
+    _conv_transpose2d_1x3(out, "phase_decoder.phase_conv.0", pd)
+    _norm_act(out, "phase_decoder.phase_conv", 1, pd, "norm", "act")
+    conv2d(out, "phase_decoder.phase_conv_r", pd["conv_r"])
+    conv2d(out, "phase_decoder.phase_conv_i", pd["conv_i"])
     return out

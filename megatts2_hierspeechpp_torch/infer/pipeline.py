@@ -22,28 +22,42 @@ computed once per prompt). `infer/server.py` batches concurrent requests
 over them. `synthesize` / `render` run the decode half alone on
 caller-supplied w2v features and log-f0.
 
-The denoiser is not ported: `denoise_ratio > 0` raises, and the vocoder's
-[orig; denoised] style pair is the mel of [orig; orig]. The stages run
-under torch.inference_mode; `tts`, `tts_batch` and `tts_stream` enter it
-per stage, so a generator's caller is never left inside it.
+Voice conversion, `vc` (reference inference_vc.py): the source's Wav2Vec2
+layer-7 features and its YIN f0, normalised to the target speaker's f0
+statistics, vocoded in the target's style.
+
+The vocoder's style is interpolated between the prompt (or target) and its
+MP-SENet-denoised copy by `denoise_ratio`: the [orig; denoised] mel pair.
+With no denoiser attached, the pair is [orig; orig], as in the JAX
+pipeline. The stages run under torch.inference_mode; `tts`, `tts_batch`
+and `tts_stream` enter it per stage, so a generator's caller is never left
+inside it.
 """
 from __future__ import annotations
 
 import math
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Optional, Sequence
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from megatts2_hierspeechpp_torch.data import text as text_frontend
 from megatts2_hierspeechpp_torch.device import resolve_device
 from megatts2_hierspeechpp_torch.models import plm as plm_lib
+from megatts2_hierspeechpp_torch.models.denoiser import MPNet
 from megatts2_hierspeechpp_torch.models.plm import ProsodyLM
 from megatts2_hierspeechpp_torch.models.speechsr import SpeechSR
 from megatts2_hierspeechpp_torch.models.ttv import TTVModel
 from megatts2_hierspeechpp_torch.models.vocoder import HierVocoder
-from megatts2_hierspeechpp_torch.ops.stft import mel_spectrogram_fixed
+from megatts2_hierspeechpp_torch.models.wav2vec2 import Wav2Vec2
+from megatts2_hierspeechpp_torch.ops.f0 import yin_f0
+from megatts2_hierspeechpp_torch.ops.stft import (
+    istft,
+    mag_pha_stft,
+    mel_spectrogram_fixed,
+)
 
 LF0_FLOOR = math.log(55.0)  # predicted log-f0 below this is unvoiced: 0
 # kwargs of tts_batch, each with tts()'s meaning
@@ -121,6 +135,10 @@ class TTSPipeline:
     device: str | torch.device = "cuda"
     ttv: Optional[TTVModel] = None
     plm: Optional[ProsodyLM] = None
+    denoiser: Optional[MPNet] = None
+    # the reference denoiser's STFT (denoiser/config.json)
+    denoiser_cfg: dict = field(default_factory=lambda: dict(
+        n_fft=400, hop=100, win=400, compress=0.3))
 
     def __post_init__(self):
         self.device = resolve_device(self.device)
@@ -141,12 +159,40 @@ class TTSPipeline:
                 "checkpoint or request output_sr=16000")
         return num / den
 
-    def _check_tts(self, denoise_ratio: float, use_plm: bool = True,
-                   codes=None) -> None:
-        if denoise_ratio > 0:
-            raise NotImplementedError("the denoiser is not ported")
+    def _check_tts(self, use_plm: bool = True, codes=None) -> None:
         if self.ttv is None or (use_plm and codes is None and self.plm is None):
             raise ValueError("tts needs the ttv (and plm) models")
+
+    @torch.inference_mode()
+    def denoise(self, audio) -> torch.Tensor:
+        """MP-SENet denoising (reference denoiser/infer.py): audio (T,) at
+        16 kHz -> (T,) on the pipeline's device. The waveform is scaled to
+        unit RMS, the denoiser maps its compressed STFT magnitude and phase,
+        the magnitude is decompressed, and the iSTFT is scaled back."""
+        if self.denoiser is None:
+            raise ValueError("denoise needs a denoiser (MPNet)")
+        cfg = self.denoiser_cfg
+        wav = torch.as_tensor(np.asarray(audio, np.float32)).to(self.device)[None]
+        norm = torch.sqrt(wav.shape[-1] / wav.square().sum())
+        mag, pha = mag_pha_stft(wav * norm, cfg["n_fft"], cfg["hop"],
+                                cfg["win"], cfg["compress"])
+        mag, pha = self.denoiser(mag, pha)
+        spec = torch.polar(mag ** (1.0 / cfg["compress"]), pha)
+        out = istft(spec, cfg["n_fft"], cfg["hop"], cfg["win"],
+                    length=wav.shape[-1])
+        return (out / norm)[0]
+
+    def _mel_pair(self, audio: np.ndarray, padded: np.ndarray,
+                  denoise_ratio: float) -> torch.Tensor:
+        """(2, T, 80) mel of [audio; denoised audio] at the true length; the
+        denoiser runs on the padded audio when denoise_ratio > 0 and one is
+        attached, else the second row is the audio itself."""
+        orig = torch.from_numpy(audio).to(self.device)
+        if denoise_ratio > 0 and self.denoiser is not None:
+            den = self.denoise(padded)[:len(audio)]
+        else:
+            den = orig
+        return mel_spectrogram_fixed(torch.stack([orig, den]))
 
     @torch.inference_mode()
     def prepare_prompt(self, prompt_audio: np.ndarray,
@@ -156,19 +202,16 @@ class TTSPipeline:
         prompt zero-padded to (T // grid + 1) * grid samples (always at
         least one sample, as the reference pads), grid 1600 (100 ms, the
         reference's) or with bucket=True 16000 (1 s: many speakers share a
-        padded length, so they batch); mel_pair is at the true length. No
-        denoiser is ported: denoise_ratio > 0 raises, and the [orig;
-        denoised] style pair is the mel of [orig; orig]."""
-        if denoise_ratio > 0:
-            raise NotImplementedError("the denoiser is not ported")
+        padded length, so they batch); mel_pair is the mel of [orig;
+        denoised] at the true length, the padded prompt denoised when
+        denoise_ratio > 0 (see _mel_pair)."""
         audio = np.asarray(prompt_audio, np.float32)
         t_a = len(audio)
         grid = 16000 if bucket else 1600
         padded = np.pad(audio, (0, (t_a // grid + 1) * grid - t_a))
         mel_ttv = mel_spectrogram_fixed(
             torch.from_numpy(padded[None]).to(self.device))
-        pair = np.stack([audio, audio])
-        mel_pair = mel_spectrogram_fixed(torch.from_numpy(pair).to(self.device))
+        mel_pair = self._mel_pair(audio, padded, denoise_ratio)
         return PromptFeatures(mel_ttv=mel_ttv, mel_pair=mel_pair, t_samples=t_a)
 
     @torch.inference_mode()
@@ -293,12 +336,12 @@ class TTSPipeline:
         With return_intermediates, also returns the Acoustic outputs cut to
         the request's frames and the waveform before normalisation (on the
         device)."""
-        self._check_tts(denoise_ratio, use_plm, codes)
+        self._check_tts(use_plm, codes)
         ratio = self._check_output_sr(output_sr)  # fail before any compute
         if prompt is None:
             if prompt_audio is None:
                 raise ValueError("need prompt_audio or prompt features")
-            prompt = self.prepare_prompt(prompt_audio)
+            prompt = self.prepare_prompt(prompt_audio, denoise_ratio)
         mode = "given" if codes is not None else ("plm" if use_plm else "prompt")
         rows = self._rows([text], [prompt], exact)
         frames = int(self._frames(rows, length_scale)[0])
@@ -335,7 +378,7 @@ class TTSPipeline:
                 "use tts() for per-request options")
         denoise_ratio = kw.get("denoise_ratio", 0.0)
         use_plm = kw.get("use_plm", True)
-        self._check_tts(denoise_ratio, use_plm)
+        self._check_tts(use_plm)
         output_sr = kw.get("output_sr", 16000)
         ratio = self._check_output_sr(output_sr)
         b = len(texts)
@@ -350,7 +393,7 @@ class TTSPipeline:
             if prompt is None:
                 if prompt_audio is None:
                     raise ValueError("need prompt_audio, prompt or prompts")
-                prompt = self.prepare_prompt(prompt_audio)
+                prompt = self.prepare_prompt(prompt_audio, denoise_ratio)
             rows = self._rows(texts, [prompt] * b, exact=False)
         length_scale = kw.get("length_scale", 1.0)
         seed = kw.get("seed", 1234)
@@ -391,7 +434,7 @@ class TTSPipeline:
         samples on each inner side and one chunk of lookahead (the SR
         stack's right halo is the next chunk); a final raw chunk shorter
         than sr_halo is merged into the previous piece."""
-        self._check_tts(denoise_ratio, use_plm)
+        self._check_tts(use_plm)
         ratio = self._check_output_sr(output_sr)
         ck, h = chunk_frames, halo_frames
         if ck < h:
@@ -399,7 +442,7 @@ class TTSPipeline:
         if prompt is None:
             if prompt_audio is None:
                 raise ValueError("need prompt_audio or prompt features")
-            prompt = self.prepare_prompt(prompt_audio)
+            prompt = self.prepare_prompt(prompt_audio, denoise_ratio)
         rows = self._rows([text], [prompt], exact=False)
         frames = int(self._frames(rows, length_scale)[0])
         t_voc = _bucket(frames)
@@ -530,6 +573,66 @@ class TTSPipeline:
         if ratio != 1.0:
             wav = self.speechsr(wav)
         return wav[0, :int(320 * t_frames * ratio), 0]
+
+    @torch.inference_mode()
+    def vc(self, source_audio: np.ndarray, target_audio: np.ndarray,
+           w2v_model: Wav2Vec2, denoise_ratio: float = 0.0,
+           noise_scale_vc: float = 0.333, output_sr: int = 16000,
+           seed: int = 1234, src_f0: Optional[np.ndarray] = None,
+           trg_f0: Optional[np.ndarray] = None,
+           return_intermediates: bool = False):
+        """Voice conversion (reference inference_vc.py): the source's
+        content and pitch contour in the target's voice -> float32 numpy
+        waveform at output_sr, peak 0.999, over the padded source.
+
+        The source is zero-padded to a multiple of 1280 samples (at least
+        one added); w2v_model reads it reflect-padded by 40 on each side
+        (T / 320 frames). Its f0 (YIN at 200 Hz, or `src_f0`) is normalised
+        to the target's voiced-frame mean and standard deviation (YIN, or
+        `trg_f0`; both in Hz, 0 where unvoiced) when both have voiced
+        frames, clipped at 0, and enters the vocoder as log(f0 + 1), cut or
+        zero-padded to 4 values per frame. The style is the target's
+        [orig; denoised] pair (prepare_prompt's, on the 1600 grid). The
+        posterior noise comes from torch.Generator().manual_seed(seed)
+        (tts uses seed + 1, as the JAX pipeline does).
+
+        With return_intermediates, also returns dict(w2v (1, T, 1024) on
+        the device, lf0 (the whole log(f0 + 1) contour, numpy), t_frames)."""
+        ratio = self._check_output_sr(output_sr)  # fail before any compute
+        dev = self.device
+        src = np.asarray(source_audio, np.float32)
+        t_s = len(src)
+        src = torch.from_numpy(np.pad(src, (0, (t_s // 1280 + 1) * 1280 - t_s)))
+        src = src.to(dev)[None]
+        w2v = w2v_model(F.pad(src[:, None], (40, 40), mode="reflect")[:, 0])
+        t_frames = w2v.shape[1]
+        trg = np.asarray(target_audio, np.float32)
+        f0 = (np.array(src_f0, np.float32) if src_f0 is not None
+              else yin_f0(src)[0].cpu().numpy())
+        t_f0 = (np.asarray(trg_f0, np.float32) if trg_f0 is not None
+                else yin_f0(torch.from_numpy(trg).to(dev)[None])[0].cpu().numpy())
+        ii, jj = f0 != 0, t_f0 != 0
+        if ii.any() and jj.any():  # numpy std: ddof 0, as the reference
+            f0[ii] = (f0[ii] - f0[ii].mean()) / max(f0[ii].std(), 1e-6)
+            f0[ii] = np.clip(f0[ii] * t_f0[jj].std() + t_f0[jj].mean(), 0, None)
+        lf0 = np.log(f0 + 1.0)
+        lf0_in = np.zeros(4 * t_frames, np.float32)
+        lf0_in[:min(len(lf0), 4 * t_frames)] = lf0[:4 * t_frames]
+
+        t_t = len(trg)
+        padded = np.pad(trg, (0, (t_t // 1600 + 1) * 1600 - t_t))
+        mel = self._mel_pair(trg, padded, denoise_ratio)
+        wav = self.vocoder.voice_conversion(
+            w2v, torch.ones(1, t_frames, 1, device=dev), mel,
+            torch.ones(*mel.shape[:2], 1, device=dev),
+            torch.from_numpy(lf0_in).to(dev)[None, :, None], noise_scale_vc,
+            torch.Generator().manual_seed(seed), denoise_ratio)
+        if ratio != 1.0:
+            wav = self.speechsr(wav)
+        out = _peak_normalise(wav[0, :, 0].cpu().numpy())
+        if return_intermediates:
+            return out, dict(w2v=w2v, lf0=lf0, t_frames=t_frames)
+        return out
 
     def synthesize(self, prompt: PromptFeatures, w2v, frame_mask, lf0,
                    noise_scale: float = 0.333, seed: int = 1234,

@@ -21,6 +21,18 @@ acoustic stage's other parameters:
           range); bias_hh 0 (the port's one-bias convention)
   RVQ codebook  N(0, 1)
   LayerNorm scale 1, bias 0 (their constructors')
+
+Wav2Vec2 and the denoiser (MPNet) add:
+
+  torch Conv1d / Conv2d  as Conv1d above; ConvTranspose2d as a transposed
+          conv (fan_in Cin*Kh*Kw/stride)
+  w2v positional conv (weight norm over the kernel axis): weight_v as a
+          k > 1 conv, weight_g = ||weight_v|| per tap
+  attention in_proj_weight  N(0, 1 / dim)
+  BatchNorm1d running_mean N(0, 0.1^2), running_var exp(N(0, 0.2^2)), so
+          that the inference statistics are not the identity
+  InstanceNorm2d, PReLU (0.25), the mask's sigmoid slope (1): their
+          constructors'
 """
 from __future__ import annotations
 
@@ -39,6 +51,10 @@ from megatts2_hierspeechpp_torch.nn.quantize import EuclideanCodebook
 
 @torch.no_grad()
 def init_weights(module: nn.Module, seed: int) -> None:
+    # the models that use these import this module
+    from megatts2_hierspeechpp_torch.models.denoiser import TorchMHA
+    from megatts2_hierspeechpp_torch.models.wav2vec2 import PosConv
+
     gen = torch.Generator().manual_seed(seed)
     gain = 0.5
 
@@ -46,7 +62,25 @@ def init_weights(module: nn.Module, seed: int) -> None:
         p.copy_(torch.randn(p.shape, generator=gen) * std)
 
     for m in module.modules():
-        if isinstance(m, WNConv1d):
+        if isinstance(m, PosConv):
+            normal_(m.weight_v, gain * m.weight_v[0].numel() ** -0.5)
+            m.weight_g.copy_(m.weight_v.pow(2).sum(dim=(0, 1), keepdim=True).sqrt())
+        elif isinstance(m, TorchMHA):
+            normal_(m.in_proj_weight, m.in_proj_weight.shape[1] ** -0.5)
+            m.in_proj_bias.zero_()
+            continue
+        elif isinstance(m, nn.BatchNorm1d):
+            normal_(m.running_mean, 0.1)
+            m.running_var.copy_(torch.exp(torch.randn(m.running_var.shape,
+                                                      generator=gen) * 0.2))
+            continue
+        elif isinstance(m, nn.ConvTranspose2d):
+            cin, _, kh, kw = m.weight.shape
+            normal_(m.weight, gain * (cin * kh * kw / m.stride[1]) ** -0.5)
+        elif isinstance(m, (nn.Conv1d, nn.Conv2d)):
+            g = gain if m.weight[0, 0].numel() > 1 else 1.0
+            normal_(m.weight, g * m.weight[0].numel() ** -0.5)
+        elif isinstance(m, WNConv1d):
             normal_(m.weight_v, gain * m.weight_v[0].numel() ** -0.5)
             m.weight_g.copy_(m.weight_v.pow(2).sum(dim=(1, 2), keepdim=True).sqrt())
         elif isinstance(m, WNConvTranspose1d):

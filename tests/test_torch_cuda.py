@@ -14,17 +14,35 @@ configurations the same check against the bf16 plain twin (plain_gap)
 within one bf16 step, 2^-8 x max|logits| (the twin on the CPU and on the
 card, whose sums differ only in order, already differ by several 1e-4 x
 max|logits| at T = 500: a value within float error of a bf16 rounding
-boundary rounds either way)."""
+boundary rounds either way).
+
+The vc front end and the denoiser at full width, card against the same
+weights on the CPU (library convs, matmuls and attention; no kernel of
+ours): Wav2Vec2 features atol 1e-4 x max|ref|; YIN voicing on 99 % of
+frames and f0 within 1e-4 relative where both voice; MPNet's magnitude
+within 1e-4 x max|ref| and its phase within 1e-3 on the circle where the
+spectrum is not near zero, on one STFT fed to both (the first frame's
+phases are +-pi by the FFT's rounding, see tests/test_torch_denoiser.py);
+the query-chunked attention equal to the dense form within 1e-5 x
+max|ref|; `vc` with the f0 and the denoiser's STFT given, 48 kHz waveform
+before normalisation within 1e-3, as chip_smoke.py's card-vs-CPU gate."""
 import numpy as np
 import pytest
 import torch
 
+from megatts2_hierspeechpp_torch.infer import pipeline as tpipe
 from megatts2_hierspeechpp_torch.models import plm
+from megatts2_hierspeechpp_torch.models.denoiser import MPNet
+from megatts2_hierspeechpp_torch.models.speechsr import SpeechSR
+from megatts2_hierspeechpp_torch.models.vocoder import HierVocoder
+from megatts2_hierspeechpp_torch.models.wav2vec2 import Wav2Vec2
 from megatts2_hierspeechpp_torch.nn.conv import conv1d_op
 from megatts2_hierspeechpp_torch.ops import amp_triple, ampblock, cuda_lib, snake
+from megatts2_hierspeechpp_torch.ops.f0 import yin_f0
 from megatts2_hierspeechpp_torch.ops.plm_decode import (
     plain_decode, plain_gap, plm_decode_greedy)
 from megatts2_hierspeechpp_torch.ops.resample import activation1d
+from megatts2_hierspeechpp_torch.ops.stft import mag_pha_stft
 
 DIL = (1, 3, 5)
 BF16_MARGIN = 2.0 ** -8  # the bf16 decode's teacher-forced gap, x max|logits|
@@ -284,3 +302,96 @@ def test_kernel_backward_is_plain_gradient(dev):
     want = torch.autograd.grad(ampblock.composed_ampblock(x, *ws, 3, DIL), [x, *ws], cot)
     for g, w in zip(got, want):
         torch.testing.assert_close(g, w, atol=1e-4, rtol=1e-4)
+
+
+def _voice(seconds, f_lo, f_hi, seed):
+    """A gliding harmonic tone with a little noise, 16 kHz."""
+    rng = np.random.default_rng(seed)
+    n = int(seconds * 16000)
+    f = np.linspace(f_lo, f_hi, n)
+    ph = 2 * np.pi * np.cumsum(f) / 16000.0
+    y = sum(0.3 / h * np.sin(h * ph) for h in range(1, 5))
+    return (y + 0.01 * rng.standard_normal(n)).astype(np.float32)
+
+
+@pytest.mark.cuda
+def test_wav2vec2_and_yin_card_match_cpu(dev):
+    cpu = Wav2Vec2(seed=3, device="cpu")
+    card = Wav2Vec2(seed=3, device="cuda")
+    x = torch.from_numpy(_voice(1.0, 100, 220, 1))[None]
+    with torch.inference_mode():
+        want = cpu(x)
+        got = card(x.to(dev)).cpu()
+    assert got.shape == (1, 49, 1024)  # (16000 - 400) // 320 + 1
+    torch.testing.assert_close(got, want, atol=1e-4 * want.abs().max().item(),
+                               rtol=0)
+    with torch.inference_mode():
+        f_cpu = yin_f0(x)[0].numpy()
+        f_card = yin_f0(x.to(dev))[0].cpu().numpy()
+    assert ((f_cpu > 0) == (f_card > 0)).mean() >= 0.99
+    both = (f_cpu > 0) & (f_card > 0)
+    np.testing.assert_allclose(f_card[both], f_cpu[both], rtol=1e-4)
+
+
+@pytest.mark.cuda
+def test_mpnet_card_matches_cpu_and_chunks_equal_dense(dev):
+    cpu = MPNet(seed=4, device="cpu")
+    card = MPNet(seed=4, device="cuda")
+    with torch.inference_mode():
+        mag, pha = mag_pha_stft(torch.from_numpy(_voice(1.0, 150, 90, 2))[None],
+                                400, 100, 400, 0.3)
+        want = cpu(mag, pha)
+        got = [a.cpu() for a in card(mag.to(dev), pha.to(dev))]
+        card.set_attn_chunk(64)
+        chunked = [a.cpu() for a in card(mag.to(dev), pha.to(dev))]
+        card.set_attn_chunk(None)
+    scale = want[0].abs().max().item()
+    torch.testing.assert_close(got[0], want[0], atol=1e-4 * scale, rtol=0)
+    big = want[0] > 1e-3 * scale
+    circle = (torch.polar(torch.ones_like(got[1]), got[1])
+              - torch.polar(torch.ones_like(want[1]), want[1])).abs()
+    assert circle[big].max() <= 1e-3
+    torch.testing.assert_close(chunked[0], got[0], atol=1e-5 * scale, rtol=0)
+
+
+@pytest.mark.cuda
+def test_vc_card_matches_cpu(dev, monkeypatch):
+    """Full-width vc at 48 kHz, denoise_ratio 0.8, with the f0 and the
+    denoiser's STFT computed once on the CPU and given to both (the card's
+    RMS scaling differs from the CPU's by an ulp, enough to flip a
+    first-frame phase between +-pi); every vocoder kernel launches on the
+    card."""
+    stft, saved = tpipe.mag_pha_stft, []
+
+    def one_stft(y, *args):  # the CPU run's, replayed on the card
+        if not saved:
+            saved.extend(stft(y.cpu(), *args))
+        return tuple(a.to(y.device) for a in saved)
+
+    monkeypatch.setattr(tpipe, "mag_pha_stft", one_stft)
+    src, trg = _voice(1.0, 110, 180, 5), _voice(1.5, 200, 240, 6)
+    with torch.inference_mode():
+        src_f0 = yin_f0(torch.from_numpy(np.pad(src, (0, 640)))[None])[0].numpy()
+        trg_f0 = yin_f0(torch.from_numpy(trg)[None])[0].numpy()
+    outs = []
+    for d in ("cpu", "cuda"):
+        pipe = tpipe.TTSPipeline(
+            HierVocoder(seed=1234, device=d),
+            SpeechSR(32, 3, 1, seed=4321, device=d), d,
+            denoiser=MPNet(seed=5, device=d))
+        w2v = Wav2Vec2(seed=6, device=d)
+        seen = {}
+        orig = pipe.speechsr.forward
+        monkeypatch.setattr(pipe.speechsr, "forward",
+                            lambda x: seen.setdefault("wav", orig(x)))
+        cuda_lib.reset_launches()
+        pipe.vc(src, trg, w2v, denoise_ratio=0.8, noise_scale_vc=0.0,
+                output_sr=48000, src_f0=src_f0, trg_f0=trg_f0)
+        if d == "cuda":
+            torch.cuda.synchronize()
+            assert {k: cuda_lib.LAUNCHES[k] for k in
+                    ("aa_snakebeta", "ampblock", "amp_triple")} == {
+                "aa_snakebeta": 19, "ampblock": 6, "amp_triple": 5}
+        outs.append(seen["wav"][0, :, 0].cpu().numpy())
+    assert outs[0].shape == (3 * 16640,)
+    assert np.abs(outs[1] - outs[0]).max() <= 1e-3

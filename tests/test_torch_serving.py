@@ -24,7 +24,12 @@ from megatts2_hierspeechpp_torch.infer import pipeline as tpipe
 from megatts2_hierspeechpp_tpu.data import text as jtext
 from tests.test_torch_kernels import few_torch_threads  # noqa: F401
 from tests.test_torch_pipeline import speechsrs  # noqa: F401  (fixture)
-from tests.test_torch_tts import TEXT, pipelines  # noqa: F401  (fixture)
+from tests.test_torch_denoiser import jax_stft  # noqa: F401  (fixture)
+from tests.test_torch_tts import (  # noqa: F401  (fixtures)
+    TEXT,
+    denoised_pipelines,
+    pipelines,
+)
 from tests.test_torch_vocoder import _check, vocoders  # noqa: F401  (fixture)
 
 TEXTS = (TEXT, "sil zh ang1 h ao3 sp")
@@ -295,11 +300,45 @@ def test_serving_refuses_what_it_cannot_honour(pipelines):
         tp.tts_batch(texts, prompts=[prompt, long])
     with pytest.raises(ValueError, match="does not match"):
         tp.tts_batch(texts, prompt=prompt, output_sr=24000)
-    for call in (lambda: tp.prepare_prompt(audio, denoise_ratio=0.5),
-                 lambda: tp.tts(TEXT, prompt=prompt, denoise_ratio=0.5),
-                 lambda: tp.tts_batch(texts, prompt=prompt, denoise_ratio=0.5),
-                 lambda: next(tp.tts_stream(TEXT, prompt=prompt,
-                                            denoise_ratio=0.5))):
-        with pytest.raises(NotImplementedError, match="denoiser"):
-            call()
     assert torch.is_inference_mode_enabled() is False
+
+
+def test_serving_with_denoise_ratio_matches_jax(denoised_pipelines, jax_stft):
+    """denoise_ratio > 0 from prompt audio in tts_batch and tts_stream: the
+    prompt is denoised and the style interpolated, as the JAX pipeline
+    serves it (16 kHz, shared prompt)."""
+    jp, tp, audio = denoised_pipelines
+    kw = dict(KW, denoise_ratio=0.5)
+    want = jp.tts_batch(list(TEXTS), prompt_audio=audio, **kw)
+    got = tp.tts_batch(list(TEXTS), prompt_audio=audio, **kw)
+    for g, w in zip(got, want):
+        _close(g, w)
+    skw = dict(STREAM, denoise_ratio=0.5, chunk_frames=16, halo_frames=16)
+    want = list(jp.tts_stream(TEXT, audio, **skw))
+    got = list(tp.tts_stream(TEXT, audio, **skw))
+    assert len(got) == len(want) >= 3
+    peak = max(np.abs(w).max() for w in want)
+    for g, w in zip(got, want):
+        assert g.shape == w.shape
+        assert np.abs(g - w).max() <= 1e-4 * peak
+    assert torch.is_inference_mode_enabled() is False
+
+
+def test_serving_with_denoise_ratio_and_no_denoiser(pipelines):
+    """No denoiser attached: every entry point runs at denoise_ratio > 0,
+    with the style pair [orig; orig] (so the ratio changes nothing), as the
+    JAX pipeline does."""
+    _, tp, audio = pipelines
+    prompt = tp.prepare_prompt(audio)
+    texts = list(TEXTS)
+    for ratio in (0.0, 0.5):
+        kw = dict(KW, denoise_ratio=ratio)
+        outs = (tp.tts(TEXT, audio, **kw), tp.tts_batch(texts, prompt=prompt, **kw),
+                np.concatenate(list(tp.tts_stream(TEXT, audio, **kw))))
+        if ratio == 0.0:
+            base = outs
+        else:
+            np.testing.assert_array_equal(outs[0], base[0])
+            for g, w in zip(outs[1], base[1]):
+                np.testing.assert_array_equal(g, w)
+            np.testing.assert_array_equal(outs[2], base[2])

@@ -1,9 +1,10 @@
 """The port's whole zero-shot path, TTSPipeline.tts(..., exact=True) (text +
 prompt audio -> 48 kHz waveform), against the JAX TTSPipeline.tts(...,
 exact=True) on the CPU, for use_plm=True (greedy PLM decode) and
-use_plm=False (the prompt's own RVQ codes); and the log-f0 convention at
-the vocoder's input. The bucketed default, exact=False, is held against
-the JAX default in test_torch_serving.py.
+use_plm=False (the prompt's own RVQ codes), and with a denoiser at
+denoise_ratio 0.5; the log-f0 convention at the vocoder's input. The
+bucketed default, exact=False, is held against the JAX default in
+test_torch_serving.py.
 
 Small configuration: TTVModel(text_layers=1, mel_enc_layers=1,
 w2v_enc_layers=1, w2v_dec_layers=2), ProsodyLM(n_layers=2) at full width
@@ -13,7 +14,13 @@ different noise from a seed). Tolerances: frame lengths and codes exact;
 x_frame, w2v and log-f0 atol 1e-4; the 48 kHz waveform before
 normalisation atol 1e-4 relative to its peak, which is the per-module
 float32 agreement carried through the vocoder and SpeechSR (the decode path
-alone meets it in test_torch_pipeline.py)."""
+alone meets it in test_torch_pipeline.py). With the denoiser
+(test_torch_denoiser.py's small MPNet), both sides take the denoiser's STFT
+from the JAX function (the edge-frame phase hazard, test_torch_denoiser.py);
+the denoised row of the mel pair atol 1e-4 plus rtol 1e-4: its log-mel
+values reach 6.3, and the small MPNet's float32 differences leave 2-3 of
+its 8480 values 1.2-1.9e-4 apart (4e-5 relative)."""
+import dataclasses
 import math
 
 import numpy as np
@@ -31,6 +38,7 @@ from megatts2_hierspeechpp_tpu.infer.pipeline import TTSPipeline as JaxPipeline
 from megatts2_hierspeechpp_tpu.models.plm import ProsodyLM as JaxPLM
 from megatts2_hierspeechpp_tpu.models.ttv import TTVModel as JaxTTV
 from tests.test_torch_acoustic import TTV_SMALL, random_ttv_vars
+from tests.test_torch_denoiser import jax_stft, small_denoisers  # noqa: F401
 from tests.test_torch_kernels import few_torch_threads  # noqa: F401
 from tests.test_torch_pipeline import speechsrs  # noqa: F401  (fixture)
 from tests.test_torch_plm import plm_params
@@ -60,6 +68,15 @@ def pipelines(vocoders, speechsrs):
     tp = tpipe.TTSPipeline(tvoc, tsr, "cpu", ttv=tttv, plm=tplm)
     audio = (np.random.default_rng(43).standard_normal(17000) * 0.2).astype(np.float32)
     return jp, tp, audio
+
+
+@pytest.fixture(scope="module")
+def denoised_pipelines(pipelines):
+    """The pipelines of `pipelines` with one small MPNet attached to both."""
+    jp, tp, audio = pipelines
+    jm, dvars, tm = small_denoisers(seed=44)
+    return (dataclasses.replace(jp, denoiser=jm, denoiser_vars=dvars, _jits={}),
+            dataclasses.replace(tp, denoiser=tm), audio)
 
 
 @pytest.mark.parametrize("use_plm", [True, False])
@@ -137,7 +154,47 @@ def test_vocoder_gets_clipped_log_f0_unconverted(pipelines, monkeypatch):
 
 def test_tts_refuses_what_is_not_ported(pipelines):
     _, tp, audio = pipelines
-    with pytest.raises(NotImplementedError, match="denoiser"):
-        tp.tts(TEXT, audio, denoise_ratio=0.5)
     with pytest.raises(ValueError, match="does not match"):
         tp.tts(TEXT, audio, output_sr=24000)
+
+
+@pytest.mark.parametrize("bucket", [False, True])
+def test_prepare_prompt_denoised_pair_matches_jax(denoised_pipelines, jax_stft,
+                                                  bucket):
+    """denoise_ratio > 0: the second row of the mel pair is the mel of the
+    padded prompt denoised and cut to the prompt's length, as the JAX
+    prepare_prompt; the first row and mel_ttv are the prompt's own."""
+    jp, tp, audio = denoised_pipelines
+    want = jp.prepare_prompt(audio, denoise_ratio=0.5, bucket=bucket)
+    got = tp.prepare_prompt(audio, denoise_ratio=0.5, bucket=bucket)
+    _check(got.mel_ttv, want.mel_ttv)
+    _check(got.mel_pair[0], want.mel_pair[0])
+    np.testing.assert_allclose(got.mel_pair[1].numpy(), want.mel_pair[1],
+                               atol=1e-4, rtol=1e-4)
+    plain = tp.prepare_prompt(audio, bucket=bucket)
+    assert torch.equal(got.mel_pair[0], plain.mel_pair[0])
+    assert (got.mel_pair[1] - got.mel_pair[0]).abs().max() > 0.1
+
+
+def test_prepare_prompt_without_denoiser_pairs_the_prompt(pipelines):
+    """No denoiser attached: denoise_ratio > 0 runs and the pair is [orig;
+    orig], as the JAX pipeline does."""
+    jp, tp, audio = pipelines
+    want = jp.prepare_prompt(audio, denoise_ratio=0.5)
+    got = tp.prepare_prompt(audio, denoise_ratio=0.5)
+    assert torch.equal(got.mel_pair[0], got.mel_pair[1])
+    _check(got.mel_pair, want.mel_pair)
+
+
+def test_tts_with_denoiser_matches_jax_exact(denoised_pipelines, jax_stft):
+    """tts(exact=True, denoise_ratio=0.5) with a denoiser: the style is
+    interpolated half way to the denoised prompt's, as in the JAX tts."""
+    jp, tp, audio = denoised_pipelines
+    kw = dict(noise_scale_vc=0.0, output_sr=48000, seed=5, exact=True,
+              denoise_ratio=0.5)
+    want = jp.tts(TEXT, audio, **kw)
+    got = tp.tts(TEXT, audio, **kw)
+    assert got.shape == want.shape
+    assert np.abs(got - want).max() <= 1e-4
+    plain = tp.tts(TEXT, audio, **dict(kw, denoise_ratio=0.0))
+    assert np.abs(got - plain).max() > 1e-3
