@@ -69,11 +69,28 @@ Phases, in order; any failure exits non-zero:
      vc, one f0 (the first STFT frame's phases are +-pi by the FFT's
      rounding, and a YIN frame at its threshold can flip; both are held on
      their own). These paths' launch shapes join the `new_shape` lines,
-     which run last.
+     which run last;
+ 10. vocoder training at the published widths (configs/hierspeechpp.json,
+     batch 32, 32-frame windows): cli/make_synth_corpus writes 96
+     utterances, cli/train_vocoder.main runs in-process for one epoch (3
+     steps, a checkpoint at step 2 and at the epoch's end), then again on
+     the same directory for a second epoch, resumed from the checkpoint:
+     each step's ms (CUDA events) and kernel launches (zeroed before each
+     step; each kernel must launch in every step), audio-s per s encoded and
+     decoded, peak memory; one step under torch.profiler by group (our
+     kernels' forward, their plain-VJP recompute and backward, cuDNN /
+     cuBLAS, optimizer, elementwise) with the idle share; one step at B = 2,
+     64 frames, card against CPU from the same weights and draws (each loss
+     within 1e-4 relative, G and D gradients within 1e-3 relative L2); and
+     each kernel's wrapper at every training launch shape, forward and
+     backward against autograd of its plain version (`train_shape` lines:
+     forward, plain and backward ms, bound). The training launch shapes
+     join the `new_shape` lines.
 Then one JSON line with every kernel's numbers (launches: the f32 rows
-from the tts requests of phase 5, the bf16 row from its batch decode of
-phase 3), the card's name and power limit from phase 1 printed first, and
-last the device line.
+from the tts requests of phase 5, or one training step of phase 10 where
+that count is larger; the bf16 row from its batch decode of phase 3), the
+card's name and power limit from phase 1 printed first, and last the
+device line.
 
 Float32 throughout (but for the bf16 decode configuration), TF32 off.
 Without CUDA it exits non-zero before printing any result.
@@ -1808,6 +1825,434 @@ def vc_phase(torch, dev, pipe, cpu_pipe, shapes):
              f"{CPU_TOL}")
 
 
+# ---- phase 10: vocoder training through cli/train_vocoder ----
+
+TRAIN_CONFIG = "configs/hierspeechpp.json"  # published widths, batch 32, 32-frame windows
+TRAIN_UTTERANCES = 96       # the synthetic corpus: three batches of 32
+TRAIN_KERNELS = ("aa_snakebeta", "ampblock", "amp_triple")
+TRAIN_CPU_FRAMES = 64       # card vs CPU step: 2 utterances cut to 64 frames
+TRAIN_LOSS_TOL = 1e-4       # card vs CPU, each loss, relative
+TRAIN_GRAD_TOL = 1e-3       # card vs CPU, relative L2 of all G (all D) gradients
+TRAIN_BWD_TOL = 1e-4        # a kernel's gradients against autograd of its
+                            # plain version, x max|ref| of each tensor
+TRAIN_FWD_TOL = {"aa_snakebeta": 1e-5, "ampblock": 1e-4, "amp_triple": 1e-4}
+OURS = ("aa_snakebeta_kernel", "snake_conv_kernel", "triple_avg_kernel",
+        "triple_post_kernel")
+TRAIN_GROUPS = (  # the rest of a step's kernels, first match wins
+    ("optimizer (foreach)", ("multi_tensor_apply",)),
+    ("cuDNN/cuBLAS conv+gemm", ("conv", "cudnn", "xmma", "gemm", "sgemm",
+                                "cutlass", "implicit", "wgrad", "dgrad")),
+    ("fft", ("fft",)),
+    ("memcpy/memset", ("memcpy", "memset", "Memcpy", "Memset")),
+    ("reduce", ("reduce", "Reduce")),
+    ("elementwise", ("elementwise", "vectorized", "Elementwise")),
+)
+
+
+class KernelCalls:
+    """The distinct calls of the three vocoder kernels' autograd Functions
+    while `on`: (kernel, x shape, the static arguments) -> calls. The
+    wrappers look the Functions up at call time, so a shim in their place
+    sees each call."""
+
+    def __init__(self):
+        from megatts2_hierspeechpp_torch.ops import amp_triple, ampblock, snake
+
+        self.seen, self.on = {}, False
+        self._orig = [(m, a, getattr(m, a)) for m, a in (
+            (snake, "_AASnakeBeta"), (ampblock, "_AMPBlock"),
+            (amp_triple, "_AMPTriple"))]
+        for (mod, attr, fn), kind in zip(self._orig, TRAIN_KERNELS):
+            setattr(mod, attr, self._shim(fn, kind))
+
+    def _shim(self, fn, kind):
+        rec = self
+
+        class Shim:
+            @staticmethod
+            def apply(*args):
+                if rec.on:
+                    static = (() if kind == "aa_snakebeta" else
+                              args[1:3] if kind == "ampblock" else args[1:4])
+                    key = (kind, tuple(args[0].shape), static)
+                    rec.seen[key] = rec.seen.get(key, 0) + 1
+                return fn.apply(*args)
+
+        return Shim
+
+    def close(self):
+        for mod, attr, fn in self._orig:
+            setattr(mod, attr, fn)
+
+
+class TimedStep:
+    """The CLI's train step with CUDA events around each call and the
+    kernel launch counts of each step (zeroed just before it)."""
+
+    def __init__(self, torch, step):
+        self.torch, self.step, self.records = torch, step, []
+
+    def __call__(self, state, batch, generator):
+        from megatts2_hierspeechpp_torch.ops import cuda_lib
+
+        torch = self.torch
+        torch.cuda.synchronize()
+        cuda_lib.reset_launches()
+        out, ms = event_ms(torch, lambda: self.step(state, batch, generator))
+        b, t = batch["mask"].shape[:2]
+        self.records.append({
+            "step": out[0].step, "ms": ms, "B": b, "T": t,
+            "frames": int(batch["lengths"].sum()),
+            "launches": {k: cuda_lib.LAUNCHES[k] for k in TRAIN_KERNELS}})
+        return out
+
+
+def train_config(path, hps, corpus_dir, **train):
+    """A copy of the config reading `corpus_dir`, with `train` overrides."""
+    cfg = hps.to_dict()
+    cfg["data"]["training_files"] = f"{corpus_dir}/train_list.txt"
+    cfg["train"].update(train)
+    with open(path, "w") as f:
+        json.dump(cfg, f)
+    return path
+
+
+def train_profile(torch, step, state, batch, seed: int):
+    """One train step under torch.profiler: device ms by group, the idle
+    share of the step's wall time, launches, the top kernels. The groups
+    are exclusive: our kernels (their forward); the kernels' backward, every
+    kernel launched by a host op inside a plain_vjp range (the plain
+    version's recompute and its autograd backward); then the rest by name
+    (cuDNN / cuBLAS, optimizer, elementwise, ...)."""
+    import bisect
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    def group_of(name):
+        if any(k in name for k in OURS):
+            return "our kernels (forward)"
+        return next((g for g, keys in TRAIN_GROUPS
+                     if any(k in name for k in keys)), "other")
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step(state, batch, torch.Generator().manual_seed(seed))
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    events = prof.events()
+    groups, counts, per_name = {}, {}, {}
+    for ev in events:
+        if ev.device_type != DeviceType.CUDA or ev.name == "plain_vjp" \
+                or getattr(ev, "is_user_annotation", False):
+            continue
+        ms = ev.time_range.elapsed_us() / 1e3
+        g = group_of(ev.name)
+        groups[g] = groups.get(g, 0.0) + ms
+        counts[g] = counts.get(g, 0) + 1
+        a, c = per_name.get(ev.name, (0.0, 0))
+        per_name[ev.name] = (a + ms, c + 1)
+    # the kernels each host op launched, and whether it ran in plain_vjp
+    host = {}
+    for ev in events:
+        if ev.device_type == DeviceType.CPU and ev.name == "plain_vjp":
+            host.setdefault(ev.thread, []).append(
+                (ev.time_range.start, ev.time_range.end))
+    host = {th: sorted(r) for th, r in host.items()}
+    vjp, vjp_n = {}, 0
+    for ev in events:
+        ranges = host.get(ev.thread) if ev.device_type == DeviceType.CPU else None
+        if not ranges or not ev.kernels:
+            continue
+        i = bisect.bisect_right([a for a, _ in ranges], ev.time_range.start) - 1
+        if i < 0 or ev.time_range.start >= ranges[i][1]:
+            continue
+        for k in ev.kernels:
+            g = group_of(k.name)
+            vjp[g] = vjp.get(g, 0.0) + k.duration / 1e3
+            vjp_n += 1
+    split = {"plain-VJP recompute + backward": sum(vjp.values())}
+    for g, ms in groups.items():
+        split[g] = ms - vjp.get(g, 0.0)
+    dev_ms = sum(groups.values())
+    spans = [ev.time_range.elapsed_us() / 1e3 for ev in events
+             if ev.device_type == DeviceType.CUDA and ev.name == "plain_vjp"]
+    top = sorted(per_name.items(), key=lambda kv: -kv[1][0])[:12]
+    line = {"phase": "train_profile", "wall_ms": wall_ms,
+            "device_kernel_ms": dev_ms or "not measured",
+            "device_idle_share": (1 - dev_ms / wall_ms) if dev_ms else "not measured",
+            "kernel_launches": sum(counts.values()),
+            "split_ms": dict(sorted(split.items(), key=lambda kv: -kv[1])),
+            "plain_vjp_by_name_ms": vjp, "plain_vjp_launches": vjp_n,
+            "plain_vjp_ranges": {"host": sum(map(len, host.values())),
+                                 "device": len(spans)},
+            "plain_vjp_device_span_ms": sum(spans),
+            "groups_ms": dict(sorted(groups.items(), key=lambda kv: -kv[1])),
+            "groups_launches": counts,
+            "top_kernels": [[k[:100], ms, c] for k, (ms, c) in top]}
+    print(json.dumps(line), flush=True)
+
+
+def train_cpu_phase(torch, dev, hps, ds):
+    """One step at full width on the card and on the CPU from the same
+    weights, batch and draws: every loss, and the G and D gradients."""
+    from megatts2_hierspeechpp_torch.cli.train_vocoder import (
+        build_state, vocoder_batch)
+    from megatts2_hierspeechpp_torch.train import vocoder as vt
+
+    t = TRAIN_CPU_FRAMES
+    full = vocoder_batch(ds, [0, 1])
+    cut = {"audio": 320 * t, "spec": t, "mel": t, "w2v": t, "f0": 4 * t,
+           "mask": t}
+    batch = {k: np.ascontiguousarray(full[k][:, :n]) for k, n in cut.items()}
+    batch["lengths"] = np.minimum(full["lengths"], t)
+    step = vt.TrainStep(segment_frames=hps.train.segment_frames,
+                              c_mel=hps.train.c_mel, c_kl=hps.train.c_kl)
+    out = []
+    for d in (dev, torch.device("cpu")):
+        state = build_state(hps, d, hps.train.seed)
+        tb = {k: torch.from_numpy(v).to(d) for k, v in batch.items()}
+        draws = step.draw(state, tb, torch.Generator().manual_seed(11))
+        t0 = time.perf_counter()
+        state, m = step.with_draws(state, tb, *draws)
+        m = {k: float(v) for k, v in m.items()}  # waits for the device
+        ms = 1e3 * (time.perf_counter() - t0)
+        grads = {name: torch.cat([p.grad.detach().flatten().cpu()
+                                  for p in mod.parameters()])
+                 for name, mod in (("G", state.gen), ("D", state.disc))}
+        out.append((m, grads, ms))
+        del state
+    (mc, gc, ms_c), (mp, gp, ms_p) = out
+    loss_err = {k: abs(mc[k] - mp[k]) / max(abs(mp[k]), 1e-30) for k in mp}
+    grad_err = {k: ((gc[k] - gp[k]).norm() / gp[k].norm()).item() for k in gp}
+    line = {"phase": "train_card_vs_cpu", "B": 2, "frames": t,
+            "card_ms": ms_c, "cpu_ms": ms_p, "losses_card": mc,
+            "loss_rel_err": loss_err, "grad_rel_l2": grad_err,
+            "tolerance": {"loss": TRAIN_LOSS_TOL, "grad": TRAIN_GRAD_TOL}}
+    print(json.dumps(line), flush=True)
+    if not all(math.isfinite(v) for v in mc.values()):
+        fail(f"train card vs CPU: non-finite loss {mc}")
+    if not max(loss_err.values()) <= TRAIN_LOSS_TOL:
+        fail(f"train card vs CPU: losses differ {loss_err}")
+    if not max(grad_err.values()) <= TRAIN_GRAD_TOL:
+        fail(f"train card vs CPU: gradients differ {grad_err}")
+
+
+def train_backward_phase(torch, dev, calls):
+    """Each kernel at every training launch shape: its wrapper's forward and
+    backward (plain_vjp) against autograd of its plain version on the card,
+    the same inputs and cotangent; ms of the kernel's forward, the plain
+    forward and the wrapper's backward (CUDA events), and the forward's
+    bound."""
+    from megatts2_hierspeechpp_torch.ops.amp_triple import (
+        composed_triple, fused_amp_triple)
+    from megatts2_hierspeechpp_torch.ops.ampblock import (
+        composed_ampblock, fused_ampblock)
+    from megatts2_hierspeechpp_torch.ops.snake import (
+        composed_snakebeta, fused_aa_snakebeta)
+
+    gen = torch.Generator().manual_seed(29)
+
+    def leaf(*shape, scale=1.0, positive=False):
+        v = torch.randn(shape, generator=gen) * scale
+        return (torch.exp(v) if positive else v).to(dev).requires_grad_()
+
+    def block_ws(c, k):
+        return [leaf(3, c, scale=0.2, positive=True),
+                leaf(3, c, scale=0.2, positive=True),
+                leaf(3, k, c, c, scale=(c * k) ** -0.5), leaf(3, c, scale=0.05),
+                leaf(3, c, scale=0.2, positive=True),
+                leaf(3, c, scale=0.2, positive=True),
+                leaf(3, k, c, c, scale=(c * k) ** -0.5), leaf(3, c, scale=0.05)]
+
+    rows = []
+    for (kind, shape, static), n_calls in sorted(calls.items(), key=str):
+        b, t, c = shape
+        x = leaf(b, t, c)
+        if kind == "aa_snakebeta":
+            ws = [leaf(c, scale=0.2, positive=True),
+                  leaf(c, scale=0.2, positive=True)]
+            fused = lambda: fused_aa_snakebeta(x, *ws)  # noqa: E731
+            plain = lambda: composed_snakebeta(x, *ws)  # noqa: E731
+            n_bytes, flops, conv = 4.0 * (2 * b * t * c + 2 * c), SNAKE_FLOPS * b * t * c, 0.0
+            label = f"B={b} T={t} C={c}"
+        elif kind == "ampblock":
+            k, dil = static
+            ws = block_ws(c, k)
+            fused = lambda: fused_ampblock(x, *ws, k, dil)  # noqa: E731
+            plain = lambda: composed_ampblock(x, *ws, k, dil)  # noqa: E731
+            n_bytes = 4.0 * (2 * b * t * c + 6 * k * c * c + 10 * c)
+            flops, conv = block_flops(b * t, c, k)
+            label = f"B={b} T={t} C={c} k={k}"
+        else:
+            ks, dils, has_post = static
+            bws = [block_ws(c, k) for k in ks]
+            post = ([leaf(c, scale=0.2, positive=True),
+                     leaf(c, scale=0.2, positive=True),
+                     leaf(7, c, scale=0.1 * (7 * c) ** -0.5)] if has_post else None)
+            ws = [w for bw in bws for w in bw] + (post or [])
+            fused = lambda: fused_amp_triple(x, bws, ks, dils, post)  # noqa: E731
+            plain = lambda: composed_triple(x, bws, ks, dils, post)  # noqa: E731
+            flops = sum(block_flops(b * t, c, k)[0] for k in ks) + 3.0 * b * t * c
+            conv = sum(block_flops(b * t, c, k)[1] for k in ks)
+            if has_post:
+                flops += (SNAKE_FLOPS + 14) * b * t * c + b * t
+            n_bytes = 4.0 * (b * t * c + (b * t if has_post else b * t * c)
+                             + sum(6 * k * c * c + 10 * c for k in ks))
+            label = f"B={b} T={t} C={c} ks={list(ks)}{' +tail' if has_post else ''}"
+        leaves = [x] + ws
+        y = fused()
+        ct = torch.randn(y.shape, generator=gen).to(dev)
+        grads = torch.autograd.grad(y, leaves, ct, retain_graph=True)
+        yr = plain()
+        refs = torch.autograd.grad(yr, leaves, ct)
+        fwd_err = ((y - yr).abs().max() / yr.abs().max()).item()
+        grad_err = max(((g - r).abs().max() / r.abs().max().clamp_min(1e-30)).item()
+                       for g, r in zip(grads, refs))
+        del yr, refs
+        with torch.no_grad():
+            ms = time_ms(torch, fused, 5)
+            plain_ms = time_ms(torch, plain, 3)
+        bwd_ms = time_ms(torch, lambda: torch.autograd.grad(
+            y, leaves, ct, retain_graph=True), 3)
+        b_ms, b_by = bound_ms(n_bytes, flops, conv)
+        line = {"phase": "train_shape", "kernel": kind, "shape": label,
+                "calls_in_first_run": n_calls, "fwd_err_over_ref": fwd_err,
+                "grad_err_over_ref": grad_err,
+                "tolerance": {"fwd": f"{TRAIN_FWD_TOL[kind]:g} x max|ref|",
+                              "grad": f"{TRAIN_BWD_TOL:g} x max|ref| per tensor"},
+                "ms": ms, "plain_ms": plain_ms, "bwd_plain_vjp_ms": bwd_ms,
+                "bound_ms": b_ms, "bound_by": b_by}
+        print(json.dumps(line), flush=True)
+        if not (fwd_err <= TRAIN_FWD_TOL[kind] and grad_err <= TRAIN_BWD_TOL):
+            fail(f"{kind} {label} under autograd: forward {fwd_err}, "
+                 f"gradients {grad_err} of max|ref|")
+        rows.append(line)
+        del x, ws, leaves, y, grads, ct
+    print(json.dumps({"phase": "train_shapes", "checked": len(rows)}), flush=True)
+    return rows
+
+
+def train_vocoder_phase(torch, dev, shapes):
+    """cli/train_vocoder at the published widths on a synthetic corpus:
+    3 steps, a checkpoint, a resumed run of 3 more; each step's ms and
+    kernel launches, audio-s per s, peak memory; one step profiled; one
+    step card against CPU; every kernel's backward at its training shapes.
+    Returns (per-step launches of the first step, the train_shape rows)."""
+    import os
+    import tempfile
+
+    from megatts2_hierspeechpp_torch.cli import make_synth_corpus
+    from megatts2_hierspeechpp_torch.cli import train_vocoder as cli
+    from megatts2_hierspeechpp_torch.data.dataset import (
+        DatasetConfig, DistributedBucketSampler, SidecarDataset)
+    from megatts2_hierspeechpp_torch.ops import cuda_lib
+    from megatts2_hierspeechpp_torch.train import checkpoints as ckpt
+    from megatts2_hierspeechpp_torch.utils.config import load_hparams
+
+    hps = load_hparams(TRAIN_CONFIG)
+    with tempfile.TemporaryDirectory() as tmp:
+        corpus = os.path.join(tmp, "corpus")
+        t0 = time.perf_counter()
+        make_synth_corpus.make_corpus(corpus, n=TRAIN_UTTERANCES, seed=0)
+        corpus_s = time.perf_counter() - t0
+        logs = os.path.join(tmp, "logs")
+        cfg1 = train_config(os.path.join(tmp, "c1.json"), hps, corpus, epochs=1,
+                            log_interval=1, save_interval=2)
+        cfg2 = train_config(os.path.join(tmp, "c2.json"), hps, corpus, epochs=2,
+                            log_interval=1, save_interval=2)
+        steps = []
+        make_step = cli.vt.TrainStep
+
+        def timed_step(**kw):
+            steps.append(TimedStep(torch, make_step(**kw)))
+            return steps[-1]
+
+        calls = KernelCalls()
+        cli.vt.TrainStep = timed_step
+        torch.cuda.reset_peak_memory_stats()
+        try:
+            calls.on = True
+            shapes.path = "train_vocoder"
+            t0 = time.perf_counter()
+            state = cli.main(["-c", cfg1, "-m", "run", "--logs_dir", logs])
+            first_s = time.perf_counter() - t0
+            calls.on = False
+            shapes.path = None
+            peak = torch.cuda.max_memory_allocated()
+            after_first = ckpt.latest_step(os.path.join(logs, "run", "ckpt"))
+            t0 = time.perf_counter()
+            state = cli.main(["-c", cfg2, "-m", "run", "--logs_dir", logs])
+            second_s = time.perf_counter() - t0
+        finally:
+            cli.vt.TrainStep = make_step
+            calls.close()
+            shapes.path = None
+        recs = [r for s in steps for r in s.records]
+        with open(os.path.join(logs, "run", "scalars.jsonl")) as f:
+            scalars = [json.loads(line) for line in f]
+        for r in recs:
+            print(json.dumps(dict(r, phase="train_step")), flush=True)
+        hop_s = 320 / 16000
+        med = float(np.median([r["ms"] for r in recs[1:]]))
+
+        def rate(seconds_of):  # median audio-s per s of the steps after the first
+            return float(np.median([seconds_of(r) / (r["ms"] / 1e3)
+                                    for r in recs[1:]]))
+
+        line = {"phase": "train_vocoder", "config": TRAIN_CONFIG,
+                "utterances": TRAIN_UTTERANCES, "corpus_s": corpus_s,
+                "steps": [r["step"] for r in recs],
+                "first_run_s": first_s, "resumed_run_s": second_s,
+                "checkpoint_after_first_run": after_first,
+                "step_ms_median_after_first": med,
+                "step_ms": [r["ms"] for r in recs],
+                "audio_s_per_s_encoded": rate(lambda r: r["frames"] * hop_s),
+                "audio_s_per_s_encoded_padded": rate(
+                    lambda r: r["B"] * r["T"] * hop_s),
+                "audio_s_per_s_decoded": rate(
+                    lambda r: r["B"] * hps.train.segment_frames * hop_s),
+                "peak_memory_mb": peak / 2 ** 20,
+                "launches_per_step": recs[0]["launches"],
+                "losses_last": {k: v for k, v in scalars[-1].items()
+                                if k.startswith("loss/")}}
+        print(json.dumps(line), flush=True)
+        if [r["step"] for r in recs] != [1, 2, 3, 4, 5, 6]:
+            fail(f"train_vocoder: steps {[r['step'] for r in recs]}, expected 1-6 "
+                 "(3, then 3 resumed from the checkpoint)")
+        if after_first != 3 or state.step != 6:
+            fail(f"train_vocoder: checkpoint {after_first}, final step {state.step}")
+        if [s["step"] for s in scalars] != [1, 2, 3, 4, 5, 6]:
+            fail(f"train_vocoder: logged steps {[s['step'] for s in scalars]}")
+        for s in scalars:
+            bad = {k: v for k, v in s.items()
+                   if k.startswith("loss/") and not math.isfinite(v)}
+            if bad:
+                fail(f"train_vocoder step {s['step']}: non-finite losses {bad}")
+        for r in recs:
+            if min(r["launches"].values()) < 1:
+                fail(f"train_vocoder step {r['step']}: a kernel was not launched "
+                     f"{r['launches']}")
+
+        ds = SidecarDataset(f"{corpus}/train_list.txt", DatasetConfig())
+        sampler = DistributedBucketSampler(ds.lengths(), hps.train.batch_size,
+                                           list(cli.BOUNDARIES),
+                                           seed=hps.train.seed)
+        batch = cli.vocoder_batch(ds, sampler.epoch_batches(0)[0])
+        batch = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+        step = cli.vt.TrainStep(segment_frames=hps.train.segment_frames,
+                                      c_mel=hps.train.c_mel, c_kl=hps.train.c_kl)
+        train_profile(torch, step, state, batch, seed=5)
+        del state, batch
+        torch.cuda.empty_cache()
+        train_cpu_phase(torch, dev, hps, ds)
+    torch.cuda.empty_cache()
+    rows = train_backward_phase(torch, dev, calls.seen)
+    cuda_lib.reset_launches()
+    return recs[0]["launches"], rows
+
+
 def main() -> int:
     import torch
 
@@ -1860,6 +2305,9 @@ def main() -> int:
     denoise_phase(torch, dev, pipe, cpu_pipe, audio)
     tts_denoise_phase(torch, pipe, cpu_pipe, audio, reqs, shapes)
     vc_phase(torch, dev, pipe, cpu_pipe, shapes)
+    del pipe, cpu_pipe
+    torch.cuda.empty_cache()
+    train_launches, _ = train_vocoder_phase(torch, dev, shapes)
     new_shapes_phase(torch, dev, shapes)
 
     # ms: CUDA events around the wrapper on every row, as in earlier runs;
@@ -1881,6 +2329,9 @@ def main() -> int:
                               if key == "plm_decode_bf16" else
                               "tts requests, phase 5"),
         })
+        if train_launches.get(key, 0) > out[-1]["launches"]:
+            out[-1].update(launches=train_launches[key],
+                           launches_from="train_vocoder, one B=32 step, phase 10")
     print(json.dumps({"kernels": out}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,6 +1,8 @@
 """Weight carry-over: JAX param trees -> the port's state_dicts.
 
-`vocoder_from_jax(params)`, `speechsr_from_jax(params)`,
+`vocoder_from_jax(params)` (with the training members when the tree has
+them: a JAX `init_all` tree), `mpd_from_jax(params)` (the vocoder's
+MultiPeriodDiscriminator), `speechsr_from_jax(params)`,
 `ttv_from_jax({"params", "vq"})`, `plm_from_jax(params)`,
 `wav2vec2_from_jax(params)` and `denoiser_from_jax({"params",
 "batch_stats"})` take the flax variables of the JAX HierVocoder / SpeechSR /
@@ -22,6 +24,8 @@ Layouts (inverse of megatts2_hierspeechpp_tpu/utils/torch_compat.py):
   LSTM w_ih (In, 4H), w_hh (H, 4H), b      -> weight_ih (4H, In), weight_hh (4H, H),
                                               bias_ih = b, bias_hh = 0
   Conv2d kernel (Kh, Kw, Cin, Cout)        -> weight (Cout, Cin, Kh, Kw)
+  WNConv2d v (Kh, Kw, Cin, Cout), g (Cout,) -> weight_v (Cout, Cin, Kh, Kw),
+                                              weight_g (Cout, 1, 1, 1)
   ConvTranspose2d (1, 3) up_kernel flipped (3, Cin, Cout)
                                            -> weight (Cin, Cout, 1, 3)
   fused w2v pos_conv kernel (K, Cin/g, Cout)
@@ -167,8 +171,30 @@ def style_encoder(out, p, tree):
     conv1x1(out, _k(p, "fc"), tree["fc"])
 
 
+def posterior_audio_encoder(out, p, tree):
+    conv1d(out, _k(p, "down_pre"), tree["down_pre"])
+    for i in range(_count(tree, "downs")):
+        wn_conv1d(out, _k(p, f"downs.{i}"), tree[f"downs_{i}"])
+    for r in range(_count(tree, "resblocks")):
+        ampblock(out, _k(p, f"resblocks.{r}"), tree[f"resblocks_{r}"])
+    snake(out, _k(p, "activation_post"), tree["activation_post"])
+    conv1d(out, _k(p, "conv_post"), tree["conv_post"])
+    conv1x1(out, _k(p, "pre"), tree["pre"])
+    wn(out, _k(p, "enc"), tree["enc"])
+    conv1x1(out, _k(p, "proj"), tree["proj"])
+
+
+def mel_decoder(out, p, tree):
+    conv1d(out, _k(p, "conv_pre"), tree["conv_pre"])
+    conv1x1(out, _k(p, "cond"), tree["cond"])
+    vits_encoder(out, _k(p, "encoder"), tree["encoder"])
+    conv1x1(out, _k(p, "proj"), tree["proj"])
+
+
 def vocoder_from_jax(params: dict) -> dict:
-    """JAX HierVocoder params (inference members) -> port state_dict."""
+    """JAX HierVocoder params -> port state_dict: the inference members, and
+    the training members (enc_p, enc_q, mel_decoder) when the tree has them
+    (one made by the JAX `init_all`), for a `HierVocoder(train=True)`."""
     out = {}
     posterior_sf_encoder(out, "enc_p_l", params["enc_p_l"])
     dit_coupling_block(out, "flow_l", params["flow_l"])
@@ -176,6 +202,34 @@ def vocoder_from_jax(params: dict) -> dict:
     generator(out, "dec", params["dec"])
     source_network(out, "sn", params["sn"])
     style_encoder(out, "emb_g", params["emb_g"])
+    if "enc_q" in params:
+        posterior_sf_encoder(out, "enc_p", params["enc_p"])
+        posterior_audio_encoder(out, "enc_q", params["enc_q"])
+        mel_decoder(out, "mel_decoder", params["mel_decoder"])
+    return out
+
+
+def wn_conv2d(out, p, tree):
+    out[_k(p, "weight_g")] = _t(np.reshape(tree["g"], (-1, 1, 1, 1)))
+    out[_k(p, "weight_v")] = _t(np.transpose(tree["v"], (3, 2, 0, 1)))
+    _bias(out, p, tree)
+
+
+def _discriminator(out, p, tree):
+    for j in range(_count(tree, "convs")):
+        wn_conv2d(out, _k(p, f"convs.{j}"), tree[f"convs_{j}"])
+    wn_conv2d(out, _k(p, "conv_post"), tree["conv_post"])
+
+
+def mpd_from_jax(params: dict) -> dict:
+    """JAX MultiPeriodDiscriminator params -> port state_dict: `disc_r_{i}`
+    at `discriminators.{i}`, then `disc_p_{i}` after them."""
+    out = {}
+    n_r = _count(params, "disc_r")
+    for i in range(n_r):
+        _discriminator(out, f"discriminators.{i}", params[f"disc_r_{i}"])
+    for i in range(_count(params, "disc_p")):
+        _discriminator(out, f"discriminators.{n_r + i}", params[f"disc_p_{i}"])
     return out
 
 

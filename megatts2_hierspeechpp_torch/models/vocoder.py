@@ -1,11 +1,16 @@
-"""HierSpeech++ hierarchical-VAE vocoder, inference path.
+"""HierSpeech++ hierarchical-VAE vocoder.
 
 Counterpart of `megatts2_hierspeechpp_tpu/models/vocoder.py` (reference
 hierspeechpp_speechsynthesizer.SynthesizerTrn): style encoder, source-filter
 posterior, two reverse DiT flows, harmonic source network and the BigVGAN
-Generator. The training-only members (enc_p, enc_q, mel_decoder, forward
-flows) are not ported; the JAX inference methods never create their
-parameters either.
+Generator. A training build (`train=True`, the JAX `init_all`) adds the
+training-only members, trainable: the acoustic posterior `enc_q` over the
+linear spectrogram and the raw wave, the vocoder's own source-filter
+posterior `enc_p`, and the prosody head `mel_decoder`; `train_encode`
+runs them with the forward flows, `decode_slice` the source network and
+the Generator on a latent window. A serving build holds the inference
+members only, frozen, and loads a training run's generator through
+`serving_state_dict`.
 
 Inference data flow:
   g = StyleEncoder(mel)                     (B, 256)
@@ -27,6 +32,7 @@ from torch import nn
 
 from megatts2_hierspeechpp_torch.device import resolve_device
 from megatts2_hierspeechpp_torch.nn.activations import AASnakeBeta
+from megatts2_hierspeechpp_torch.nn.attention import Encoder
 from megatts2_hierspeechpp_torch.nn.basic import leaky_relu
 from megatts2_hierspeechpp_torch.nn.conv import (
     Conv1d,
@@ -39,6 +45,18 @@ from megatts2_hierspeechpp_torch.nn.resblocks import AMPBlock, fused_triple_enab
 from megatts2_hierspeechpp_torch.nn.styleencoder import StyleEncoder
 from megatts2_hierspeechpp_torch.nn.wavenet import WN
 from megatts2_hierspeechpp_torch.ops.amp_triple import fused_amp_triple
+
+
+# state_dict prefixes of the members a training build adds
+TRAINING_ONLY = ("enc_p.", "enc_q.", "mel_decoder.")
+
+
+def serving_state_dict(state_dict: dict) -> dict:
+    """A training build's state_dict without its training-only members:
+    what a serving HierVocoder loads (as the JAX serving params leave them
+    out)."""
+    return {k: v for k, v in state_dict.items()
+            if not k.startswith(TRAINING_ONLY)}
 
 
 def _noise(shape, like, generator: Optional[torch.Generator]):
@@ -78,6 +96,85 @@ class PosteriorSFEncoder(nn.Module):
         h = self.enc(src + ftr, x_mask, g2)
         stats = self.proj(h) * x_mask
         return stats[..., :self.out_channels], stats[..., self.out_channels:]
+
+
+class PosteriorAudioEncoder(nn.Module):
+    """Acoustic posterior (enc_q): WN over the linear spectrogram beside a
+    raw-wave branch that downsamples 320x (strided WN convs at rates 8 / 5
+    / 4 / 2, each followed by 3 AMPBlocks averaged, at C = 32 / 64 / 128 /
+    192)."""
+
+    down_rates = (8, 5, 4, 2)
+    down_kernels = (17, 10, 8, 4)
+    chans = (16, 32, 64, 128, 192)
+    resblock_kernels = (3, 7, 11)
+
+    def __init__(self, in_channels: int = 641, out_channels: int = 192,
+                 hidden_channels: int = 192, kernel_size: int = 5,
+                 dilation_rate: int = 1, n_layers: int = 16,
+                 gin_channels: int = 256):
+        super().__init__()
+        self.out_channels = out_channels
+        ch = self.chans
+        self.down_pre = Conv1d(1, ch[0], 7, padding=3)
+        self.downs = nn.ModuleList(
+            WNConv1d(ch[i], ch[i + 1], k, stride=u, padding=(k - 1) // 2)
+            for i, (u, k) in enumerate(zip(self.down_rates, self.down_kernels)))
+        self.resblocks = nn.ModuleList(
+            AMPBlock(ch[i + 1], k, (1, 3, 5))
+            for i in range(len(self.downs)) for k in self.resblock_kernels)
+        self.activation_post = AASnakeBeta(ch[-1])
+        self.conv_post = Conv1d(ch[-1], hidden_channels, 7, padding=3)
+        self.pre = Conv1d(in_channels, hidden_channels, 1)
+        self.enc = WN(hidden_channels, kernel_size, dilation_rate, n_layers,
+                      gin_channels)
+        self.proj = Conv1d(2 * hidden_channels, 2 * out_channels, 1)
+
+    def forward(self, x_spec, x_audio, x_mask, g, noise=None):
+        """x_spec: (B, T, 641); x_audio: (B, 320T, 1); x_mask: (B, T, 1); g:
+        (B, Gin); noise: N(0, 1) of z's shape, or None for z = m. Returns
+        (z, m, logs), each (B, T, C_out)."""
+        a = self.down_pre(x_audio)
+        n = len(self.resblock_kernels)
+        for i, down in enumerate(self.downs):
+            a = down(a)
+            xs = None
+            for blk in self.resblocks[i * n:(i + 1) * n]:
+                r = blk(a)
+                xs = r if xs is None else xs + r
+            a = xs / float(n)
+        a = self.conv_post(self.activation_post(a))
+        x = self.pre(x_spec) * x_mask
+        x = self.enc(x, x_mask, g[:, None, :])
+        h = torch.cat([x, a * x_mask], dim=-1)
+        stats = self.proj(h) * x_mask
+        m, logs = stats[..., :self.out_channels], stats[..., self.out_channels:]
+        if noise is None:
+            return m * x_mask, m, logs
+        return (m + noise * torch.exp(logs)) * x_mask, m, logs
+
+
+class MelDecoder(nn.Module):
+    """Prosody head: z -> the first 20 mel bins, over a 2-layer relative-
+    position transformer Encoder (training distillation target)."""
+
+    def __init__(self, hidden_channels: int = 192, filter_channels: int = 768,
+                 n_heads: int = 2, n_layers: int = 2, kernel_size: int = 5,
+                 mel_size: int = 20, gin_channels: int = 256):
+        super().__init__()
+        self.conv_pre = Conv1d(hidden_channels, hidden_channels, 3, padding=1)
+        self.cond = Conv1d(gin_channels, hidden_channels, 1)
+        self.encoder = Encoder(hidden_channels, filter_channels, n_heads,
+                               n_layers, kernel_size)
+        self.proj = Conv1d(hidden_channels, mel_size, 1, bias=False)
+
+    def forward(self, x, x_mask, g=None):
+        """x: (B, T, C); x_mask: (B, T, 1); g: (B, Gin) -> (B, T, 20)."""
+        y = self.conv_pre(x * x_mask)
+        if g is not None:
+            y = y + self.cond(g)[:, None, :]
+        y = self.encoder(y * x_mask, x_mask)
+        return self.proj(y) * x_mask
 
 
 class SourceNetwork(nn.Module):
@@ -224,10 +321,14 @@ class Generator(nn.Module):
 
 
 class HierVocoder(nn.Module):
-    """HierSpeech++ vocoder (SynthesizerTrn equivalent), inference members.
+    """HierSpeech++ vocoder (SynthesizerTrn equivalent).
 
     Built on the CPU with seeded weights (nn/init.py), then moved to
-    `device` ("cuda" by default; raises if CUDA is absent)."""
+    `device` ("cuda" by default; raises if CUDA is absent). A serving build
+    (the default) holds the inference members, frozen; `train=True` adds
+    enc_p, enc_q and mel_decoder after them (so the inference members get
+    the same seeded weights in both builds) and leaves every parameter
+    trainable."""
 
     def __init__(self, inter_channels: int = 192, hidden_channels: int = 192,
                  resblock_kernel_sizes: Sequence[int] = (3, 7, 11),
@@ -238,7 +339,8 @@ class HierVocoder(nn.Module):
                  upsample_kernel_sizes: Sequence[int] = (8, 11, 8, 4, 4),
                  gin_channels: int = 256, posterior_wn_layers: int = 16,
                  n_flows: int = 4, flow_layers: int = 3, seed: int = 0,
-                 device: str | torch.device = "cuda"):
+                 device: str | torch.device = "cuda", train: bool = False,
+                 spec_channels: int = 641, filter_channels: int = 768):
         super().__init__()
         dev = resolve_device(device)
         self.enc_p_l = PosteriorSFEncoder(
@@ -257,8 +359,19 @@ class HierVocoder(nn.Module):
         self.sn = SourceNetwork(upsample_initial_channel // 2, inter_channels,
                                 gin_channels)
         self.emb_g = StyleEncoder(80, 256, gin_channels)
+        if train:
+            self.enc_p = PosteriorSFEncoder(
+                1024, inter_channels, hidden_channels, 5, 1,
+                posterior_wn_layers, gin_channels)
+            self.enc_q = PosteriorAudioEncoder(
+                spec_channels, inter_channels, hidden_channels, 5, 1,
+                posterior_wn_layers, gin_channels)
+            self.mel_decoder = MelDecoder(
+                inter_channels, filter_channels, gin_channels=gin_channels)
         init_weights(self, seed)
-        self.eval().requires_grad_(False).to(dev)
+        if not train:
+            self.eval().requires_grad_(False)
+        self.to(dev)
 
     def _vc_core(self, src_w2v, src_mask, g, f0, noise_scale, generator):
         m_p, logs_p = self.enc_p_l(src_w2v, f0, src_mask, g)
@@ -332,3 +445,38 @@ class HierVocoder(nn.Module):
         z, e, g = self.vc_latent(src_w2v, src_mask, trg_mel, trg_mask, f0,
                                  noise_scale, generator, denoise_ratio)
         return self.dec(z, e, g=g)
+
+    # ---- training (a build with train=True) ----
+
+    def f0_extraction(self, x_spec, x_mel, x_mask, x_audio,
+                      noise_scale: float = 0.333, generator=None):
+        """Excitation from the acoustic posterior (reference :700-715): the
+        source network's e_ (B, 4T, 1) from z ~ enc_q."""
+        g = self.emb_g(x_mel, x_mask)
+        _, m_q, logs_q = self.enc_q(x_spec, x_audio, x_mask, g)
+        noise = _noise(m_q.shape, m_q, generator)
+        z = m_q if noise is None else m_q + noise * torch.exp(logs_q) * noise_scale
+        return self.sn(z, g)[1]
+
+    def train_encode(self, x_spec, x_audio, x_mel, w2v, f0, x_mask, noise_q):
+        """The training encoders on whole utterances: style, the acoustic
+        posterior (z_q = m_q + noise_q * exp(logs_q), masked), both
+        source-filter priors, the forward flows (z_q -> z_f -> z_fl) and the
+        prosody head. f0: (B, 4T, 1) log(1 + Hz). Returns the JAX
+        train_encode's dict."""
+        g = self.emb_g(x_mel, x_mask)
+        z_q, m_q, logs_q = self.enc_q(x_spec, x_audio, x_mask, g, noise_q)
+        m_p, logs_p = self.enc_p(w2v, f0, x_mask, g)
+        m_l, logs_l = self.enc_p_l(w2v, f0, x_mask, g)
+        z_f = self.flow(z_q, x_mask, g)
+        z_fl = self.flow_l(z_f, x_mask, g)
+        return {"g": g, "mel_rec": self.mel_decoder(z_q, x_mask, g=g),
+                "z_q": z_q, "m_q": m_q, "logs_q": logs_q,
+                "z_f": z_f, "m_p": m_p, "logs_p": logs_p,
+                "z_fl": z_fl, "m_l": m_l, "logs_l": logs_l}
+
+    def decode_slice(self, z, g):
+        """z: (B, T_seg, C) latent window -> (wav (B, 320 T_seg, 1), e_
+        (B, 4 T_seg, 1))."""
+        e, e_ = self.sn(z, g)
+        return self.dec(z, e, g=g), e_

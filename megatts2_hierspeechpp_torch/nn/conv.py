@@ -1,4 +1,5 @@
-"""1-D convolutions with torch semantics on channels-last (B, T, C) tensors.
+"""Convolutions with torch semantics on channels-last tensors: 1-D on
+(B, T, C), 2-D on (B, H, W, C) (the discriminators').
 
 Counterpart of `megatts2_hierspeechpp_tpu/nn/conv.py`. Parameters keep the
 reference checkpoint's names and torch layouts, so a reference `state_dict`
@@ -7,6 +8,8 @@ loads as it is:
   Conv1d             weight (Cout, Cin/groups, K), bias (Cout,)
   WNConv1d           weight_g (Cout, 1, 1), weight_v (Cout, Cin, K), bias
   WNConvTranspose1d  weight_g (Cin, 1, 1), weight_v (Cin, Cout, K), bias
+  WNConv2d           weight_g (Cout, 1, 1, 1), weight_v (Cout, Cin, Kh, Kw),
+                     bias
 
 Weight norm is torch's `weight_norm(dim=0)`: w = g * v / ||v||, the norm
 taken over every axis but the first.
@@ -39,6 +42,16 @@ def conv_transpose1d_op(x, weight, bias=None, stride: int = 1,
     (T - 1) * stride - 2 * padding + K, as torch's ConvTranspose1d."""
     y = F.conv_transpose1d(x.transpose(1, 2), weight, bias, stride, padding)
     return y.transpose(1, 2)
+
+
+def conv2d_op(x, weight, bias=None, stride=(1, 1), padding=(0, 0),
+              dilation=(1, 1)):
+    """x: (B, H, W, Cin); weight: (Cout, Cin, Kh, Kw) -> (B, H', W', Cout),
+    symmetric zero padding (ph, pw). The input goes to F.conv2d as a
+    channels_last view of NCHW, which cuDNN convolves without a transpose."""
+    y = F.conv2d(x.permute(0, 3, 1, 2), weight, bias, tuple(stride),
+                 tuple(padding), tuple(dilation))
+    return y.permute(0, 2, 3, 1)
 
 
 def weight_norm(g, v):
@@ -102,3 +115,23 @@ class WNConvTranspose1d(nn.Module):
     def forward(self, x):
         w = weight_norm(self.weight_g, self.weight_v)
         return conv_transpose1d_op(x, w, self.bias, self.stride, self.padding)
+
+
+class WNConv2d(nn.Module):
+    """Weight-normalized Conv2d on (B, H, W, C): the norm per output channel
+    over (Cin, Kh, Kw), the JAX WNConv2d's axes (0, 1, 2) of its
+    (Kh, Kw, Cin, Cout) kernel."""
+
+    def __init__(self, in_channels: int, out_channels: int,
+                 kernel_size: tuple[int, int], stride=(1, 1),
+                 padding=(0, 0), dilation=(1, 1), bias: bool = True):
+        super().__init__()
+        self.stride, self.padding, self.dilation = stride, padding, dilation
+        self.weight_g = nn.Parameter(torch.ones(out_channels, 1, 1, 1))
+        self.weight_v = nn.Parameter(
+            torch.empty(out_channels, in_channels, *kernel_size))
+        self.bias = nn.Parameter(torch.zeros(out_channels)) if bias else None
+
+    def forward(self, x):
+        return conv2d_op(x, weight_norm(self.weight_g, self.weight_v),
+                         self.bias, self.stride, self.padding, self.dilation)

@@ -1,5 +1,6 @@
 """DiT-style adaLN-zero transformer blocks and the coupling flow built from
-them, reverse (inference) direction.
+them: `forward` (training: acoustic latent -> prior space) and `reverse`
+(inference).
 
 Counterpart of `megatts2_hierspeechpp_tpu/nn/dit.py` (reference
 modules.py DiTConVBlock, ResidualCouplingLayer_Transformer_simple, Flip).
@@ -92,13 +93,22 @@ class ResidualCouplingLayerTransformer(nn.Module):
             for _ in range(n_layers))
         self.post = Conv1d(hidden_channels, self.half, 1)
 
-    def reverse(self, x, x_mask, c):
-        x0, x1 = x[..., :self.half], x[..., self.half:]
+    def _shift(self, x0, x_mask, c):
         h = self.pre(x0) * x_mask
         for blk in self.enc_block:
             h = blk(h, c, x_mask)
-        m = self.post(h) * x_mask
-        x1 = (x1 - m) * x_mask
+        return self.post(h) * x_mask
+
+    def forward(self, x, x_mask, c):
+        """x1 + m(x0); the JAX layer's log-determinant is zeros and not
+        returned."""
+        x0, x1 = x[..., :self.half], x[..., self.half:]
+        x1 = (x1 + self._shift(x0, x_mask, c)) * x_mask
+        return torch.cat([x0, x1], dim=-1)
+
+    def reverse(self, x, x_mask, c):
+        x0, x1 = x[..., :self.half], x[..., self.half:]
+        x1 = (x1 - self._shift(x0, x_mask, c)) * x_mask
         return torch.cat([x0, x1], dim=-1)
 
 
@@ -110,8 +120,7 @@ class Flip(nn.Module):
 
 
 class ResidualCouplingBlockTransformer(nn.Module):
-    """n_flows x (DiT coupling + Flip) with a SiLU-MLP conditioning block;
-    only the reverse (inference) direction is ported."""
+    """n_flows x (DiT coupling + Flip) with a SiLU-MLP conditioning block."""
 
     def __init__(self, channels: int, hidden_channels: int, n_layers: int = 3,
                  n_flows: int = 4, gin_channels: int = 256,
@@ -126,8 +135,16 @@ class ResidualCouplingBlockTransformer(nn.Module):
                 channels, hidden_channels, n_layers, attention_heads))
             self.flows.append(Flip())
 
+    def forward(self, x, x_mask, g):
+        """The flows in order, each followed by its Flip. x: (B, T, C); g:
+        (B, Gin) global conditioning vector."""
+        c = self.cond_block(g)
+        for flow in self.flows:
+            x = flow(x) if isinstance(flow, Flip) else flow(x, x_mask, c)
+        return x
+
     def reverse(self, x, x_mask, g):
-        """x: (B, T, C); g: (B, Gin) global conditioning vector."""
+        """Inverse of forward. x: (B, T, C); g: (B, Gin)."""
         c = self.cond_block(g)
         for flow in reversed(self.flows):
             x = flow(x) if isinstance(flow, Flip) else flow.reverse(x, x_mask, c)

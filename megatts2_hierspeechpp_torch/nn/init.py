@@ -26,6 +26,7 @@ Wav2Vec2 and the denoiser (MPNet) add:
 
   torch Conv1d / Conv2d  as Conv1d above; ConvTranspose2d as a transposed
           conv (fan_in Cin*Kh*Kw/stride)
+  WNConv2d (the discriminators')  as a weight-norm conv, fan_in Cin*Kh*Kw
   w2v positional conv (weight norm over the kernel axis): weight_v as a
           k > 1 conv, weight_g = ||weight_v|| per tap
   attention in_proj_weight  N(0, 1 / dim)
@@ -44,6 +45,7 @@ from megatts2_hierspeechpp_torch.nn.attention import MultiHeadAttention
 from megatts2_hierspeechpp_torch.nn.conv import (
     Conv1d,
     WNConv1d,
+    WNConv2d,
     WNConvTranspose1d,
 )
 from megatts2_hierspeechpp_torch.nn.quantize import EuclideanCodebook
@@ -80,9 +82,10 @@ def init_weights(module: nn.Module, seed: int) -> None:
         elif isinstance(m, (nn.Conv1d, nn.Conv2d)):
             g = gain if m.weight[0, 0].numel() > 1 else 1.0
             normal_(m.weight, g * m.weight[0].numel() ** -0.5)
-        elif isinstance(m, WNConv1d):
+        elif isinstance(m, (WNConv1d, WNConv2d)):
             normal_(m.weight_v, gain * m.weight_v[0].numel() ** -0.5)
-            m.weight_g.copy_(m.weight_v.pow(2).sum(dim=(1, 2), keepdim=True).sqrt())
+            dims = tuple(range(1, m.weight_v.dim()))
+            m.weight_g.copy_(m.weight_v.pow(2).sum(dim=dims, keepdim=True).sqrt())
         elif isinstance(m, WNConvTranspose1d):
             cin, _, k = m.weight_v.shape
             normal_(m.weight_v, gain * (cin * k / m.stride) ** -0.5)

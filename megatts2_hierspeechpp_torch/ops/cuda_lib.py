@@ -162,8 +162,9 @@ def check(t: torch.Tensor, name: str, device: torch.device,
 def plain_vjp(fn, saved, needs_grad, ct, *static):
     """Backward of a kernel through autograd of its plain version at the
     saved primals. The cotangent is cast to the primal output's dtype (as
-    the JAX custom_vjp does)."""
-    with torch.enable_grad():
+    the JAX custom_vjp does). Runs in a "plain_vjp" profiler range, so a
+    trace can tell its recompute and backward from the rest of a step."""
+    with torch.enable_grad(), torch.profiler.record_function("plain_vjp"):
         xs = [t.detach().requires_grad_(n) for t, n in zip(saved, needs_grad)]
         out = fn(*xs, *static)
         wrt = [x for x, n in zip(xs, needs_grad) if n]

@@ -1,11 +1,15 @@
-"""STFT, the fixed mel front-end and the denoiser's STFT / iSTFT.
+"""STFT, the fixed mel front-end, the training spectra and the denoiser's
+STFT / iSTFT.
 
-Counterpart of `megatts2_hierspeechpp_tpu/ops/stft.py`, as far as the
-prompt's mel and the denoiser need it:
+Counterpart of `megatts2_hierspeechpp_tpu/ops/stft.py`:
   - torchaudio-style MelSpectrogram (center=True, reflect pad, power 2,
     periodic Hann window, HTK mel scale, no filterbank norm), then
     log(mel + 1e-3) with the last frame dropped (reference
-    Mels_preprocess.MelSpectrogramFixed);
+    Mels_preprocess.MelSpectrogramFixed): the prompt's mel;
+  - the vocoder trainer's spectra (reference mel_processing): the linear
+    spectrogram, center=False with a manual (n_fft - hop) / 2 reflect pad,
+    magnitude sqrt(power + 1e-6); and its mel through the librosa (slaney)
+    filterbank with slaney norm, log(clamp(1e-5));
   - mag_pha_stft / istft (reference denoiser/infer.py): center=True,
     compressed magnitude sqrt(re^2 + im^2 + 1e-12) ** compress, phase
     atan2(im, re); the inverse by overlap-add with window-sum normalisation
@@ -34,20 +38,56 @@ def _mel_to_hz_htk(m):
     return 700.0 * (10.0 ** (np.asarray(m) / 2595.0) - 1.0)
 
 
-@lru_cache(maxsize=8)
+_F_SP = 200.0 / 3           # slaney scale: linear below 1 kHz, log above
+_MIN_LOG_HZ = 1000.0
+_MIN_LOG_MEL = _MIN_LOG_HZ / _F_SP
+_LOGSTEP = np.log(6.4) / 27.0
+
+
+def _hz_to_mel_slaney(f):
+    f = np.asarray(f, dtype=np.float64)
+    f_log = np.maximum(f, _MIN_LOG_HZ)  # keeps log() off f = 0
+    return np.where(f >= _MIN_LOG_HZ,
+                    _MIN_LOG_MEL + np.log(f_log / _MIN_LOG_HZ) / _LOGSTEP,
+                    f / _F_SP)
+
+
+def _mel_to_hz_slaney(m):
+    m = np.asarray(m, dtype=np.float64)
+    return np.where(m >= _MIN_LOG_MEL,
+                    _MIN_LOG_HZ * np.exp(_LOGSTEP * (m - _MIN_LOG_MEL)),
+                    m * _F_SP)
+
+
+@lru_cache(maxsize=16)
 def mel_filterbank(sr: int, n_fft: int, n_mels: int, fmin: float,
-                   fmax: float) -> np.ndarray:
-    """(n_freqs, n_mels) HTK filterbank, torchaudio melscale_fbanks
-    defaults."""
+                   fmax: float | None, htk: bool = True,
+                   slaney_norm: bool = False) -> np.ndarray:
+    """(n_freqs, n_mels) filterbank: HTK scale without norm (torchaudio
+    melscale_fbanks defaults), or slaney scale with slaney norm
+    (htk=False, slaney_norm=True: librosa.filters.mel defaults). fmax None
+    is sr / 2."""
+    fmax = sr / 2 if fmax is None else fmax
+    to_mel, to_hz = ((_hz_to_mel_htk, _mel_to_hz_htk) if htk else
+                     (_hz_to_mel_slaney, _mel_to_hz_slaney))
     n_freqs = n_fft // 2 + 1
     all_freqs = np.linspace(0, sr / 2, n_freqs)
-    m_pts = np.linspace(_hz_to_mel_htk(fmin), _hz_to_mel_htk(fmax), n_mels + 2)
-    f_pts = _mel_to_hz_htk(m_pts)
+    m_pts = np.linspace(to_mel(fmin), to_mel(fmax), n_mels + 2)
+    f_pts = to_hz(m_pts)
     f_diff = np.diff(f_pts)
     slopes = f_pts[None, :] - all_freqs[:, None]
     down = -slopes[:, :-2] / f_diff[None, :-1]
     up = slopes[:, 2:] / f_diff[None, 1:]
-    return np.maximum(0.0, np.minimum(down, up)).astype(np.float32)
+    fb = np.maximum(0.0, np.minimum(down, up))
+    if slaney_norm:
+        fb = fb * (2.0 / (f_pts[2:n_mels + 2] - f_pts[:n_mels]))[None, :]
+    return fb.astype(np.float32)
+
+
+def frame_signal(y, n_fft: int, hop: int):
+    """y: (B, T), already padded -> (B, 1 + (T - n_fft) // hop, n_fft)
+    frames (a strided view)."""
+    return y.unfold(-1, n_fft, hop)
 
 
 def stft_complex(y, n_fft: int, hop: int, win_length: int | None = None):
@@ -57,7 +97,7 @@ def stft_complex(y, n_fft: int, hop: int, win_length: int | None = None):
     window = torch.from_numpy(hann_window(win_length)).to(y.device)
     pad = n_fft // 2
     y = F.pad(y[:, None], (pad, pad), mode="reflect")[:, 0]
-    return torch.fft.rfft(y.unfold(-1, n_fft, hop) * window, dim=-1)
+    return torch.fft.rfft(frame_signal(y, n_fft, hop) * window, dim=-1)
 
 
 def stft_mag(y, n_fft: int, hop: int, win_length: int | None = None):
@@ -93,3 +133,26 @@ def mel_spectrogram_fixed(y, sr: int = 16000, n_fft: int = 1280,
     fb = torch.from_numpy(mel_filterbank(sr, n_fft, n_mels, fmin, fmax))
     mel = torch.matmul(p2, fb.to(y.device))
     return torch.log(mel + 0.001)[:, :-1, :]
+
+
+def linear_spectrogram(y, n_fft: int = 1280, hop: int = 320,
+                       win_length: int = 1280):
+    """y: (B, T) -> (B, F, n_freqs) magnitude, center=False after a manual
+    (n_fft - hop) / 2 reflect pad, sqrt(power + 1e-6) (reference
+    spectrogram_torch)."""
+    window = torch.from_numpy(hann_window(win_length)).to(y.device)
+    pad = (n_fft - hop) // 2
+    y = F.pad(y[:, None], (pad, pad), mode="reflect")[:, 0]
+    spec = torch.fft.rfft(frame_signal(y, n_fft, hop) * window, dim=-1)
+    return torch.sqrt(spec.real.square() + spec.imag.square() + 1e-6)
+
+
+def spec_to_mel(spec, sr: int, n_fft: int, n_mels: int, fmin: float,
+                fmax: float | None):
+    """(B, F, n_freqs) linear spectrogram -> (B, F, n_mels)
+    log(clamp(mel, 1e-5)) through the slaney filterbank with slaney norm
+    (reference spec_to_mel_torch)."""
+    fb = mel_filterbank(sr, n_fft, n_mels, fmin, fmax, htk=False,
+                        slaney_norm=True)
+    mel = torch.matmul(spec, torch.from_numpy(fb).to(spec.device, spec.dtype))
+    return torch.log(torch.clamp(mel, min=1e-5))
