@@ -85,12 +85,33 @@ Phases, in order; any failure exits non-zero:
      each kernel's wrapper at every training launch shape, forward and
      backward against autograd of its plain version (`train_shape` lines:
      forward, plain and backward ms, bound). The training launch shapes
-     join the `new_shape` lines.
+     join the `new_shape` lines;
+ 11. MegaTTS2 training at the published widths and depths
+     (configs/config.json: batch 8, lr 1e-4, c_commit 100; TTVModel and
+     the MultiResSpecDiscriminator, ProsodyLM 4 layers, d 276): `train_s2`,
+     cli/train_s2.main in-process on 24 of phase 10's utterances (one length
+     bucket: 3 batches of 8), k-means on the first batch, 3 steps, a
+     checkpoint, 3 resumed; each step's ms (CUDA events), audio-s per s,
+     peak memory, launches; one step profiled by group (cuDNN / cuBLAS,
+     LSTM, elementwise, optimizer) with the idle share; one step of a
+     synthetic 10 s batch (B = 8, 512 frames, 128 phones); one step at
+     B = 2, 64 frames card against CPU from the same weights, coin and
+     dropout masks (drawn on the CPU): each metric within 1e-4 relative,
+     G and D gradients within 1e-3 relative L2, the RVQ statistics and the
+     spectral norm's u / v within 1e-5 of their largest. `train_s1`,
+     cli/train_s1.main from that run's checkpoint: 3 steps + 3 resumed,
+     step ms, tokens (frames) per s, peak memory, a profiled step, the
+     card-vs-CPU step. `serve_trained`: the s1 run's PLM takes one more
+     step after its decode weights were packed, then serves with the
+     frozen s2 TTV, the serving vocoder and SpeechSR-48k one 10 s `tts`
+     request (exact=True): all four kernels must launch, the decode's
+     teacher-forced gap within 1e-4 x max|logit|, its codes equal to a
+     fresh build's loaded with the same state_dict.
 Then one JSON line with every kernel's numbers (launches: the f32 rows
 from the tts requests of phase 5, or one training step of phase 10 where
-that count is larger; the bf16 row from its batch decode of phase 3), the
-card's name and power limit from phase 1 printed first, and last the
-device line.
+that count is larger, and the serve_trained request's beside them; the
+bf16 row from its batch decode of phase 3), the card's name and power
+limit from phase 1 printed first, and last the device line.
 
 Float32 throughout (but for the bf16 decode configuration), TF32 off.
 Without CUDA it exits non-zero before printing any result.
@@ -101,6 +122,7 @@ import json
 import math
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -1315,8 +1337,9 @@ def new_shapes_phase(torch, dev, shapes):
     (profiler; "device_ms": null where the profiler recorded too few of
     the launches, which it does late in a long run), and snake_conv at the
     vc path's shapes (summed per B, T, C). One line per kernel and shape
-    (snake_conv: per B, T, C), with the worst error over the tolerance and
-    the bound (for snake_conv summed over the launch shapes)."""
+    (snake_conv: per B, T, C), with the worst error over the tolerance, the
+    bound and the plain version's ms (CUDA events, a second call after the
+    one compared; for snake_conv both summed over the launch shapes)."""
     from megatts2_hierspeechpp_torch.models.plm import ProsodyLM, teacher_forced_gap
     from megatts2_hierspeechpp_torch.nn.conv import conv1d_op
     from megatts2_hierspeechpp_torch.ops.amp_triple import (
@@ -1351,9 +1374,11 @@ def new_shapes_phase(torch, dev, shapes):
                 x, a, be = randn(b, t, c), pos(c), pos(c)
                 ib = inverse_beta(be)
                 fn = lambda: fused_aa_snakebeta(x, a, be, ib)  # noqa: E731
-                err, scale = err_of(fn(), composed_snakebeta(x, a, be))
+                plain = lambda: composed_snakebeta(x, a, be)  # noqa: E731
+                err, scale = err_of(fn(), plain())
                 n = b * t * c
                 line.update(shape=f"B={b} T={t} C={c}",
+                            plain_ms=event_ms(torch, plain)[1],
                             device_ms=device_ms(torch, fn, ("aa_snakebeta",), 10,
                                                 required=False))
                 line["bound_ms"], line["bound_by"] = bound_ms(
@@ -1364,9 +1389,11 @@ def new_shapes_phase(torch, dev, shapes):
                 post = ((pos(c), pos(c), randn(7, c, scale=0.1 * (7 * c) ** -0.5))
                         if kind == "triple_post" else None)
                 fn = lambda: fused_epilogue(*rs, post)  # noqa: E731
-                err, scale = err_of(fn(), composed_epilogue(*rs, post))
+                plain = lambda: composed_epilogue(*rs, post)  # noqa: E731
+                err, scale = err_of(fn(), plain())
                 n = b * t * c
                 line.update(shape=f"B={b} T={t} C={c}",
+                            plain_ms=event_ms(torch, plain)[1],
                             device_ms=device_ms(torch, fn, (kind + "_kernel",), 10,
                                                 required=False))
                 line["bound_ms"], line["bound_by"] = bound_ms(
@@ -1380,12 +1407,17 @@ def new_shapes_phase(torch, dev, shapes):
                 a, ib = pos(c), pos(c)
                 w, bias = randn(k, c, c, scale=(c * k) ** -0.5), randn(c, scale=0.05)
                 y = snake_conv(x, a, ib, w, bias, d, res=res)
-                ref = conv1d_op(activation1d(
-                    x, lambda v: v + torch.sin(v * a).square() * ib),
-                    w.permute(1, 2, 0).contiguous(), bias, 1, (k - 1) // 2 * d, d)
-                if res is not None:
-                    ref = ref + res
+
+                def plain():
+                    ref = conv1d_op(activation1d(
+                        x, lambda v: v + torch.sin(v * a).square() * ib),
+                        w.permute(1, 2, 0).contiguous(), bias, 1,
+                        (k - 1) // 2 * d, d)
+                    return ref if res is None else ref + res
+
+                ref = plain()
                 err, scale = err_of(y, ref)
+                conv_plain = event_ms(torch, plain)[1]
                 n, n_io = b * t * c, 3 if has_res else 2
                 conv_bound = bound_ms(4.0 * (n_io * n + k * c * c + 3 * c),
                                       SNAKE_FLOPS * n + (n_io - 1) * n,
@@ -1419,9 +1451,11 @@ def new_shapes_phase(torch, dev, shapes):
                                   "path": path,
                                   "shape": f"B={key[1]} T={key[2]} C={key[3]}",
                                   "launch_shapes": 0, "worst_err_over_tol": 0.0,
-                                  "bound_ms": 0.0, "device_ms": 0.0})
+                                  "bound_ms": 0.0, "device_ms": 0.0,
+                                  "plain_ms": 0.0})
             g["launch_shapes"] += 1
             g["bound_ms"] += conv_bound
+            g["plain_ms"] += conv_plain
             g["device_ms"] = (None if conv_dev is None or g["device_ms"] is None
                               else g["device_ms"] + conv_dev)
             g["worst_err_over_tol"] = max(g["worst_err_over_tol"],
@@ -1886,11 +1920,14 @@ class KernelCalls:
 
 
 class TimedStep:
-    """The CLI's train step with CUDA events around each call and the
-    kernel launch counts of each step (zeroed just before it)."""
+    """A CLI's train step with CUDA events around each call and the kernel
+    launch counts of each step (zeroed just before it). B and T come from
+    batch[frames_key], the true frames from batch[lengths_key]."""
 
-    def __init__(self, torch, step):
+    def __init__(self, torch, step, kernels=TRAIN_KERNELS,
+                 frames_key="mask", lengths_key="lengths"):
         self.torch, self.step, self.records = torch, step, []
+        self.kernels, self.keys = kernels, (frames_key, lengths_key)
 
     def __call__(self, state, batch, generator):
         from megatts2_hierspeechpp_torch.ops import cuda_lib
@@ -1899,11 +1936,11 @@ class TimedStep:
         torch.cuda.synchronize()
         cuda_lib.reset_launches()
         out, ms = event_ms(torch, lambda: self.step(state, batch, generator))
-        b, t = batch["mask"].shape[:2]
+        b, t = batch[self.keys[0]].shape[:2]
         self.records.append({
             "step": out[0].step, "ms": ms, "B": b, "T": t,
-            "frames": int(batch["lengths"].sum()),
-            "launches": {k: cuda_lib.LAUNCHES[k] for k in TRAIN_KERNELS}})
+            "frames": int(batch[self.keys[1]].sum()),
+            "launches": {k: cuda_lib.LAUNCHES[k] for k in self.kernels}})
         return out
 
 
@@ -2134,14 +2171,16 @@ def train_backward_phase(torch, dev, calls):
     return rows
 
 
-def train_vocoder_phase(torch, dev, shapes):
-    """cli/train_vocoder at the published widths on a synthetic corpus:
-    3 steps, a checkpoint, a resumed run of 3 more; each step's ms and
-    kernel launches, audio-s per s, peak memory; one step profiled; one
-    step card against CPU; every kernel's backward at its training shapes.
-    Returns (per-step launches of the first step, the train_shape rows)."""
+def train_vocoder_phase(torch, dev, shapes, tmp):
+    """cli/train_vocoder at the published widths on a synthetic corpus
+    written into `tmp`: 3 steps, a checkpoint, a resumed run of 3 more; each
+    step's ms and kernel launches, audio-s per s, peak memory; one step
+    profiled; one step card against CPU; every kernel's backward at its
+    training shapes. Returns (per-step launches of the first step, the
+    train_shape rows, the corpus directory); the run's checkpoints are
+    deleted."""
     import os
-    import tempfile
+    import shutil
 
     from megatts2_hierspeechpp_torch.cli import make_synth_corpus
     from megatts2_hierspeechpp_torch.cli import train_vocoder as cli
@@ -2152,105 +2191,533 @@ def train_vocoder_phase(torch, dev, shapes):
     from megatts2_hierspeechpp_torch.utils.config import load_hparams
 
     hps = load_hparams(TRAIN_CONFIG)
-    with tempfile.TemporaryDirectory() as tmp:
-        corpus = os.path.join(tmp, "corpus")
+    corpus = os.path.join(tmp, "corpus")
+    t0 = time.perf_counter()
+    make_synth_corpus.make_corpus(corpus, n=TRAIN_UTTERANCES, seed=0)
+    corpus_s = time.perf_counter() - t0
+    logs = os.path.join(tmp, "logs")
+    cfg1 = train_config(os.path.join(tmp, "c1.json"), hps, corpus, epochs=1,
+                        log_interval=1, save_interval=2)
+    cfg2 = train_config(os.path.join(tmp, "c2.json"), hps, corpus, epochs=2,
+                        log_interval=1, save_interval=2)
+    steps = []
+    make_step = cli.vt.TrainStep
+
+    def timed_step(**kw):
+        steps.append(TimedStep(torch, make_step(**kw)))
+        return steps[-1]
+
+    calls = KernelCalls()
+    cli.vt.TrainStep = timed_step
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        calls.on = True
+        shapes.path = "train_vocoder"
         t0 = time.perf_counter()
-        make_synth_corpus.make_corpus(corpus, n=TRAIN_UTTERANCES, seed=0)
-        corpus_s = time.perf_counter() - t0
-        logs = os.path.join(tmp, "logs")
-        cfg1 = train_config(os.path.join(tmp, "c1.json"), hps, corpus, epochs=1,
-                            log_interval=1, save_interval=2)
-        cfg2 = train_config(os.path.join(tmp, "c2.json"), hps, corpus, epochs=2,
-                            log_interval=1, save_interval=2)
-        steps = []
-        make_step = cli.vt.TrainStep
+        state = cli.main(["-c", cfg1, "-m", "run", "--logs_dir", logs])
+        first_s = time.perf_counter() - t0
+        calls.on = False
+        shapes.path = None
+        peak = torch.cuda.max_memory_allocated()
+        after_first = ckpt.latest_step(os.path.join(logs, "run", "ckpt"))
+        t0 = time.perf_counter()
+        state = cli.main(["-c", cfg2, "-m", "run", "--logs_dir", logs])
+        second_s = time.perf_counter() - t0
+    finally:
+        cli.vt.TrainStep = make_step
+        calls.close()
+        shapes.path = None
+    recs = [r for s in steps for r in s.records]
+    with open(os.path.join(logs, "run", "scalars.jsonl")) as f:
+        scalars = [json.loads(line) for line in f]
+    for r in recs:
+        print(json.dumps(dict(r, phase="train_step")), flush=True)
+    hop_s = 320 / 16000
+    med = float(np.median([r["ms"] for r in recs[1:]]))
 
-        def timed_step(**kw):
-            steps.append(TimedStep(torch, make_step(**kw)))
-            return steps[-1]
+    def rate(seconds_of):  # median audio-s per s of the steps after the first
+        return float(np.median([seconds_of(r) / (r["ms"] / 1e3)
+                                for r in recs[1:]]))
 
-        calls = KernelCalls()
-        cli.vt.TrainStep = timed_step
-        torch.cuda.reset_peak_memory_stats()
-        try:
-            calls.on = True
-            shapes.path = "train_vocoder"
-            t0 = time.perf_counter()
-            state = cli.main(["-c", cfg1, "-m", "run", "--logs_dir", logs])
-            first_s = time.perf_counter() - t0
-            calls.on = False
-            shapes.path = None
-            peak = torch.cuda.max_memory_allocated()
-            after_first = ckpt.latest_step(os.path.join(logs, "run", "ckpt"))
-            t0 = time.perf_counter()
-            state = cli.main(["-c", cfg2, "-m", "run", "--logs_dir", logs])
-            second_s = time.perf_counter() - t0
-        finally:
-            cli.vt.TrainStep = make_step
-            calls.close()
-            shapes.path = None
-        recs = [r for s in steps for r in s.records]
-        with open(os.path.join(logs, "run", "scalars.jsonl")) as f:
-            scalars = [json.loads(line) for line in f]
-        for r in recs:
-            print(json.dumps(dict(r, phase="train_step")), flush=True)
-        hop_s = 320 / 16000
-        med = float(np.median([r["ms"] for r in recs[1:]]))
+    line = {"phase": "train_vocoder", "config": TRAIN_CONFIG,
+            "utterances": TRAIN_UTTERANCES, "corpus_s": corpus_s,
+            "steps": [r["step"] for r in recs],
+            "first_run_s": first_s, "resumed_run_s": second_s,
+            "checkpoint_after_first_run": after_first,
+            "step_ms_median_after_first": med,
+            "step_ms": [r["ms"] for r in recs],
+            "audio_s_per_s_encoded": rate(lambda r: r["frames"] * hop_s),
+            "audio_s_per_s_encoded_padded": rate(
+                lambda r: r["B"] * r["T"] * hop_s),
+            "audio_s_per_s_decoded": rate(
+                lambda r: r["B"] * hps.train.segment_frames * hop_s),
+            "peak_memory_mb": peak / 2 ** 20,
+            "launches_per_step": recs[0]["launches"],
+            "losses_last": {k: v for k, v in scalars[-1].items()
+                            if k.startswith("loss/")}}
+    print(json.dumps(line), flush=True)
+    if [r["step"] for r in recs] != [1, 2, 3, 4, 5, 6]:
+        fail(f"train_vocoder: steps {[r['step'] for r in recs]}, expected 1-6 "
+             "(3, then 3 resumed from the checkpoint)")
+    if after_first != 3 or state.step != 6:
+        fail(f"train_vocoder: checkpoint {after_first}, final step {state.step}")
+    if [s["step"] for s in scalars] != [1, 2, 3, 4, 5, 6]:
+        fail(f"train_vocoder: logged steps {[s['step'] for s in scalars]}")
+    for s in scalars:
+        bad = {k: v for k, v in s.items()
+               if k.startswith("loss/") and not math.isfinite(v)}
+        if bad:
+            fail(f"train_vocoder step {s['step']}: non-finite losses {bad}")
+    for r in recs:
+        if min(r["launches"].values()) < 1:
+            fail(f"train_vocoder step {r['step']}: a kernel was not launched "
+                 f"{r['launches']}")
 
-        def rate(seconds_of):  # median audio-s per s of the steps after the first
-            return float(np.median([seconds_of(r) / (r["ms"] / 1e3)
-                                    for r in recs[1:]]))
-
-        line = {"phase": "train_vocoder", "config": TRAIN_CONFIG,
-                "utterances": TRAIN_UTTERANCES, "corpus_s": corpus_s,
-                "steps": [r["step"] for r in recs],
-                "first_run_s": first_s, "resumed_run_s": second_s,
-                "checkpoint_after_first_run": after_first,
-                "step_ms_median_after_first": med,
-                "step_ms": [r["ms"] for r in recs],
-                "audio_s_per_s_encoded": rate(lambda r: r["frames"] * hop_s),
-                "audio_s_per_s_encoded_padded": rate(
-                    lambda r: r["B"] * r["T"] * hop_s),
-                "audio_s_per_s_decoded": rate(
-                    lambda r: r["B"] * hps.train.segment_frames * hop_s),
-                "peak_memory_mb": peak / 2 ** 20,
-                "launches_per_step": recs[0]["launches"],
-                "losses_last": {k: v for k, v in scalars[-1].items()
-                                if k.startswith("loss/")}}
-        print(json.dumps(line), flush=True)
-        if [r["step"] for r in recs] != [1, 2, 3, 4, 5, 6]:
-            fail(f"train_vocoder: steps {[r['step'] for r in recs]}, expected 1-6 "
-                 "(3, then 3 resumed from the checkpoint)")
-        if after_first != 3 or state.step != 6:
-            fail(f"train_vocoder: checkpoint {after_first}, final step {state.step}")
-        if [s["step"] for s in scalars] != [1, 2, 3, 4, 5, 6]:
-            fail(f"train_vocoder: logged steps {[s['step'] for s in scalars]}")
-        for s in scalars:
-            bad = {k: v for k, v in s.items()
-                   if k.startswith("loss/") and not math.isfinite(v)}
-            if bad:
-                fail(f"train_vocoder step {s['step']}: non-finite losses {bad}")
-        for r in recs:
-            if min(r["launches"].values()) < 1:
-                fail(f"train_vocoder step {r['step']}: a kernel was not launched "
-                     f"{r['launches']}")
-
-        ds = SidecarDataset(f"{corpus}/train_list.txt", DatasetConfig())
-        sampler = DistributedBucketSampler(ds.lengths(), hps.train.batch_size,
-                                           list(cli.BOUNDARIES),
-                                           seed=hps.train.seed)
-        batch = cli.vocoder_batch(ds, sampler.epoch_batches(0)[0])
-        batch = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
-        step = cli.vt.TrainStep(segment_frames=hps.train.segment_frames,
-                                      c_mel=hps.train.c_mel, c_kl=hps.train.c_kl)
-        train_profile(torch, step, state, batch, seed=5)
-        del state, batch
-        torch.cuda.empty_cache()
-        train_cpu_phase(torch, dev, hps, ds)
+    ds = SidecarDataset(f"{corpus}/train_list.txt", DatasetConfig())
+    sampler = DistributedBucketSampler(ds.lengths(), hps.train.batch_size,
+                                       list(cli.BOUNDARIES),
+                                       seed=hps.train.seed)
+    batch = cli.vocoder_batch(ds, sampler.epoch_batches(0)[0])
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+    step = cli.vt.TrainStep(segment_frames=hps.train.segment_frames,
+                                  c_mel=hps.train.c_mel, c_kl=hps.train.c_kl)
+    train_profile(torch, step, state, batch, seed=5)
+    del state, batch
+    torch.cuda.empty_cache()
+    shutil.rmtree(logs)   # 3 checkpoints of 1.7 GB
+    train_cpu_phase(torch, dev, hps, ds)
     torch.cuda.empty_cache()
     rows = train_backward_phase(torch, dev, calls.seen)
     cuda_lib.reset_launches()
-    return recs[0]["launches"], rows
+    return recs[0]["launches"], rows, corpus
+
+
+# ---- phase 11: s2 / s1 training (cli/train_s2, cli/train_s1) and the
+# trained models served ----
+
+S_CONFIG = "configs/config.json"  # published: batch 8, lr 1e-4, betas (0.8, 0.99),
+                                  # eps 1e-9, c_commit 100; TTV / PLM at full depth
+S_UTTERANCES = 24       # phase 10's utterances of one length bucket: 3 batches of 8
+S_CPU_FRAMES = 64       # card vs CPU steps: 2 utterances cut to 64 frames
+S_LOSS_TOL = 1e-4       # card vs CPU, each metric, relative
+S_GRAD_TOL = 1e-3       # card vs CPU, relative L2 of all G (all D) gradients
+S_VQ_TOL = 1e-5         # card vs CPU, the RVQ statistics, x max|CPU|
+S2_SYNTH = (8, 512, 128, 512)   # the synthetic step: B, frames (10.24 s), phones,
+                                # MRTE frames: what a real corpus pads to
+S_GROUPS = (  # a step's kernels by name, first match wins
+    ("optimizer (foreach)", ("multi_tensor_apply",)),
+    ("LSTM (cuDNN RNN)", ("RNN", "LSTM", "lstm", "rnn")),
+    ("cuDNN/cuBLAS conv+gemm", ("conv", "cudnn", "xmma", "gemm", "sgemm", "gemv",
+                                "cutlass", "implicit", "wgrad", "dgrad")),
+    ("memcpy/memset", ("memcpy", "memset", "Memcpy", "Memset")),
+    ("reduce", ("reduce", "Reduce")),
+    ("elementwise", ("elementwise", "vectorized", "Elementwise")),
+)
+
+
+def s_subset(corpus, dst, n: int = S_UTTERANCES):
+    """A filelist of n of the corpus's utterances, all in its most common
+    length bucket (cli/train_s2.BOUNDARIES), so that an epoch at batch 8 is
+    n / 8 steps. Returns dst."""
+    import os
+
+    from megatts2_hierspeechpp_torch.cli.train_s2 import BOUNDARIES
+    from megatts2_hierspeechpp_torch.data.dataset import (
+        DatasetConfig, SidecarDataset)
+
+    ds = SidecarDataset(f"{corpus}/train_list.txt", DatasetConfig())
+    bucket = [next(i for i in range(len(BOUNDARIES) - 1)
+                   if BOUNDARIES[i] < t <= BOUNDARIES[i + 1]) for t in ds.lengths()]
+    common = max(set(bucket), key=bucket.count)
+    rows = [ds.items[i][:3] for i, b in enumerate(bucket) if b == common][:n]
+    if len(rows) < n:
+        fail(f"s2 corpus: {len(rows)} utterances in one bucket, {n} wanted")
+    os.makedirs(dst, exist_ok=True)
+    with open(f"{dst}/trans.txt", "w", encoding="utf-8") as f:
+        f.write("\n".join("|".join(r) for r in rows) + "\n")
+    with open(f"{dst}/train_list.txt", "w") as f:
+        f.write(f"{dst}/trans.txt\n")
+    return dst
+
+
+def run_cli(cli_mod, step_mod, torch, argv_runs):
+    """cli_mod.main(argv) for each argv, step_mod.TrainStep wrapped in
+    TimedStep (every serving kernel counted: none may launch): (the last
+    run's state, the step records, the runs' s)."""
+    steps, secs = [], []
+    make_step = step_mod.TrainStep
+
+    def timed(*a, **kw):
+        steps.append(TimedStep(torch, make_step(*a, **kw), PATH_KERNELS,
+                               "mel", "mel_lengths"))
+        return steps[-1]
+
+    step_mod.TrainStep = timed
+    try:
+        for argv in argv_runs:
+            t0 = time.perf_counter()
+            state = cli_mod.main(argv)
+            secs.append(time.perf_counter() - t0)
+    finally:
+        step_mod.TrainStep = make_step
+    return state, [r for s in steps for r in s.records], secs
+
+
+def check_run(label, recs, scalars, state, loss_keys):
+    """Steps 1-6 (3, then 3 resumed), every logged loss finite, no kernel
+    of the serving path launched by a training step."""
+    steps = [r["step"] for r in recs]
+    if steps != [1, 2, 3, 4, 5, 6] or state.step != 6:
+        fail(f"{label}: steps {steps}, final {state.step}, expected 1-6 "
+             "(3, then 3 resumed from the checkpoint)")
+    logged = [s["step"] for s in scalars if any(k in s for k in loss_keys)]
+    if logged != [1, 2, 3, 4, 5, 6]:
+        fail(f"{label}: logged steps {logged}")
+    for s in scalars:
+        bad = {k: v for k, v in s.items() if not math.isfinite(v)}
+        if bad:
+            fail(f"{label} step {s['step']}: non-finite scalars {bad}")
+    launched = [r["launches"] for r in recs if any(r["launches"].values())]
+    if launched:
+        fail(f"{label}: a training step launched a serving kernel {launched}")
+
+
+def step_profile(torch, label, fn):
+    """fn() (one train step) under torch.profiler: device ms by group,
+    the idle share of its wall time, kernel launches, the top kernels."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    groups, counts, per_name = {}, {}, {}
+    for ev in prof.events():
+        if ev.device_type != DeviceType.CUDA or getattr(ev, "is_user_annotation", False):
+            continue
+        ms = ev.time_range.elapsed_us() / 1e3
+        g = next((g for g, keys in S_GROUPS if any(k in ev.name for k in keys)),
+                 "other")
+        groups[g] = groups.get(g, 0.0) + ms
+        counts[g] = counts.get(g, 0) + 1
+        a, c = per_name.get(ev.name, (0.0, 0))
+        per_name[ev.name] = (a + ms, c + 1)
+    dev_ms = sum(groups.values())
+    top = sorted(per_name.items(), key=lambda kv: -kv[1][0])[:12]
+    line = {"phase": "train_profile", "path": label, "wall_ms": wall_ms,
+            "device_kernel_ms": dev_ms or "not measured",
+            "device_idle_share": (1 - dev_ms / wall_ms) if dev_ms else "not measured",
+            "kernel_launches": sum(counts.values()),
+            "groups_ms": dict(sorted(groups.items(), key=lambda kv: -kv[1])),
+            "groups_launches": counts,
+            "top_kernels": [[k[:100], ms, c] for k, (ms, c) in top]}
+    print(json.dumps(line), flush=True)
+    return line
+
+
+def cut_batch(batch, t: int, rows=(0, 1)):
+    """Rows of a collated s2 batch with the frame axes cut to t frames."""
+    rows = list(rows)
+    out = {k: np.ascontiguousarray(v[rows]) for k, v in batch.items()}
+    for k, n in (("w2v", t), ("mel", t), ("pitch", 4 * t)):
+        out[k] = np.ascontiguousarray(out[k][:, :n])
+    for k in ("w2v_lengths", "mel_lengths"):
+        out[k] = np.minimum(out[k], t).astype(np.int32)
+    out["pitch_lengths"] = (4 * out["mel_lengths"]).astype(np.int32)
+    return out
+
+
+def card_vs_cpu(torch, dev, label, build, run, batch):
+    """One step on the card and on the CPU from the same weights, batch and
+    draws: build(device) -> state; run(state, batch, device) -> (metrics,
+    {name: flat gradients}, {name: flat state to compare})."""
+    out = []
+    for d in (dev, torch.device("cpu")):
+        state = build(d)
+        tb = {k: torch.from_numpy(v).to(d) for k, v in batch.items()}
+        t0 = time.perf_counter()
+        m, grads, extra = run(state, tb, d)
+        m = {k: float(v) for k, v in m.items()}  # waits for the device
+        ms = 1e3 * (time.perf_counter() - t0)
+        out.append((m, {k: v.detach().cpu() for k, v in grads.items()},
+                    {k: v.detach().cpu() for k, v in extra.items()}, ms))
+        del state
+    (mc, gc, xc, ms_c), (mp, gp, xp, ms_p) = out
+    loss_err = {k: abs(mc[k] - mp[k]) / max(abs(mp[k]), 1e-30) for k in mp}
+    grad_err = {k: ((gc[k] - gp[k]).norm() / gp[k].norm()).item() for k in gp}
+    extra_err = {k: ((xc[k] - xp[k]).abs().max() / xp[k].abs().max()).item()
+                 for k in xp}
+    line = {"phase": "train_card_vs_cpu", "path": label, "B": 2,
+            "frames": S_CPU_FRAMES, "card_ms": ms_c, "cpu_ms": ms_p,
+            "metrics_card": mc, "metric_rel_err": loss_err,
+            "grad_rel_l2": grad_err, "state_err_over_max": extra_err,
+            "tolerance": {"metric": S_LOSS_TOL, "grad": S_GRAD_TOL,
+                          "state": S_VQ_TOL}}
+    print(json.dumps(line), flush=True)
+    if not all(math.isfinite(v) for v in mc.values()):
+        fail(f"{label} card vs CPU: non-finite metrics {mc}")
+    if not max(loss_err.values()) <= S_LOSS_TOL:
+        fail(f"{label} card vs CPU: metrics differ {loss_err}")
+    if not max(grad_err.values()) <= S_GRAD_TOL:
+        fail(f"{label} card vs CPU: gradients differ {grad_err}")
+    if extra_err and not max(extra_err.values()) <= S_VQ_TOL:
+        fail(f"{label} card vs CPU: state differs {extra_err}")
+
+
+def flat_grads(torch, params):
+    return torch.cat([p.grad.flatten() for p in params if p.grad is not None])
+
+
+def synthetic_s2_batch(torch, dev, rng):
+    """A random s2 batch of S2_SYNTH on the card: integer 100 Hz durations
+    summing to twice the frames, f0 70 % voiced."""
+    from megatts2_hierspeechpp_torch.data import text as frontend
+
+    b, t, n, m = S2_SYNTH
+    dur = np.stack([1 + rng.multinomial(2 * t - n, np.ones(n) / n)
+                    for _ in range(b)]).astype(np.float32)
+    pitch = np.where(rng.uniform(size=(b, 4 * t)) < 0.7,
+                     rng.uniform(90, 260, (b, 4 * t)), 0.0).astype(np.float32)
+    i32 = np.int32
+    batch = {
+        "x_ids": rng.integers(1, frontend.N_VOCAB, (b, n)).astype(i32),
+        "tone": rng.integers(0, frontend.N_TONE, (b, n)).astype(i32),
+        "language": rng.integers(0, frontend.N_LANGUAGE, (b, n)).astype(i32),
+        "x_lengths": np.full(b, n, i32), "dur": dur,
+        "w2v": rng.standard_normal((b, t, 1024)).astype(np.float32),
+        "w2v_lengths": np.full(b, t, i32),
+        "mel": rng.standard_normal((b, t, 80)).astype(np.float32),
+        "mel_lengths": np.full(b, t, i32), "pitch": pitch,
+        "pitch_lengths": np.full(b, 4 * t, i32),
+        "mrte_mel": rng.standard_normal((b, m, 80)).astype(np.float32),
+        "mrte_mel_lengths": np.full(b, m, i32)}
+    return {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+
+
+def rate_line(recs, hop_s: float = 320 / 16000):
+    """Median ms of the steps after the first, and median audio-s per s of
+    the utterances (their true frames) and of the padded batch."""
+    after = recs[1:]
+    return {"step_ms": [r["ms"] for r in recs],
+            "step_ms_median_after_first": float(np.median([r["ms"] for r in after])),
+            "audio_s_per_s": float(np.median(
+                [r["frames"] * hop_s / (r["ms"] / 1e3) for r in after])),
+            "audio_s_per_s_padded": float(np.median(
+                [r["B"] * r["T"] * hop_s / (r["ms"] / 1e3) for r in after])),
+            "frames_per_s": float(np.median(
+                [r["frames"] / (r["ms"] / 1e3) for r in after]))}
+
+
+def train_s2_phase(torch, dev, tmp, corpus):
+    """cli/train_s2 at full width on S_UTTERANCES utterances: 3 steps, a
+    checkpoint, 3 resumed; a profiled step; the synthetic 10 s step; the
+    card-vs-CPU gate. Returns (the run's directory, the two configs, the
+    first batch)."""
+    import os
+
+    from megatts2_hierspeechpp_torch.cli import train_s2 as cli
+    from megatts2_hierspeechpp_torch.data.dataset import collate
+    from megatts2_hierspeechpp_torch.nn.basic import MaskSource
+    from megatts2_hierspeechpp_torch.train import s2
+    from megatts2_hierspeechpp_torch.utils.config import load_hparams
+
+    sub = s_subset(corpus, os.path.join(tmp, "s2corpus"))
+    hps = load_hparams(S_CONFIG)
+    logs = os.path.join(tmp, "slogs")
+    common = dict(log_interval=1, save_interval=3, eval_interval=3,
+                  eval_plots=False)
+    cfg1 = train_config(os.path.join(tmp, "epoch1.json"), hps, sub, epochs=1,
+                        **common)
+    cfg2 = train_config(os.path.join(tmp, "epoch2.json"), hps, sub, epochs=2,
+                        **common)
+    torch.cuda.reset_peak_memory_stats()
+    state, recs, secs = run_cli(cli, s2, torch, [
+        ["-c", cfg1, "-m", "s2", "--logs_dir", logs],
+        ["-c", cfg2, "-m", "s2", "--logs_dir", logs]])
+    peak = torch.cuda.max_memory_allocated()
+    with open(os.path.join(logs, "s2", "scalars.jsonl")) as f:
+        scalars = [json.loads(line) for line in f]
+    for r in recs:
+        print(json.dumps(dict(r, phase="train_s2_step")), flush=True)
+    check_run("train_s2", recs, scalars, state, ("loss/g/total",))
+    evals = [s for s in scalars if "eval/w2v_l1" in s]
+    if [s["step"] for s in evals] != [3, 6]:
+        fail(f"train_s2: eval at steps {[s['step'] for s in evals]}, expected 3, 6")
+
+    # one step of the CLI's first batch, profiled
+    hps2 = load_hparams(cfg2)
+    ds = cli.SidecarDataset(hps2.data.training_files, cli.DatasetConfig())
+    sampler = cli.DistributedBucketSampler(ds.lengths(), hps2.train.batch_size,
+                                           list(cli.BOUNDARIES), seed=hps2.train.seed)
+    first = collate([ds[i] for i in sampler.epoch_batches(0)[0]], pad_multiple=64)
+    step = s2.TrainStep(c_mel=hps2.train.c_mel, c_commit=hps2.train.c_commit)
+    tb = {k: torch.from_numpy(v).to(dev) for k, v in first.items()}
+    prof = step_profile(torch, "train_s2 B=8", lambda: step(
+        state, tb, torch.Generator().manual_seed(5)))
+
+    # the synthetic 10 s batch: 1 warm-up, 3 timed
+    synth = synthetic_s2_batch(torch, dev, np.random.default_rng(17))
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for i in range(4):
+        _, ms = event_ms(torch, lambda: step(state, synth,
+                                             torch.Generator().manual_seed(30 + i)))
+        times.append(ms)
+    synth_peak = torch.cuda.max_memory_allocated()
+    b, t = S2_SYNTH[:2]
+    synth_ms = float(np.median(times[1:]))
+    synth_prof = step_profile(torch, f"train_s2 synthetic B={b} T={t}", lambda: step(
+        state, synth, torch.Generator().manual_seed(40)))
+    line = {"phase": "train_s2", "config": S_CONFIG, "utterances": S_UTTERANCES,
+            "steps": [r["step"] for r in recs], "runs_s": secs,
+            **rate_line(recs), "peak_memory_mb": peak / 2 ** 20,
+            "our_kernel_launches_per_step": recs[0]["launches"],
+            "device_kernel_launches_per_step": prof["kernel_launches"],
+            "device_idle_share": prof["device_idle_share"],
+            "synthetic": {"B": b, "T": t, "phones": S2_SYNTH[2],
+                          "step_ms": times, "step_ms_median": synth_ms,
+                          "audio_s_per_s": b * t * 320 / 16000 / (synth_ms / 1e3),
+                          "peak_memory_mb": synth_peak / 2 ** 20,
+                          "device_idle_share": synth_prof["device_idle_share"],
+                          "device_kernel_launches": synth_prof["kernel_launches"]},
+            "losses_last": {k: v for k, v in scalars[-2].items()
+                            if k.startswith("loss/")},
+            "eval_last": evals[-1]}
+    print(json.dumps(line), flush=True)
+    del state, synth, tb
+    torch.cuda.empty_cache()
+
+    # card vs CPU: the same weights, batch, coin and dropout masks (drawn on
+    # the CPU and moved)
+    batch = cut_batch(first, S_CPU_FRAMES)
+
+    def run(st, tb, d):
+        coin = (torch.rand((), generator=torch.Generator().manual_seed(3)) <= 0.5)
+        masks = MaskSource(torch.Generator().manual_seed(4))
+        st, m = step.with_draws(st, tb, coin.to(d), masks)
+        vq = {k: v for k, v in st.ttv.quantizer.state_dict().items()
+              if not k.endswith("inited")}
+        uv = {k: v for k, v in st.disc.state_dict().items()
+              if k.startswith("discriminators.0.") and k.endswith(("weight_u", "weight_v"))}
+        return m, {"G": flat_grads(torch, st.opt_g.params),
+                   "D": flat_grads(torch, st.opt_d.params)}, {**vq, **uv}
+
+    card_vs_cpu(torch, dev, "train_s2", lambda d: cli.build_state(
+        hps2, d, hps2.train.seed, 1000), run, batch)
+    return os.path.join(logs, "s2"), (cfg1, cfg2), first
+
+
+def train_s1_phase(torch, dev, tmp, s2_dir, cfgs, first):
+    """cli/train_s1 from train_s2's checkpoint: 3 steps + 3 resumed; the
+    card-vs-CPU gate. Returns (the last run's state, the first batch on the
+    card)."""
+    import os
+
+    from megatts2_hierspeechpp_torch.cli import train_s1 as cli
+    from megatts2_hierspeechpp_torch.nn.basic import MaskSource
+    from megatts2_hierspeechpp_torch.train import s1
+    from megatts2_hierspeechpp_torch.utils.config import load_hparams
+
+    logs = os.path.join(tmp, "slogs")
+    ckpt = os.path.join(s2_dir, "ckpt")
+    cfg1, cfg = cfgs
+    torch.cuda.reset_peak_memory_stats()
+    state, recs, secs = run_cli(cli, s1, torch, [
+        ["-c", cfg1, "-m", "s1", "--logs_dir", logs, "--s2_ckpt", ckpt],
+        ["-c", cfg, "-m", "s1", "--logs_dir", logs, "--s2_ckpt", ckpt]])
+    peak = torch.cuda.max_memory_allocated()
+    with open(os.path.join(logs, "s1", "scalars.jsonl")) as f:
+        scalars = [json.loads(line) for line in f]
+    for r in recs:
+        print(json.dumps(dict(r, phase="train_s1_step")), flush=True)
+    check_run("train_s1", recs, scalars, state, ("loss/plm",))
+    rates = rate_line(recs)
+    tb = {k: torch.from_numpy(v).to(dev) for k, v in first.items()}
+    prof = step_profile(torch, "train_s1 B=8", lambda: s1.TrainStep()(
+        state, tb, torch.Generator().manual_seed(6)))
+    line = {"phase": "train_s1", "config": S_CONFIG, "steps": [r["step"] for r in recs],
+            "runs_s": secs, "step_ms": rates["step_ms"],
+            "step_ms_median_after_first": rates["step_ms_median_after_first"],
+            "tokens_per_s": rates["frames_per_s"],
+            "peak_memory_mb": peak / 2 ** 20,
+            "our_kernel_launches_per_step": recs[0]["launches"],
+            "device_kernel_launches_per_step": prof["kernel_launches"],
+            "device_idle_share": prof["device_idle_share"],
+            "metrics_last": {k: v for k, v in scalars[-2].items()
+                             if k.startswith(("loss/", "acc/"))}}
+    print(json.dumps(line), flush=True)
+
+    hps = load_hparams(cfg)
+
+    def build(d):
+        return cli.build_state(hps, d, cli.load_s2_vars(ckpt, hps, d))
+
+    def run(st, tb, d):
+        st, m = s1.TrainStep().with_draws(st, tb, MaskSource(
+            torch.Generator().manual_seed(8)))
+        return m, {"PLM": flat_grads(torch, st.opt.params)}, {}
+
+    card_vs_cpu(torch, dev, "train_s1", build, run, cut_batch(first, S_CPU_FRAMES))
+    return state, tb
+
+
+def serve_trained_phase(torch, dev, shapes, audio, state, batch):
+    """The trained models served: the s1 run's PLM takes one more step
+    after its decode weights were packed (an optimizer's in-place update),
+    then it and the frozen s2 TTV serve a 10 s tts request with the serving
+    vocoder and SpeechSR-48k. Gates: all four kernels launch; the decode's
+    teacher-forced gap against the plain twin; its codes equal those of a
+    fresh build loaded with the same state_dict and packed anew."""
+    from megatts2_hierspeechpp_torch.models.plm import (
+        ProsodyLM, decode, teacher_forced_gap)
+    from megatts2_hierspeechpp_torch.ops import cuda_lib
+    from megatts2_hierspeechpp_torch.train import s1
+
+    plm = state.plm
+    stale = plm.packed()
+    stale_wqkv = stale.wqkv.clone()
+    s1.TrainStep()(state, batch, torch.Generator().manual_seed(9))
+    plm.eval()
+    repacked = plm.packed() is not stale
+    moved = not torch.equal(plm.packed().wqkv, stale_wqkv)
+    pipe = build_pipeline(torch, dev)
+    pipe.ttv, pipe.plm = state.ttv, plm
+    prompt = pipe.prepare_prompt(audio)
+    (f, text, ls, n) = tts_requests(pipe, prompt)[-1]
+    pipe.tts(text, prompt=prompt, length_scale=ls, output_sr=48000, exact=True)
+    t0 = time.perf_counter()
+    (out, ac, _), counts = run_path(torch, cuda_lib, shapes, "serve_trained", lambda: pipe.tts(
+        text, prompt=prompt, length_scale=ls, output_sr=48000, exact=True,
+        return_intermediates=True))
+    ms = 1e3 * (time.perf_counter() - t0)
+    gap, scale = teacher_forced_gap(plm, ac.x_frame, ac.codes)
+    fresh = ProsodyLM(n_layers=len(plm.plm.layers), seed=99, device=dev)
+    fresh.load_state_dict(plm.state_dict())
+    fresh_codes = decode(fresh, ac.x_frame)
+    same = bool(torch.equal(fresh_codes.cpu(), ac.codes.cpu()))
+    line = {"phase": "serve_trained", "frames": ac.frames, "target_frames": f,
+            "length_scale": ls, "ms": ms, "samples": int(out.shape[0]),
+            "audio_s_per_s": (out.shape[0] / 48000) / (ms / 1e3), "calls": counts,
+            "repacked_after_step": repacked, "weights_moved": moved,
+            "tf_gap": gap, "max_abs_logit": scale,
+            "tolerance": f"{TF_MARGIN:g} x max|logit|",
+            "codes_equal_fresh_pack": same}
+    print(json.dumps(line), flush=True)
+    if not (repacked and moved):
+        fail(f"serve_trained: the decode weights were not packed anew after "
+             f"an optimizer step (repacked {repacked}, moved {moved})")
+    if min(counts[k] for k in PATH_KERNELS) < 1:
+        fail(f"serve_trained: a kernel was not launched: {counts}")
+    if out.shape != (960 * ac.frames,) or not np.isfinite(out).all():
+        fail(f"serve_trained: output {out.shape}, finite {np.isfinite(out).all()}")
+    if not gap <= TF_MARGIN * scale:
+        fail(f"serve_trained: teacher-forced gap {gap} > {TF_MARGIN} x {scale}")
+    if not same:
+        fail("serve_trained: codes differ from a freshly packed PLM's")
+    return counts
 
 
 def main() -> int:
@@ -2307,7 +2774,14 @@ def main() -> int:
     vc_phase(torch, dev, pipe, cpu_pipe, shapes)
     del pipe, cpu_pipe
     torch.cuda.empty_cache()
-    train_launches, _ = train_vocoder_phase(torch, dev, shapes)
+    with tempfile.TemporaryDirectory() as tmp:
+        train_launches, _, corpus = train_vocoder_phase(torch, dev, shapes, tmp)
+        s2_dir, cfgs, first = train_s2_phase(torch, dev, tmp, corpus)
+        s1_state, batch = train_s1_phase(torch, dev, tmp, s2_dir, cfgs, first)
+        serve_launches = serve_trained_phase(torch, dev, shapes, audio,
+                                             s1_state, batch)
+        del s1_state, batch
+    torch.cuda.empty_cache()
     new_shapes_phase(torch, dev, shapes)
 
     # ms: CUDA events around the wrapper on every row, as in earlier runs;
@@ -2332,6 +2806,8 @@ def main() -> int:
         if train_launches.get(key, 0) > out[-1]["launches"]:
             out[-1].update(launches=train_launches[key],
                            launches_from="train_vocoder, one B=32 step, phase 10")
+        if key in serve_launches:
+            out[-1]["launches_serve_trained"] = serve_launches[key]
     print(json.dumps({"kernels": out}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

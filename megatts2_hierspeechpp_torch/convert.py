@@ -2,8 +2,10 @@
 
 `vocoder_from_jax(params)` (with the training members when the tree has
 them: a JAX `init_all` tree), `mpd_from_jax(params)` (the vocoder's
-MultiPeriodDiscriminator), `speechsr_from_jax(params)`,
+MultiPeriodDiscriminator), `mrsd_from_jax({"params", "spectral"})` (the s2
+trainer's MultiResSpecDiscriminator), `speechsr_from_jax(params)`,
 `ttv_from_jax({"params", "vq"})`, `plm_from_jax(params)`,
+`plm_noncausal_from_jax(params)` (ProsodyLMNonCausal),
 `wav2vec2_from_jax(params)` and `denoiser_from_jax({"params",
 "batch_stats"})` take the flax variables of the JAX HierVocoder / SpeechSR /
 TTVModel / ProsodyLM / Wav2Vec2 / MPNet (nested dicts of arrays) and return
@@ -26,6 +28,9 @@ Layouts (inverse of megatts2_hierspeechpp_tpu/utils/torch_compat.py):
   Conv2d kernel (Kh, Kw, Cin, Cout)        -> weight (Cout, Cin, Kh, Kw)
   WNConv2d v (Kh, Kw, Cin, Cout), g (Cout,) -> weight_v (Cout, Cin, Kh, Kw),
                                               weight_g (Cout, 1, 1, 1)
+  SNConv2d kernel (Kh, Kw, Cin, Cout), spectral u, v
+                                           -> weight_orig (Cout, Cin, Kh, Kw),
+                                              weight_u, weight_v
   ConvTranspose2d (1, 3) up_kernel flipped (3, Cin, Cout)
                                            -> weight (Cin, Cout, 1, 3)
   fused w2v pos_conv kernel (K, Cin/g, Cout)
@@ -233,6 +238,27 @@ def mpd_from_jax(params: dict) -> dict:
     return out
 
 
+def mrsd_from_jax(variables: dict) -> dict:
+    """JAX MultiResSpecDiscriminator variables {"params", "spectral"} ->
+    port state_dict: `disc_{i}` at `discriminators.{i}`, its `convs_{j}`
+    at `.discriminators.{j}`; spectral-normalised where the tree has the
+    spectral state (disc_0), else weight-normalised."""
+    params, spectral, out = variables["params"], variables.get("spectral", {}), {}
+    for i in range(_count(params, "disc")):
+        tree, p = params[f"disc_{i}"], f"discriminators.{i}"
+        sn = spectral.get(f"disc_{i}")
+        names = [f"convs_{j}" for j in range(_count(tree, "convs"))] + ["out"]
+        for name in names:
+            q = f"{p}.discriminators.{name[6:]}" if name != "out" else f"{p}.out"
+            if sn is None:
+                wn_conv2d(out, q, tree[name])
+                continue
+            conv2d(out, q, tree[name], weight="weight_orig")
+            out[f"{q}.weight_u"] = _t(sn[name]["u"])
+            out[f"{q}.weight_v"] = _t(sn[name]["v"])
+    return out
+
+
 def speechsr_from_jax(params: dict) -> dict:
     """JAX SpeechSR params -> port state_dict."""
     out = {}
@@ -360,6 +386,17 @@ def plm_from_jax(params: dict) -> dict:
     return out
 
 
+def plm_noncausal_from_jax(params: dict) -> dict:
+    """JAX ProsodyLMNonCausal params -> port state_dict (reference
+    Megatts2PLM: the VITS encoder at `plm`)."""
+    out = {}
+    embedding(out, "pc_embedding", params["pc_embedding"])
+    out["pos_emb.alpha"] = _t(params["pos_alpha"])
+    vits_encoder(out, "plm", params["plm"])
+    linear(out, "predict_layer", params["predict_layer"])
+    return out
+
+
 # ---------- vc front-end (Wav2Vec2) and the denoiser (MPNet) ----------
 
 
@@ -392,8 +429,8 @@ def wav2vec2_from_jax(params: dict) -> dict:
     return out
 
 
-def conv2d(out, p, tree):
-    out[_k(p, "weight")] = _t(np.transpose(tree["kernel"], (3, 2, 0, 1)))
+def conv2d(out, p, tree, weight: str = "weight"):
+    out[_k(p, weight)] = _t(np.transpose(tree["kernel"], (3, 2, 0, 1)))
     _bias(out, p, tree)
 
 

@@ -10,6 +10,7 @@ reference data_utils.py):
   - per item: w2v padded to a multiple of 8, mel to the w2v length, pitch
     to 4x it; durations to 10 ms frames with the rounding error folded into
     the first / last phone;
+  - `collate`: sorted by length, zero-padded to multiples of a bucket size;
   - a length-bucketed, epoch-seeded batch sampler.
 """
 from __future__ import annotations
@@ -234,6 +235,49 @@ class SidecarDataset:
             start = self.rng.randint(0, t - half)
             mel = mel[start : start + half]
         return mel[: self.cfg.mrte_max_frames]
+
+
+def _round_up(v: int, multiple: int) -> int:
+    return (v + multiple - 1) // multiple * multiple
+
+
+def collate(batch: Sequence[Dict[str, np.ndarray]], pad_multiple: int = 8,
+            text_pad_multiple: int = 8) -> Dict[str, np.ndarray]:
+    """Zero-pad items into dense numpy arrays, sorted by w2v length
+    (longest first); the frame axes padded to a multiple of pad_multiple,
+    the phone axis to one of text_pad_multiple. Keys: x_ids, tone,
+    language, x_lengths, w2v, w2v_lengths, mel, mel_lengths, pitch,
+    pitch_lengths (4x the frames), dur, mrte_mel, mrte_mel_lengths."""
+    batch = sorted(batch, key=lambda d: d["w2v"].shape[0], reverse=True)
+    b = len(batch)
+    t_max = _round_up(max(d["w2v"].shape[0] for d in batch), pad_multiple)
+    n_max = _round_up(max(len(d["x_ids"]) for d in batch), text_pad_multiple)
+    m_max = _round_up(max(d["mrte_mel"].shape[0] for d in batch), pad_multiple)
+    i32, f32 = np.int32, np.float32
+    out = {
+        "x_ids": np.zeros((b, n_max), i32), "tone": np.zeros((b, n_max), i32),
+        "language": np.zeros((b, n_max), i32), "x_lengths": np.zeros((b,), i32),
+        "w2v": np.zeros((b, t_max, 1024), f32), "w2v_lengths": np.zeros((b,), i32),
+        "mel": np.zeros((b, t_max, 80), f32), "mel_lengths": np.zeros((b,), i32),
+        "pitch": np.zeros((b, 4 * t_max), f32), "pitch_lengths": np.zeros((b,), i32),
+        "dur": np.zeros((b, n_max), f32),
+        "mrte_mel": np.zeros((b, m_max, 80), f32),
+        "mrte_mel_lengths": np.zeros((b,), i32),
+    }
+    for i, d in enumerate(batch):
+        n, t, m = len(d["x_ids"]), d["w2v"].shape[0], d["mrte_mel"].shape[0]
+        for k in ("x_ids", "tone", "language"):
+            out[k][i, :n] = d[k]
+        out["x_lengths"][i] = n
+        out["w2v"][i, :t] = d["w2v"]
+        out["mel"][i, :t] = d["mel"]
+        out["w2v_lengths"][i] = out["mel_lengths"][i] = t
+        out["pitch"][i, :4 * t] = d["pitch"][:4 * t]
+        out["pitch_lengths"][i] = 4 * t
+        out["dur"][i, :n] = d["dur"][:n]
+        out["mrte_mel"][i, :m] = d["mrte_mel"]
+        out["mrte_mel_lengths"][i] = m
+    return out
 
 
 class DistributedBucketSampler:

@@ -1,5 +1,6 @@
-"""The vocoder trainer's GAN discriminator: multi-resolution STFT
-discriminators beside multi-period waveform discriminators.
+"""The GAN discriminators: the vocoder trainer's multi-resolution STFT
+discriminators beside multi-period waveform discriminators, and the s2
+trainer's multi-resolution spectrogram discriminator over w2v features.
 
 Counterpart of `megatts2_hierspeechpp_tpu/models/discriminators.py`
 (reference hierspeechpp_speechsynthesizer.py DiscriminatorP /
@@ -12,6 +13,12 @@ they are.
 DiscriminatorR reads a window-L2-normalised complex STFT (torchaudio
 Spectrogram normalized=True, center=False) with real and imaginary parts
 as two channels, frames along H and bins along W.
+
+MultiResSpecDiscriminator (reference ttv_v1/msd.py) runs two
+SpecDiscriminators on a (B, 1024, T) w2v map as a one-channel image, the
+second on it average-pooled by 2 along T; the first is spectral-normalised
+(nn/conv.SNConv2d), the second weight-normalised. Its names are the
+reference's (`discriminators.{0,1}.discriminators.{0-3}`, `.out`).
 """
 from __future__ import annotations
 
@@ -23,7 +30,7 @@ from torch import nn
 
 from megatts2_hierspeechpp_torch.device import resolve_device
 from megatts2_hierspeechpp_torch.nn.basic import leaky_relu
-from megatts2_hierspeechpp_torch.nn.conv import WNConv2d, get_padding
+from megatts2_hierspeechpp_torch.nn.conv import SNConv2d, WNConv2d, get_padding
 from megatts2_hierspeechpp_torch.nn.init import init_weights
 from megatts2_hierspeechpp_torch.ops.stft import frame_signal, hann_window
 
@@ -130,6 +137,80 @@ class MultiPeriodDiscriminator(nn.Module):
         outs_r, outs_g, fmaps_r, fmaps_g = [], [], [], []
         for d in self.discriminators:
             lr, fr = d(y)
+            lg, fg = d(y_hat)
+            outs_r.append(lr)
+            outs_g.append(lg)
+            fmaps_r.append(fr)
+            fmaps_g.append(fg)
+        return outs_r, outs_g, fmaps_r, fmaps_g
+
+
+class SpecDiscriminator(nn.Module):
+    """2-D convs over a feature map as a one-channel image (ttv_v1/msd.py);
+    input (B, H, W, 1)."""
+
+    specs = (((3, 9), (1, 1), (1, 4)), ((3, 9), (1, 2), (1, 4)),
+             ((3, 9), (1, 2), (1, 4)), ((3, 3), (1, 1), (1, 1)))
+
+    def __init__(self, use_spectral_norm: bool = False):
+        super().__init__()
+        self.spectral = use_spectral_norm
+        conv = SNConv2d if use_spectral_norm else WNConv2d
+        self.discriminators = nn.ModuleList(
+            conv(1 if i == 0 else 32, 32, k, s, p)
+            for i, (k, s, p) in enumerate(self.specs))
+        self.out = conv(32, 1, (3, 3), (1, 1), (1, 1))
+
+    def forward(self, y, update_u: bool = False):
+        """-> (logits (B, N), feature maps). `update_u` (spectral norm only)
+        runs each conv's power iteration, see SNConv2d."""
+        kw = {"update_u": update_u} if self.spectral else {}
+        fmap = []
+        for conv in self.discriminators:
+            y = leaky_relu(conv(y, **kw))
+            fmap.append(y)
+        y = self.out(y, **kw)
+        fmap.append(y)
+        return y.reshape(y.shape[0], -1), fmap
+
+
+def avg_pool2d(x, kw: int):
+    """AvgPool2d((1, kw)) over (B, H, W, C); W truncated to a multiple of
+    kw."""
+    b, h, w, c = x.shape
+    wk = w // kw * kw
+    return x[:, :, :wk].reshape(b, h, wk // kw, kw, c).mean(dim=3)
+
+
+class MultiResSpecDiscriminator(nn.Module):
+    """Two SpecDiscriminators (the first spectral-normalised) over the
+    feature map and its 2x average pool along W.
+
+    Built on the CPU with seeded weights (nn/init.py), then moved to
+    `device` ("cuda" by default; raises if CUDA is absent)."""
+
+    pools = (None, 2)
+
+    def __init__(self, seed: int = 0, device: str | torch.device = "cuda"):
+        super().__init__()
+        dev = resolve_device(device)
+        self.discriminators = nn.ModuleList(
+            SpecDiscriminator(use_spectral_norm=(i == 0))
+            for i in range(len(self.pools)))
+        init_weights(self, seed)
+        self.to(dev)
+
+    def forward(self, y, y_hat, update_u: bool = False):
+        """y, y_hat: (B, H, W) maps (w2v (B, 1024, T)) -> (logits real,
+        logits generated, feature maps real, feature maps generated). With
+        `update_u` the real pass runs the spectral norm's power iteration
+        and the generated pass reads the new u / v (the JAX order)."""
+        y, y_hat = y[..., None], y_hat[..., None]
+        outs_r, outs_g, fmaps_r, fmaps_g = [], [], [], []
+        for d, pool in zip(self.discriminators, self.pools):
+            if pool is not None:
+                y, y_hat = avg_pool2d(y, pool), avg_pool2d(y_hat, pool)
+            lr, fr = d(y, update_u=update_u)
             lg, fg = d(y_hat)
             outs_r.append(lr)
             outs_g.append(lg)

@@ -5,8 +5,15 @@ transformer over concat(frame-level text latent 256, previous-prosody-code
 embedding 20) with sinusoidal positions scaled by a learnt alpha; go token
 1024. Parameter names are the reference checkpoint's (`pc_embedding`,
 `pos_emb.alpha`, `plm.layers.{i}.{norm1,norm2,attn.w_q,...,attn.out_proj.0,
-ff.0,ff.3}`, `predict_layer`); the reference's dropouts are Identity
-placeholders that keep those indices.
+ff.0,ff.3}`, `predict_layer`); the dropouts (p 0.1 on the attention
+weights, after out_proj and after the FFN's relu, as the JAX PLMLayer)
+sit where the reference's do, so those indices hold. They draw only in a
+training build's train() mode under an active nn/basic.MaskSource.
+
+Training: `loss_dict` is the JAX ProsodyLM.__call__ (summed NLL over the
+valid positions, its per-frame log value, top-10 accuracy);
+`ProsodyLMNonCausal` is the reference's variant A (the VITS encoder over
+the same input, no causal mask), kept for its checkpoints.
 
 `decode` dispatches as the JAX `decode` does: a greedy float32 latent goes
 to the kernel wrapper (`ops/plm_decode.py`), which launches the hand-written
@@ -26,6 +33,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from megatts2_hierspeechpp_torch.device import resolve_device
+from megatts2_hierspeechpp_torch.nn.attention import Encoder
+from megatts2_hierspeechpp_torch.nn.basic import Dropout
 from megatts2_hierspeechpp_torch.nn.init import init_weights
 from megatts2_hierspeechpp_torch.ops.plm_decode import (
     PLMWeights,
@@ -37,6 +46,9 @@ from megatts2_hierspeechpp_torch.ops.plm_decode import (
 NEG_INF = -1e9
 
 
+P_DROPOUT = 0.1
+
+
 class PLMAttention(nn.Module):
     def __init__(self, dim: int, n_heads: int):
         super().__init__()
@@ -44,7 +56,8 @@ class PLMAttention(nn.Module):
         self.w_q = nn.Linear(dim, dim)
         self.w_k = nn.Linear(dim, dim)
         self.w_v = nn.Linear(dim, dim)
-        self.out_proj = nn.Sequential(nn.Linear(dim, dim), nn.Identity())
+        self.drop = Dropout(P_DROPOUT)
+        self.out_proj = nn.Sequential(nn.Linear(dim, dim), Dropout(P_DROPOUT))
 
     def forward(self, x, bias):
         b, t, d = x.shape
@@ -53,7 +66,7 @@ class PLMAttention(nn.Module):
         q, k, v = (m(x).view(b, t, h, hd).transpose(1, 2)
                    for m in (self.w_q, self.w_k, self.w_v))
         scores = torch.matmul(q, k.transpose(-1, -2)) / math.sqrt(hd) + bias
-        att = torch.matmul(torch.softmax(scores, dim=-1), v)
+        att = torch.matmul(self.drop(torch.softmax(scores, dim=-1)), v)
         return self.out_proj(att.transpose(1, 2).reshape(b, t, d))
 
 
@@ -66,7 +79,7 @@ class PLMLayer(nn.Module):
         self.attn = PLMAttention(dim, n_heads)
         self.norm2 = nn.LayerNorm(dim)
         self.ff = nn.Sequential(nn.Linear(dim, ff_dim), nn.ReLU(),
-                                nn.Identity(), nn.Linear(ff_dim, dim))
+                                Dropout(P_DROPOUT), nn.Linear(ff_dim, dim))
 
     def forward(self, x, bias):
         x = x + self.attn(self.norm1(x), bias)
@@ -85,17 +98,41 @@ class _Layers(nn.Module):
         self.layers = nn.ModuleList(layers)
 
 
+def _embed_inputs(model, tc_latent, p_codes):
+    """[go, p_codes[:, :-1]] embedded beside tc_latent, plus alpha x the
+    sinusoidal positions: (B, T, d)."""
+    b, t, _ = tc_latent.shape
+    go = torch.full((b, 1), model.go_id, dtype=torch.long,
+                    device=p_codes.device)
+    inputs = torch.cat([go, p_codes[:, :-1].long()], dim=1)
+    x = torch.cat([tc_latent, model.pc_embedding(inputs)], dim=-1)
+    return x + model.pos_emb.alpha * sine_positions(t, x.shape[-1], x.device)
+
+
+def _nll(model, logits, targets, valid):
+    """The NLL summed over the valid positions (valid (B, T) float), the
+    targets clipped to the code range, as the JAX loss."""
+    logp = F.log_softmax(logits.float(), dim=-1)
+    tgt = targets.long().clamp(0, model.vq_bins - 1)
+    nll = -logp.gather(-1, tgt[..., None])[..., 0]
+    return (nll * valid).sum()
+
+
 class ProsodyLM(nn.Module):
-    """Megatts2PLM1: teacher-forced forward and the pieces `decode` needs.
+    """Megatts2PLM1: teacher-forced forward, the training loss and the
+    pieces `decode` needs.
 
     Built on the CPU with seeded weights (nn/init.py), then moved to
-    `device` ("cuda" by default; raises if CUDA is absent). The decode's
-    stacked weights are built once and kept until the parameters are loaded
-    or moved again."""
+    `device` ("cuda" by default; raises if CUDA is absent). A serving build
+    (the default) is frozen in eval() mode; `train=True` leaves the
+    parameters trainable and the module in train() mode. The decode's
+    stacked weights are built on first use and kept while every parameter
+    is the same tensor at the same version: loading, moving or an
+    optimizer's in-place update makes `packed()` build them again."""
 
     def __init__(self, n_layers: int = 4, n_heads: int = 4, vq_dim: int = 20,
                  tc_latent_dim: int = 256, vq_bins: int = 1024, seed: int = 0,
-                 device: str | torch.device = "cuda"):
+                 device: str | torch.device = "cuda", train: bool = False):
         super().__init__()
         dev = resolve_device(device)
         self.n_heads, self.vq_bins = n_heads, vq_bins
@@ -104,15 +141,18 @@ class ProsodyLM(nn.Module):
         self.pos_emb = _PosEmb()
         self.plm = _Layers(PLMLayer(d, 4 * d, n_heads) for _ in range(n_layers))
         self.predict_layer = nn.Linear(d, vq_bins, bias=False)
-        self._packed: Optional[PLMWeights] = None
+        self._packed: Optional[tuple] = None
         init_weights(self, seed)
-        self.eval().requires_grad_(False).to(dev)
+        if not train:
+            self.eval().requires_grad_(False)
+        self.to(dev)
 
     def _apply(self, fn, *args, **kwargs):
         self._packed = None
         return super()._apply(fn, *args, **kwargs)
 
     def load_state_dict(self, *args, **kwargs):
+        # also for inference tensors, whose in-place copy bumps no version
         self._packed = None
         return super().load_state_dict(*args, **kwargs)
 
@@ -124,12 +164,8 @@ class ProsodyLM(nn.Module):
         """Teacher-forced logits: tc_latent (B, T, 256); p_codes (B, T) int
         targets (inputs are [go, p_codes[:, :-1]]); lens (B,) or None ->
         (B, T, bins)."""
-        b, t, _ = tc_latent.shape
-        go = torch.full((b, 1), self.go_id, dtype=torch.long,
-                        device=p_codes.device)
-        inputs = torch.cat([go, p_codes[:, :-1].long()], dim=1)
-        x = torch.cat([tc_latent, self.pc_embedding(inputs)], dim=-1)
-        x = x + self.pos_emb.alpha * sine_positions(t, x.shape[-1], x.device)
+        t = tc_latent.shape[1]
+        x = _embed_inputs(self, tc_latent, p_codes)
         pos = torch.arange(t, device=x.device)
         allowed = (pos[None, :] <= pos[:, None])[None]
         if lens is not None:
@@ -139,13 +175,37 @@ class ProsodyLM(nn.Module):
             x = layer(x, bias)
         return self.predict_layer(x)
 
+    def loss_dict(self, tc_latent, p_codes, lens):
+        """The training loss (JAX ProsodyLM.__call__): tc_latent (B, T,
+        256), p_codes (B, T) targets, lens (B,) -> {logits, targets, loss
+        (summed NLL over positions < lens), loss_log (loss / sum(lens)),
+        acc (top-10 hit rate over those positions)}."""
+        logits = self(tc_latent, p_codes, lens)
+        t = tc_latent.shape[1]
+        valid = (torch.arange(t, device=logits.device)[None]
+                 < lens.to(logits.device)[:, None]).float()
+        loss = _nll(self, logits, p_codes, valid)
+        top10 = logits.topk(10, dim=-1).indices
+        hit = (top10 == p_codes.long()[..., None]).any(-1).float()
+        acc = (hit * valid).sum() / valid.sum().clamp_min(1)
+        return {"logits": logits, "targets": p_codes, "loss": loss,
+                "loss_log": loss / lens.sum(), "acc": acc}
+
+    def _pack_key(self) -> tuple:
+        # a model built under inference_mode has inference tensors, which
+        # carry no version counter (and no optimizer can step them)
+        return tuple((p.data_ptr(), 0 if p.is_inference() else p._version)
+                     for p in self.parameters())
+
     def packed(self) -> PLMWeights:
-        """The weights stacked over layers, as ops/plm_decode takes them
-        (built on first use, then cached)."""
-        if self._packed is None:
+        """The weights stacked over layers, as ops/plm_decode takes them:
+        built on first use and again whenever a parameter was replaced or
+        written in place since (an optimizer step bumps its version)."""
+        key = self._pack_key()
+        if self._packed is None or self._packed[0] != key:
             with torch.no_grad():
-                self._packed = self._pack()
-        return self._packed
+                self._packed = (key, self._pack())
+        return self._packed[1]
 
     def _pack(self) -> PLMWeights:
         layers = self.plm.layers
@@ -171,6 +231,46 @@ class ProsodyLM(nn.Module):
             pred=self.predict_layer.weight,
             n_heads=self.n_heads,
         )
+
+
+class ProsodyLMNonCausal(nn.Module):
+    """Megatts2PLM variant A (JAX ProsodyLMNonCausal; reference
+    t2w2v_transformer.py:531-624): the relative-position VITS Encoder `plm`
+    over the same [tc_latent, code embedding] input with positions, masked
+    by length but not causally. The reference ships Megatts2PLM1 instead;
+    this one loads its checkpoints. Built as ProsodyLM is."""
+
+    def __init__(self, n_layers: int = 4, n_heads: int = 4, vq_dim: int = 20,
+                 tc_latent_dim: int = 256, vq_bins: int = 1024, seed: int = 0,
+                 device: str | torch.device = "cuda", train: bool = False):
+        super().__init__()
+        dev = resolve_device(device)
+        self.vq_bins = vq_bins
+        d = vq_dim + tc_latent_dim
+        self.pc_embedding = nn.Embedding(vq_bins + 2, vq_dim)
+        self.pos_emb = _PosEmb()
+        self.plm = Encoder(d, 4 * d, n_heads, n_layers, 9, p_dropout=P_DROPOUT)
+        self.predict_layer = nn.Linear(d, vq_bins, bias=False)
+        init_weights(self, seed)
+        if not train:
+            self.eval().requires_grad_(False)
+        self.to(dev)
+
+    @property
+    def go_id(self) -> int:
+        return self.vq_bins
+
+    def loss_dict(self, tc_latent, p_codes, lens):
+        """-> {logits, targets, loss, loss_log}, as ProsodyLM.loss_dict
+        without the accuracy (the JAX module's outputs)."""
+        t = tc_latent.shape[1]
+        x = _embed_inputs(self, tc_latent, p_codes)
+        mask = (torch.arange(t, device=x.device)[None]
+                < lens.to(x.device)[:, None])[..., None].to(x.dtype)
+        logits = self.predict_layer(self.plm(x * mask, mask))
+        loss = _nll(self, logits, p_codes, mask[..., 0])
+        return {"logits": logits, "targets": p_codes, "loss": loss,
+                "loss_log": loss / lens.sum()}
 
 
 @torch.inference_mode()

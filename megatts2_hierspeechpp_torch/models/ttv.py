@@ -1,5 +1,4 @@
-"""MegaTTS2-style acoustic model (text -> wav2vec2 features and log-f0),
-inference path.
+"""MegaTTS2-style acoustic model (text -> wav2vec2 features and log-f0).
 
 Counterpart of `megatts2_hierspeechpp_tpu/models/ttv.py` (reference
 ttv_v1/t2w2v_transformer.py SynthesizerTrn):
@@ -16,9 +15,16 @@ ttv_v1/t2w2v_transformer.py SynthesizerTrn):
 Parameter names are the reference checkpoint's (`enc_p`, `mel_encoder`,
 `mha`, `cond_g`, `w2v_encoder`, `w2v_decoder`, `emb_g`,
 `duration_predictor`, `RangePredictor`, `dur_downsample`, `pp`,
-`plm_conv1/2`, `quantizer`, `ssl_proj`). The training forward is not
-ported. The port runs at each request's own length, so no shape carries
-padding beyond the batch's longest member.
+`plm_conv1/2`, `quantizer`, `ssl_proj`). The port runs at each request's
+own length, so no shape carries padding beyond the batch's longest member.
+
+The s2 trainer's methods (`forward`, `pre_vq_features`) and the s1
+trainer's (`extract_tc_latent_code`), with `pooled_prosody_codes` and
+`infer_gt_dur` (the s2 eval hook), are the JAX TTVModel's. Dropout sits
+where the JAX package has it (p 0.2 in the text, mel and w2v encoders and
+the MRTE attention, 0.1 in the style encoder and the W2V decoder's WN, 0.5
+in the duration predictor); it draws only in a training build's train()
+mode under an active nn/basic.MaskSource.
 """
 from __future__ import annotations
 
@@ -46,6 +52,8 @@ from megatts2_hierspeechpp_torch.utils.masking import feature_mask
 
 
 class TextEncoder(nn.Module):
+    p_dropout = 0.2
+
     def __init__(self, n_vocab: int, n_tone: int, n_language: int,
                  hidden_channels: int = 256, filter_channels: int = 1024,
                  n_heads: int = 4, n_layers: int = 3, kernel_size: int = 9):
@@ -55,8 +63,10 @@ class TextEncoder(nn.Module):
         self.emb = Embed(n_vocab, h)
         self.emb_tone = Embed(n_tone, h)
         self.emb_language = Embed(n_language, h)
-        self.encoder = Encoder(h, filter_channels, n_heads, n_layers, kernel_size)
-        self.encoder2 = Encoder(h, filter_channels, n_heads, 1, kernel_size)
+        self.encoder = Encoder(h, filter_channels, n_heads, n_layers, kernel_size,
+                               p_dropout=self.p_dropout)
+        self.encoder2 = Encoder(h, filter_channels, n_heads, 1, kernel_size,
+                                p_dropout=self.p_dropout)
 
     def forward(self, x_ids, tone, language, x_mask):
         x = (self.emb(x_ids) * self.scale + self.emb_tone(tone) * self.scale
@@ -66,12 +76,14 @@ class TextEncoder(nn.Module):
 
 
 class MelEncoder(nn.Module):
+    p_dropout = 0.2
+
     def __init__(self, out_channels: int = 256, hidden_channels: int = 80,
                  filter_channels: int = 320, n_heads: int = 4,
                  n_layers: int = 2, kernel_size: int = 9):
         super().__init__()
         self.encoder = Encoder(hidden_channels, filter_channels, n_heads,
-                               n_layers, kernel_size)
+                               n_layers, kernel_size, p_dropout=self.p_dropout)
         self.proj = Conv1d(hidden_channels, out_channels, 1)
 
     def forward(self, mel, mel_mask):
@@ -79,14 +91,18 @@ class MelEncoder(nn.Module):
 
 
 class W2VEncoder(nn.Module):
+    p_dropout = 0.2
+
     def __init__(self, hidden_channels: int = 256, filter_channels: int = 1024,
                  n_heads: int = 4, n_layers: int = 3, kernel_size: int = 9,
                  gin_channels: int = 256):
         super().__init__()
         h = hidden_channels
         self.cond = Conv1d(gin_channels, h, 1)
-        self.encoder = Encoder(h, filter_channels, n_heads, n_layers, kernel_size)
-        self.encoder2 = Encoder(h, filter_channels, n_heads, 1, kernel_size)
+        self.encoder = Encoder(h, filter_channels, n_heads, n_layers, kernel_size,
+                               p_dropout=self.p_dropout)
+        self.encoder2 = Encoder(h, filter_channels, n_heads, 1, kernel_size,
+                                p_dropout=self.p_dropout)
 
     def forward(self, x, x_mask, g):
         x = x + self.cond(g)[:, None, :]
@@ -95,6 +111,8 @@ class W2VEncoder(nn.Module):
 
 
 class W2VDecoder(nn.Module):
+    p_dropout = 0.1
+
     def __init__(self, in_channels: int = 256, hidden_channels: int = 512,
                  kernel_size: int = 5, dilation_rate: int = 1,
                  n_layers: int = 8, output_size: int = 1024,
@@ -102,7 +120,7 @@ class W2VDecoder(nn.Module):
         super().__init__()
         self.pre = Conv1d(in_channels, hidden_channels, 1)
         self.enc = WN(hidden_channels, kernel_size, dilation_rate, n_layers,
-                      gin_channels)
+                      gin_channels, self.p_dropout)
         self.proj = Conv1d(hidden_channels, output_size, 1)
 
     def forward(self, x, x_mask, g):
@@ -166,10 +184,14 @@ def upsample_codes(x, stride: int, out_len: int):
 
 
 class TTVModel(nn.Module):
-    """SynthesizerTrn equivalent (acoustic stage), inference methods.
+    """SynthesizerTrn equivalent (acoustic stage).
 
     Built on the CPU with seeded weights (nn/init.py), then moved to
-    `device` ("cuda" by default; raises if CUDA is absent)."""
+    `device` ("cuda" by default; raises if CUDA is absent). A serving build
+    (the default) is frozen in eval() mode; `train=True` leaves the
+    parameters trainable (but the LSTMs' bias_hh, nn/lstm.py) and the
+    module in train() mode (the same members and the same seeded weights:
+    the TTV has no training-only member)."""
 
     def __init__(self, n_vocab: int = 200, n_tone: int = 10,
                  n_language: int = 3, inter_channels: int = 256,
@@ -177,7 +199,8 @@ class TTVModel(nn.Module):
                  prosody_size: int = 20, vq_bins: int = 1024, stride: int = 8,
                  text_layers: int = 3, mel_enc_layers: int = 2,
                  w2v_enc_layers: int = 3, w2v_dec_layers: int = 8,
-                 seed: int = 0, device: str | torch.device = "cuda"):
+                 seed: int = 0, device: str | torch.device = "cuda",
+                 train: bool = False):
         super().__init__()
         dev = resolve_device(device)
         ic = inter_channels
@@ -185,7 +208,7 @@ class TTVModel(nn.Module):
         self.enc_p = TextEncoder(n_vocab, n_tone, n_language, ic, 4 * ic, 4,
                                  text_layers, 9)
         self.mel_encoder = MelEncoder(256, 80, 320, 4, mel_enc_layers, 9)
-        self.mha = MultiHeadAttention(ic, ic, 4)
+        self.mha = MultiHeadAttention(ic, ic, 4, p_dropout=0.2)
         self.cond_g = Conv1d(gin_channels, ic, 1)
         self.w2v_encoder = W2VEncoder(ic, 4 * ic, 4, w2v_enc_layers, 9,
                                       gin_channels)
@@ -202,7 +225,9 @@ class TTVModel(nn.Module):
         self.quantizer = ResidualVectorQuantizer(prosody_size, 1, vq_bins)
         self.ssl_proj = Conv1d(prosody_size, ic, 1)
         init_weights(self, seed)
-        self.eval().requires_grad_(False).to(dev)
+        if not train:
+            self.eval().requires_grad_(False)
+        self.to(dev)
 
     # ---------- shared sub-paths ----------
 
@@ -232,15 +257,114 @@ class TTVModel(nn.Module):
         x_frame = gaussian_upsample(x, dur, rng, x_lengths, out_length)
         return self.dur_downsample(x_frame)  # ceil(out_length / 2)
 
-    def _prosody_codes(self, mel, mel_lengths):
-        """mel (B, T, 80) -> RVQ codes (n_q, B, T // 8)."""
+    def pre_vq_features(self, mel, mel_lengths):
+        """The quantizer's input (plm_conv1 -> max-pool 8 -> plm_conv2) and
+        its mask: (B, T // 8, 20), (B, T // 8, 1). k-means fits the
+        codebooks on these (cli/train_s2.py)."""
         mel_len = mel.shape[1]
         mel_mask = feature_mask(mel_lengths, mel_len)
         pool_mask = feature_mask(torch.ceil(mel_lengths / 8).long(),
                                  mel_len // 8)
         m = self.plm_conv1(mel[..., :self.prosody_size].float(), mel_mask)
-        m = self.plm_conv2(max_pool8(m), pool_mask)
-        return self.quantizer.encode(m)
+        return self.plm_conv2(max_pool8(m), pool_mask), pool_mask
+
+    def _prosody_codes(self, mel, mel_lengths):
+        """mel (B, T, 80) -> RVQ codes (n_q, B, T // 8)."""
+        return self.quantizer.encode(self.pre_vq_features(mel, mel_lengths)[0])
+
+    # ---------- training (the s2 and s1 trainers) ----------
+
+    def forward(self, x_ids, tone, language, x_lengths, w2v, w2v_lengths,
+                mel, mel_lengths, pitch, pitch_lengths, dur, mrte_mel,
+                mrte_mel_lengths, teacher_force_w2v=True,
+                train_vq: bool = False):
+        """The s2 training forward (JAX TTVModel.__call__). dur (B, N) are
+        the ground-truth 100 Hz frame counts; `teacher_force_w2v` (a bool
+        or a 0-d bool tensor) feeds the pitch predictor the ground-truth
+        w2v, else the prediction; `train_vq` takes one EMA step of the
+        codebooks (in place) and makes the quantizer straight-through.
+        Returns the JAX dict: l_length, l_pitch, pred_lf0 (B, 4T), w2v_pred
+        (B, T, 1024), commit_loss, codes (n_q, B, T // 8), y_mask, x_mask."""
+        mel_len = mel.shape[1]
+        x_mask = feature_mask(x_lengths, x_ids.shape[1])
+        mel_mask = feature_mask(mel_lengths, mel_len)
+        mrte_mask = feature_mask(mrte_mel_lengths, mrte_mel.shape[1])
+        pitch_mask = feature_mask(pitch_lengths, pitch.shape[1])
+
+        g = self.emb_g(mrte_mel, mrte_mask)
+        x = self._text_mrte(x_ids, tone, language, x_mask, mrte_mel,
+                            mrte_mask, g)
+        # log-domain MSE against the ground-truth durations
+        logw_ = torch.log(dur.float() + 1)[:, :, None] * x_mask
+        logw = self.duration_predictor(x, x_mask, g)
+        l_length = (logw - logw_).square().sum() / x_mask.sum()
+
+        x_frame = self._upsample_to_frames(x, dur, x_lengths, 2 * mel_len)
+        x_frame = x_frame[:, :mel_len]
+        m, _ = self.pre_vq_features(mel, mel_lengths)
+        quantized, codes, commit_loss = self.quantizer(m, train=train_vq)
+        q_up = upsample_codes(quantized, self.stride, mel_len) * mel_mask
+        x_frame = x_frame + self.ssl_proj(q_up) * mel_mask
+
+        y_mask = feature_mask(w2v_lengths, w2v.shape[1])
+        x2v = self.w2v_encoder(x_frame, y_mask, g)
+        w2v_pred = self.w2v_decoder(x2v, y_mask, g)
+        if isinstance(teacher_force_w2v, bool):
+            pp_in = w2v if teacher_force_w2v else w2v_pred
+        else:
+            pp_in = torch.where(teacher_force_w2v, w2v, w2v_pred)
+        pred_lf0 = self.pp(pp_in, g)[..., 0] * pitch_mask[..., 0]
+        lf0 = torch.log(pitch.float() + 1)
+        l_pitch = (pred_lf0 - lf0).abs().mean()
+        return {"l_length": l_length, "l_pitch": l_pitch,
+                "pred_lf0": pred_lf0, "w2v_pred": w2v_pred,
+                "commit_loss": commit_loss, "codes": codes,
+                "y_mask": y_mask, "x_mask": x_mask}
+
+    def extract_tc_latent_code(self, x_ids, tone, language, x_lengths, mel,
+                               mel_lengths, dur, mrte_mel, mrte_mel_lengths):
+        """The s1 trainer's inputs from ground-truth durations: (x_frame
+        (B, T, 256), frame-rate code ids (B, T) int32, 0 past each length)."""
+        mel_len = mel.shape[1]
+        x_mask = feature_mask(x_lengths, x_ids.shape[1])
+        mel_mask = feature_mask(mel_lengths, mel_len)
+        mrte_mask = feature_mask(mrte_mel_lengths, mrte_mel.shape[1])
+        g = self.emb_g(mrte_mel, mrte_mask)
+        x = self._text_mrte(x_ids, tone, language, x_mask, mrte_mel,
+                            mrte_mask, g)
+        x_frame = self._upsample_to_frames(x, dur, x_lengths, 2 * mel_len)
+        x_frame = x_frame[:, :mel_len]
+        codes = self._prosody_codes(mel, mel_lengths)
+        lr = upsample_codes(codes[0][..., None], self.stride, mel_len)[..., 0]
+        return x_frame, (lr * mel_mask[..., 0]).int()
+
+    def pooled_prosody_codes(self, mel, mel_lengths):
+        """mel (B, T, 80) -> RVQ code ids at the pooled rate (B, T // 8)
+        int32."""
+        return self._prosody_codes(mel, mel_lengths)[0].int()
+
+    def infer_gt_dur(self, x_ids, tone, language, x_lengths, mel, mel_lengths,
+                     dur, mrte_mel=None, mrte_mel_lengths=None):
+        """Inference from ground-truth durations with the mel's own prosody
+        codes (the s2 eval hook): (w2v_pred (B, T, 1024), pred_lf0
+        (B, 4T)). The style vector comes from `mel` itself."""
+        mel_len = mel.shape[1]
+        x_mask = feature_mask(x_lengths, x_ids.shape[1])
+        mel_mask = feature_mask(mel_lengths, mel_len)
+        g = self.emb_g(mel, mel_mask)
+        if mrte_mel is None:
+            mrte_mel, mrte_mel_lengths = mel, mel_lengths
+        mrte_mask = feature_mask(mrte_mel_lengths, mrte_mel.shape[1])
+        x = self._text_mrte(x_ids, tone, language, x_mask, mrte_mel,
+                            mrte_mask, g)
+        x_frame = self._upsample_to_frames(x, dur, x_lengths, 2 * mel_len)
+        x_frame = x_frame[:, :mel_len]
+        quantized = self.quantizer.decode(self._prosody_codes(mel, mel_lengths))
+        q_up = upsample_codes(quantized, self.stride, mel_len) * mel_mask
+        x_frame = x_frame + self.ssl_proj(q_up) * mel_mask
+        x2v = self.w2v_encoder(x_frame, mel_mask, g)
+        w2v_pred = self.w2v_decoder(x2v, mel_mask, g)
+        return w2v_pred, self.pp(w2v_pred, g)[..., 0]
 
     # ---------- inference ----------
 

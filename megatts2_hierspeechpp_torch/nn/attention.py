@@ -6,6 +6,9 @@ q/k/v/o projections, an optional windowed relative-position bias (window 4,
 heads share one table: `emb_rel_k` / `emb_rel_v`), additive -1e4 masking.
 Parameter names are the reference checkpoint's (`attn_layers.{i}`,
 `norm_layers_1.{i}`, `ffn_layers.{i}.conv_{1,2}`, `norm_layers_2.{i}`).
+Dropout sites (p_dropout, training mode; nn/basic.Dropout) are the JAX
+package's, in its call order: the attention weights, the FFN's hidden
+activation, and each sublayer's output before its residual add.
 """
 from __future__ import annotations
 
@@ -16,7 +19,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from megatts2_hierspeechpp_torch.nn.basic import AffineLayerNorm
+from megatts2_hierspeechpp_torch.nn.basic import AffineLayerNorm, Dropout
 from megatts2_hierspeechpp_torch.nn.conv import Conv1d
 
 MASK_VALUE = -1e4  # the reference's masked_fill value
@@ -50,10 +53,11 @@ def _slice_rel_emb(emb, length: int, window_size: int):
 
 class MultiHeadAttention(nn.Module):
     def __init__(self, channels: int, out_channels: int, n_heads: int,
-                 window_size: Optional[int] = None):
+                 window_size: Optional[int] = None, p_dropout: float = 0.0):
         super().__init__()
         self.channels, self.n_heads = channels, n_heads
         self.window_size = window_size
+        self.drop = Dropout(p_dropout)
         self.conv_q = Conv1d(channels, channels, 1)
         self.conv_k = Conv1d(channels, channels, 1)
         self.conv_v = Conv1d(channels, channels, 1)
@@ -80,7 +84,7 @@ class MultiHeadAttention(nn.Module):
             scores = scores + _rel_to_abs(torch.matmul(qs, rel_k[0].t()))
         if attn_mask is not None:
             scores = scores.masked_fill(~attn_mask.bool(), MASK_VALUE)
-        p = torch.softmax(scores, dim=-1)
+        p = self.drop(torch.softmax(scores, dim=-1))
         out = torch.matmul(p, v)
         if self.window_size is not None:
             rel_v = _slice_rel_emb(self.emb_rel_v, tk, self.window_size)
@@ -94,8 +98,10 @@ class FFN(nn.Module):
     ((k-1)//2 left, k//2 right)."""
 
     def __init__(self, in_channels: int, out_channels: int,
-                 filter_channels: int, kernel_size: int):
+                 filter_channels: int, kernel_size: int,
+                 p_dropout: float = 0.0):
         super().__init__()
+        self.drop = Dropout(p_dropout)
         pad = ((kernel_size - 1) // 2, kernel_size // 2) if kernel_size > 1 else 0
         self.conv_1 = Conv1d(in_channels, filter_channels, kernel_size,
                              padding=pad)
@@ -103,7 +109,7 @@ class FFN(nn.Module):
                              padding=pad)
 
     def forward(self, x, x_mask):
-        y = torch.relu(self.conv_1(x * x_mask))
+        y = self.drop(torch.relu(self.conv_1(x * x_mask)))
         return self.conv_2(y * x_mask) * x_mask
 
 
@@ -112,16 +118,18 @@ class Encoder(nn.Module):
 
     def __init__(self, hidden_channels: int, filter_channels: int,
                  n_heads: int, n_layers: int, kernel_size: int = 1,
-                 window_size: int = 4):
+                 window_size: int = 4, p_dropout: float = 0.0):
         super().__init__()
         hc = hidden_channels
+        self.drop = Dropout(p_dropout)
         self.attn_layers = nn.ModuleList(
-            MultiHeadAttention(hc, hc, n_heads, window_size)
+            MultiHeadAttention(hc, hc, n_heads, window_size, p_dropout)
             for _ in range(n_layers))
         self.norm_layers_1 = nn.ModuleList(
             AffineLayerNorm(hc) for _ in range(n_layers))
         self.ffn_layers = nn.ModuleList(
-            FFN(hc, hc, filter_channels, kernel_size) for _ in range(n_layers))
+            FFN(hc, hc, filter_channels, kernel_size, p_dropout)
+            for _ in range(n_layers))
         self.norm_layers_2 = nn.ModuleList(
             AffineLayerNorm(hc) for _ in range(n_layers))
 
@@ -131,6 +139,6 @@ class Encoder(nn.Module):
         x = x * x_mask
         for attn, n1, ffn, n2 in zip(self.attn_layers, self.norm_layers_1,
                                      self.ffn_layers, self.norm_layers_2):
-            x = n1(x + attn(x, x, attn_mask))
-            x = n2(x + ffn(x, x_mask))
+            x = n1(x + self.drop(attn(x, x, attn_mask)))
+            x = n2(x + self.drop(ffn(x, x_mask)))
         return x * x_mask

@@ -4,6 +4,8 @@ Counterpart of `megatts2_hierspeechpp_tpu/nn/basic.py`.
 """
 from __future__ import annotations
 
+import contextlib
+
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -63,3 +65,69 @@ def fused_add_tanh_sigmoid_multiply(a, b, n: int):
     halves (reference commons.fused_add_tanh_sigmoid_multiply)."""
     s = a + b
     return torch.tanh(s[..., :n]) * torch.sigmoid(s[..., n:])
+
+
+# ---------- dropout ----------
+#
+# A JAX nn.Dropout site draws its keep mask from the "dropout" rng when the
+# forward runs with deterministic=False. The port's Dropout draws only when
+# its module is in train() mode AND a MaskSource is active
+# (`with dropout_masks(source):`), the counterpart of passing that rng; in
+# eval() mode, or with no source (the JAX vocoder trainer's deterministic
+# forward), a site passes its input through and draws nothing.
+
+_SOURCES: list = []
+
+
+class MaskSource:
+    """Keep masks for the dropout sites of one forward, in call order: drawn
+    from `generator` (on the generator's device, then moved to the
+    input's), or taken from `masks`, a list of bool keep masks (the tests
+    feed the JAX forward's)."""
+
+    def __init__(self, generator: torch.Generator | None = None, masks=None):
+        if (generator is None) == (masks is None):
+            raise ValueError("give a generator or a list of masks")
+        self.generator = generator
+        self.masks = None if masks is None else list(masks)
+
+    def keep(self, shape, p: float, device) -> torch.Tensor:
+        if self.masks is not None:
+            if not self.masks:
+                raise RuntimeError("more dropout sites than masks given")
+            m = torch.as_tensor(self.masks.pop(0))
+            if tuple(m.shape) != tuple(shape):
+                raise ValueError(f"dropout mask {tuple(m.shape)} for an "
+                                 f"input {tuple(shape)}")
+            return m.to(device=device, dtype=torch.bool)
+        g = self.generator
+        return (torch.rand(shape, generator=g, device=g.device) < 1.0 - p).to(device)
+
+
+@contextlib.contextmanager
+def dropout_masks(source: MaskSource):
+    """The dropout sites of training-mode modules draw from `source` inside
+    this context."""
+    _SOURCES.append(source)
+    try:
+        yield source
+    finally:
+        _SOURCES.remove(source)
+
+
+class Dropout(nn.Module):
+    """flax nn.Dropout(p): where(keep, x / (1 - p), 0) with keep ~
+    Bernoulli(1 - p), from the active MaskSource (see above)."""
+
+    def __init__(self, p: float = 0.0):
+        super().__init__()
+        self.p = p
+
+    def forward(self, x):
+        if not self.training or self.p == 0.0 or not _SOURCES:
+            return x
+        keep = _SOURCES[-1].keep(x.shape, self.p, x.device)
+        return torch.where(keep, x / (1.0 - self.p), torch.zeros_like(x))
+
+    def extra_repr(self) -> str:
+        return f"p={self.p}"

@@ -10,6 +10,9 @@ loads as it is:
   WNConvTranspose1d  weight_g (Cin, 1, 1), weight_v (Cin, Cout, K), bias
   WNConv2d           weight_g (Cout, 1, 1, 1), weight_v (Cout, Cin, Kh, Kw),
                      bias
+  SNConv2d           weight_orig (Cout, Cin, Kh, Kw), bias; buffers
+                     weight_u (Cout,), weight_v (Cin*Kh*Kw,) (torch
+                     spectral_norm's names)
 
 Weight norm is torch's `weight_norm(dim=0)`: w = g * v / ||v||, the norm
 taken over every axis but the first.
@@ -135,3 +138,52 @@ class WNConv2d(nn.Module):
     def forward(self, x):
         return conv2d_op(x, weight_norm(self.weight_g, self.weight_v),
                          self.bias, self.stride, self.padding, self.dilation)
+
+
+class SNConv2d(nn.Module):
+    """Spectral-normalised Conv2d on (B, H, W, C), the JAX SNConv2d: the
+    weight is divided by sigma = u . (W v), W the (Cout, Cin*Kh*Kw) matrix.
+
+    `update_u=True` runs one power iteration from the stored u
+    (v = W^T u / |W^T u|, u = W v / |W v|, each norm + 1e-12), stores the new
+    u and v, and takes sigma from them; as in JAX, that pass's u and v are
+    functions of W, so its gradient flows through the iteration. Without
+    `update_u` sigma reads the stored u and v as constants. This is not
+    torch.nn.utils.spectral_norm, which iterates on every training-mode
+    forward and always holds u and v constant: the s2 trainer updates u and
+    v on the D step's real pass only (models/discriminators.py)."""
+
+    def __init__(self, in_channels: int, out_channels: int,
+                 kernel_size: tuple[int, int], stride=(1, 1), padding=(0, 0),
+                 dilation=(1, 1)):
+        super().__init__()
+        self.stride, self.padding, self.dilation = stride, padding, dilation
+        self.weight_orig = nn.Parameter(
+            torch.empty(out_channels, in_channels, *kernel_size))
+        self.bias = nn.Parameter(torch.zeros(out_channels))
+        n_in = in_channels * kernel_size[0] * kernel_size[1]
+        self.register_buffer("weight_u", torch.randn(
+            out_channels, generator=torch.Generator().manual_seed(0)))
+        self.register_buffer("weight_v", torch.randn(
+            n_in, generator=torch.Generator().manual_seed(1)))
+
+    def weight(self, update_u: bool = False):
+        """The normalised (Cout, Cin, Kh, Kw) weight."""
+        w = self.weight_orig
+        w_mat = w.reshape(w.shape[0], -1)
+        u, v = self.weight_u, self.weight_v
+        if update_u:
+            v = w_mat.t() @ u
+            v = v / (torch.linalg.vector_norm(v) + 1e-12)
+            u = w_mat @ v
+            u = u / (torch.linalg.vector_norm(u) + 1e-12)
+            # new buffers, not an in-place write: the old u is saved for
+            # this pass's backward
+            self.weight_u = u.detach().clone()
+            self.weight_v = v.detach().clone()
+        sigma = torch.dot(u, w_mat @ v)
+        return w / sigma
+
+    def forward(self, x, update_u: bool = False):
+        return conv2d_op(x, self.weight(update_u), self.bias, self.stride,
+                         self.padding, self.dilation)

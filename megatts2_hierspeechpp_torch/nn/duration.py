@@ -19,7 +19,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from megatts2_hierspeechpp_torch.nn.basic import AffineLayerNorm
+from megatts2_hierspeechpp_torch.nn.basic import AffineLayerNorm, Dropout
 from megatts2_hierspeechpp_torch.nn.conv import Conv1d
 from megatts2_hierspeechpp_torch.nn.lstm import BiLSTM, StackedBiLSTM
 
@@ -30,6 +30,7 @@ class DurationPredictor(nn.Module):
     def __init__(self, in_channels: int = 256, filter_channels: int = 256,
                  gin_channels: int = 256):
         super().__init__()
+        self.drop = Dropout(0.5)   # the JAX DurationPredictor's p
         self.cond = Conv1d(gin_channels, in_channels, 1)
         self.lstms = StackedBiLSTM(in_channels, filter_channels, 2,
                                    length_aware=False)
@@ -40,7 +41,7 @@ class DurationPredictor(nn.Module):
         """x: (B, N, C); x_mask: (B, N, 1); g: (B, Gin) -> (B, N, 1)."""
         if g is not None:
             x = x + self.cond(g)[:, None, :]
-        y = torch.relu(self.norm_2(self.lstms(x * x_mask)))
+        y = self.drop(torch.relu(self.norm_2(self.lstms(x * x_mask))))
         return F.softplus(self.proj(y * x_mask)) * x_mask
 
 

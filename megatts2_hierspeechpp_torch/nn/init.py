@@ -27,6 +27,8 @@ Wav2Vec2 and the denoiser (MPNet) add:
   torch Conv1d / Conv2d  as Conv1d above; ConvTranspose2d as a transposed
           conv (fan_in Cin*Kh*Kw/stride)
   WNConv2d (the discriminators')  as a weight-norm conv, fan_in Cin*Kh*Kw
+  SNConv2d (the s2 trainer's MRSD)  weight_orig as a k > 1 conv; its u / v
+          keep their constructor's seeded values
   w2v positional conv (weight norm over the kernel axis): weight_v as a
           k > 1 conv, weight_g = ||weight_v|| per tap
   attention in_proj_weight  N(0, 1 / dim)
@@ -44,6 +46,7 @@ from megatts2_hierspeechpp_torch.nn.activations import SnakeBeta
 from megatts2_hierspeechpp_torch.nn.attention import MultiHeadAttention
 from megatts2_hierspeechpp_torch.nn.conv import (
     Conv1d,
+    SNConv2d,
     WNConv1d,
     WNConv2d,
     WNConvTranspose1d,
@@ -82,6 +85,8 @@ def init_weights(module: nn.Module, seed: int) -> None:
         elif isinstance(m, (nn.Conv1d, nn.Conv2d)):
             g = gain if m.weight[0, 0].numel() > 1 else 1.0
             normal_(m.weight, g * m.weight[0].numel() ** -0.5)
+        elif isinstance(m, SNConv2d):
+            normal_(m.weight_orig, gain * m.weight_orig[0].numel() ** -0.5)
         elif isinstance(m, (WNConv1d, WNConv2d)):
             normal_(m.weight_v, gain * m.weight_v[0].numel() ** -0.5)
             dims = tuple(range(1, m.weight_v.dim()))

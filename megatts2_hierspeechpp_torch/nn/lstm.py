@@ -12,6 +12,11 @@ direction starts at each sequence's last true frame and padding outputs are
 zero. `length_aware=False` (the DurationPredictor) runs over the padded
 batch, so the backward direction consumes the padding zeros, as in the
 reference.
+
+The JAX LSTM has one bias per gate, the port bias_ih = b and bias_hh = 0
+(convert.py). bias_hh is left out of training (requires_grad False), so a
+training build learns the one bias JAX learns: training both would move
+their sum twice per step.
 """
 from __future__ import annotations
 
@@ -28,6 +33,9 @@ class StackedBiLSTM(nn.LSTM):
         super().__init__(input_size, hidden_size, num_layers,
                          batch_first=True, bidirectional=True)
         self.length_aware = length_aware
+        for name, p in self.named_parameters():
+            if name.startswith("bias_hh"):
+                p.requires_grad_(False)
 
     def forward(self, x, lengths: Optional[torch.Tensor] = None):
         """x: (B, T, In); lengths: (B,) true lengths (used when

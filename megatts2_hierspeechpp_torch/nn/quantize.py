@@ -1,21 +1,35 @@
-"""Residual vector quantizer, inference half (encode / decode).
+"""Residual vector quantizer with EMA codebook learning.
 
 Counterpart of `megatts2_hierspeechpp_tpu/nn/quantize.py`
-(ResidualVectorQuantizer with a Euclidean codebook). The codebook and its
-EMA statistics are buffers named as the reference checkpoint names them
+(ResidualVectorQuantizer with a Euclidean codebook; reference EnCodec
+`core_vq`). The codebook and its EMA statistics are buffers named as the
+reference checkpoint names them
 (`vq.layers.{i}._codebook.{embed,embed_avg,cluster_size,inited}`); the JAX
-package keeps them in its "vq" variable collection. Training (EMA updates,
-dead-code expiry, k-means init) is not ported.
+package keeps them in its "vq" variable collection.
+
+Training (`ResidualVectorQuantizer(x, train=True)`) updates the buffers in
+place, all in float32: one-hot counts and embedding sums of the batch, EMA
+decay 0.99, Laplace smoothing 1e-5, embed = embed_avg / smoothed counts;
+the output is straight-through, and the commit loss mean((sg(q) - x)^2).
+The k-means initialisation is ops/kmeans.py.
+
+Dead-code expiry draws nothing here. In the JAX package (quantize.py:88-108)
+and the reference alike, the expired codewords are replaced in `embed` and
+that `embed` is then overwritten by `embed_avg / smoothed` in the same
+update, so the replacement (and its rng) changes no state and no output.
 """
 from __future__ import annotations
 
 import torch
 from torch import nn
 
+DECAY, EPSILON = 0.99, 1e-5   # EMA decay, Laplace smoothing
+
 
 class EuclideanCodebook(nn.Module):
     def __init__(self, dim: int, codebook_size: int):
         super().__init__()
+        self.codebook_size = codebook_size
         self.register_buffer("inited", torch.ones(1))
         self.register_buffer("cluster_size", torch.zeros(codebook_size))
         self.register_buffer("embed", torch.zeros(codebook_size, dim))
@@ -33,11 +47,43 @@ class EuclideanCodebook(nn.Module):
     def decode(self, codes):
         return self.embed[codes.long()]
 
+    @torch.no_grad()
+    def ema_update(self, x, codes) -> None:
+        """One EMA step of the statistics from the batch x (..., D) and its
+        codes (...)."""
+        flat = x.reshape(-1, x.shape[-1]).float()
+        onehot = nn.functional.one_hot(codes.reshape(-1),
+                                       self.codebook_size).float()
+        counts = onehot.sum(0)
+        embed_sum = onehot.t() @ flat
+        cluster_size = DECAY * self.cluster_size + (1 - DECAY) * counts
+        embed_avg = DECAY * self.embed_avg + (1 - DECAY) * embed_sum
+        total = cluster_size.sum()
+        smoothed = ((cluster_size + EPSILON)
+                    / (total + self.codebook_size * EPSILON) * total)
+        self.cluster_size.copy_(cluster_size)
+        self.embed_avg.copy_(embed_avg)
+        self.embed.copy_(embed_avg / smoothed[:, None])
+
 
 class VectorQuantization(nn.Module):
     def __init__(self, dim: int, codebook_size: int):
         super().__init__()
         self._codebook = EuclideanCodebook(dim, codebook_size)
+
+    def forward(self, x, train: bool = False):
+        """x: (B, T, D) -> (quantized, codes, commit loss). With `train`
+        the codebook takes one EMA step (after the codes and the quantized
+        output are read from the old codebook), the output is
+        straight-through and the commit loss is mean((sg(q) - x)^2)."""
+        cb = self._codebook
+        codes = cb.encode(x)
+        quantized = cb.decode(codes)
+        if not train:
+            return quantized.to(x.dtype), codes, x.new_zeros((), dtype=torch.float32)
+        cb.ema_update(x, codes)
+        commit = (quantized - x).float().square().mean()
+        return x + (quantized - x).detach(), codes, commit
 
 
 class _Layers(nn.Module):
@@ -51,6 +97,19 @@ class ResidualVectorQuantizer(nn.Module):
     def __init__(self, dimension: int = 20, n_q: int = 1, bins: int = 1024):
         super().__init__()
         self.vq = _Layers(dimension, bins, n_q)
+
+    def forward(self, x, train: bool = False):
+        """x: (B, T, D) -> (quantized sum (B, T, D), codes (n_q, B, T), the
+        mean of the stages' commit losses)."""
+        residual, out = x, torch.zeros_like(x)
+        all_codes, losses = [], []
+        for layer in self.vq.layers:
+            quantized, codes, loss = layer(residual, train=train)
+            residual = residual - quantized
+            out = out + quantized
+            all_codes.append(codes)
+            losses.append(loss)
+        return out, torch.stack(all_codes), torch.stack(losses).mean()
 
     def encode(self, x):
         """x: (B, T, D) -> codes (n_q, B, T)."""

@@ -2,9 +2,9 @@
 
 Counterpart of `megatts2_hierspeechpp_tpu/nn/styleencoder.py` (reference
 styleencoder.py:33-91): spectral 1x1 convs with Mish, two Conv1dGLU
-temporal blocks, one self-attention layer, 1x1 fc, temporal pool. Inference
-only, so the reference's dropouts are Identity placeholders that keep the
-`spectral.{0,3}` parameter indices.
+temporal blocks, one self-attention layer, 1x1 fc, temporal pool. The
+dropouts (p 0.1, training mode; nn/basic.Dropout) sit where the
+reference's do, so `spectral.{0,3}` keep their parameter indices.
 """
 from __future__ import annotations
 
@@ -12,13 +12,16 @@ import torch
 from torch import nn
 
 from megatts2_hierspeechpp_torch.nn.attention import MultiHeadAttention
-from megatts2_hierspeechpp_torch.nn.basic import mish
+from megatts2_hierspeechpp_torch.nn.basic import Dropout, mish
 from megatts2_hierspeechpp_torch.nn.conv import Conv1d
 
 
 class Mish(nn.Module):
     def forward(self, x):
         return mish(x)
+
+
+P_DROPOUT = 0.1
 
 
 class Conv1dGLU(nn.Module):
@@ -28,11 +31,12 @@ class Conv1dGLU(nn.Module):
         self.out_channels = out_channels
         self.conv1 = Conv1d(in_channels, 2 * out_channels, kernel_size,
                             padding=2)
+        self.dropout = Dropout(P_DROPOUT)
 
     def forward(self, x):
         y = self.conv1(x)
         y1, y2 = y[..., :self.out_channels], y[..., self.out_channels:]
-        return x + y1 * torch.sigmoid(y2)
+        return x + self.dropout(y1 * torch.sigmoid(y2))
 
 
 class StyleEncoder(nn.Module):
@@ -40,11 +44,13 @@ class StyleEncoder(nn.Module):
                  out_dim: int = 256):
         super().__init__()
         self.spectral = nn.Sequential(
-            Conv1d(in_dim, hidden_dim, 1), Mish(), nn.Identity(),
-            Conv1d(hidden_dim, hidden_dim, 1), Mish(), nn.Identity())
+            Conv1d(in_dim, hidden_dim, 1), Mish(), Dropout(P_DROPOUT),
+            Conv1d(hidden_dim, hidden_dim, 1), Mish(), Dropout(P_DROPOUT))
         self.temporal = nn.Sequential(
             Conv1dGLU(hidden_dim, hidden_dim), Conv1dGLU(hidden_dim, hidden_dim))
-        self.slf_attn = MultiHeadAttention(hidden_dim, hidden_dim, 2)
+        self.slf_attn = MultiHeadAttention(hidden_dim, hidden_dim, 2,
+                                           p_dropout=P_DROPOUT)
+        self.dropout = Dropout(P_DROPOUT)
         self.fc = Conv1d(hidden_dim, out_dim, 1)
 
     def forward(self, x, mask):
@@ -52,7 +58,7 @@ class StyleEncoder(nn.Module):
         y = self.spectral(x) * mask
         y = self.temporal(y) * mask
         attn_mask = (mask[:, None, :, 0:1] * mask[:, None, None, :, 0]).bool()
-        y = y + self.slf_attn(y, y, attn_mask)
+        y = y + self.dropout(self.slf_attn(y, y, attn_mask))
         y = self.fc(y)
         # the reference pools over ALL frames (padding included) while the
         # denominator is the true length (styleencoder.py:83-91)

@@ -3,22 +3,28 @@
 Counterpart of `megatts2_hierspeechpp_tpu/nn/wavenet.py` (reference
 modules.WN): weight-normalized dilated in-convs to 2C gated channels, one
 1x1 cond conv projected per layer, res+skip 1x1 convs (last layer
-skip-only).
+skip-only). The dropout (p_dropout, training mode) acts on the gated
+activations, as the JAX WN's.
 """
 from __future__ import annotations
 
 import torch
 from torch import nn
 
-from megatts2_hierspeechpp_torch.nn.basic import fused_add_tanh_sigmoid_multiply
+from megatts2_hierspeechpp_torch.nn.basic import (
+    Dropout,
+    fused_add_tanh_sigmoid_multiply,
+)
 from megatts2_hierspeechpp_torch.nn.conv import WNConv1d
 
 
 class WN(nn.Module):
     def __init__(self, hidden_channels: int, kernel_size: int,
-                 dilation_rate: int, n_layers: int, gin_channels: int = 0):
+                 dilation_rate: int, n_layers: int, gin_channels: int = 0,
+                 p_dropout: float = 0.0):
         super().__init__()
         hc = hidden_channels
+        self.drop = Dropout(p_dropout)
         self.hidden_channels, self.n_layers = hc, n_layers
         self.cond_layer = (WNConv1d(gin_channels, 2 * hc * n_layers, 1)
                            if gin_channels else None)
@@ -44,7 +50,7 @@ class WN(nn.Module):
                 g_l = g_all[..., i * 2 * hc:(i + 1) * 2 * hc]
             else:
                 g_l = torch.zeros_like(x_in)
-            acts = fused_add_tanh_sigmoid_multiply(x_in, g_l, hc)
+            acts = self.drop(fused_add_tanh_sigmoid_multiply(x_in, g_l, hc))
             res_skip = self.res_skip_layers[i](acts)
             if i < self.n_layers - 1:
                 x = (x + res_skip[..., :hc]) * x_mask
