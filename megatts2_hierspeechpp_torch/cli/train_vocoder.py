@@ -16,7 +16,12 @@ Differences from the JAX CLI:
     its compile time; the port has no compile);
   - a resumed run starts at the epoch its step count is in (the JAX CLI
     starts again at epoch 0);
-  - no eval hook yet.
+  - train.eval_plots false: the eval scalar without the excitation PNG
+    (no matplotlib).
+
+Every train.eval_interval steps (none when the key is absent, as the JAX
+CLI), the eval hook synthesises the first batch of epoch 0 with the
+inference path and logs eval/mel_l1 (train/evalhooks.make_vocoder_eval_fn).
 
 Usage: python -m megatts2_hierspeechpp_torch.cli.train_vocoder \
     -c configs/hierspeechpp.json -m <run> [--device cuda]
@@ -45,6 +50,7 @@ from megatts2_hierspeechpp_torch.models.vocoder import HierVocoder
 from megatts2_hierspeechpp_torch.ops.stft import linear_spectrogram
 from megatts2_hierspeechpp_torch.train import checkpoints as ckpt_lib
 from megatts2_hierspeechpp_torch.train import vocoder as vt
+from megatts2_hierspeechpp_torch.train.evalhooks import make_vocoder_eval_fn
 from megatts2_hierspeechpp_torch.train.loop import run_training
 from megatts2_hierspeechpp_torch.utils.config import load_hparams, save_hparams
 
@@ -150,12 +156,16 @@ def main(argv=None):
     def to_device(batch):
         return {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
 
+    eval_fn = make_vocoder_eval_fn(
+        vocoder_batch(ds, sampler.epoch_batches(0)[0]),
+        plot=hps.train.get("eval_plots", True))
     per_epoch = max(len(sampler.epoch_batches(0)), 1)
     return run_training(
         state, train_step, batches, model_dir, epochs=hps.train.epochs,
         seed=hps.train.seed, log_interval=hps.train.log_interval,
         save_interval=hps.train.save_interval, to_device=to_device,
-        start_epoch=state.step // per_epoch)
+        start_epoch=state.step // per_epoch,
+        eval_interval=hps.train.get("eval_interval", None), eval_fn=eval_fn)
 
 
 if __name__ == "__main__":

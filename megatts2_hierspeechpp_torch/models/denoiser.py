@@ -1,5 +1,5 @@
 """MP-SENet denoiser (MPNet): a magnitude mask and a phase decoder over the
-compressed STFT, inference only.
+compressed STFT.
 
 Counterpart of `megatts2_hierspeechpp_tpu/models/denoiser.py` (reference
 denoiser/{generator.py, conformer.py}): DenseEncoder (dilated dense conv2d
@@ -14,18 +14,27 @@ Parameter names are the reference checkpoint's.
 Quirk kept for checkpoint parity: the reference feeds (N, L, C) tensors to
 torch MultiheadAttention with batch_first=False, so attention mixes axis 0:
 over batch x freq in the time conformer, over batch x frames in the
-frequency conformer. So the model serves one waveform at a time (B = 1),
-and the frequency conformer's scores grow as frames^2: `attn_chunk` splits
-the queries into chunks that each see every key, which gives the dense
-result exactly in less memory.
+frequency conformer. So a serving build runs one waveform at a time
+(B = 1). A training build (`train=True`, as the JAX trainer) takes B > 1
+and computes exactly that mixing, as JAX does. Its BatchNorm normalises
+with the batch's statistics in train() mode and moves the running ones.
+
+`attn_chunk` splits the queries into chunks that each see every key,
+which gives the dense result exactly; under autograd each chunk is
+checkpointed, so the backward holds one chunk's scores at a time (JAX
+`_attn_q_chunked`). `remat` checkpoints each TS block (JAX
+`nn.remat(TSConformerBlock)`); the recompute does not move BatchNorm's
+running statistics a second time.
 """
 from __future__ import annotations
 
+from contextlib import contextmanager
 from typing import Optional
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from megatts2_hierspeechpp_torch.device import resolve_device
 from megatts2_hierspeechpp_torch.nn.init import init_weights
@@ -82,7 +91,9 @@ class TorchMHA(nn.Module):
     applied with batch_first=False semantics to (L, N, E): attention runs
     over axis 0. attn_chunk: None, the dense form; else queries in chunks of
     that many rows, each against every key: the same contraction per row,
-    with (N, H, chunk, L) scores at a time in place of (N, H, L, L)."""
+    with (N, H, chunk, L) scores at a time in place of (N, H, L, L). Under
+    autograd each chunk is checkpointed, so its scores are recomputed in
+    the backward rather than kept."""
 
     def __init__(self, dim: int, n_heads: int,
                  attn_chunk: Optional[int] = None):
@@ -103,8 +114,15 @@ class TorchMHA(nn.Module):
             # every chunk c rows (the last zero-padded, as the JAX form), so
             # each runs the dense form's products at one shape
             qp = F.pad(q, (0, 0, 0, 0, 0, 0, 0, (-l) % c))
-            att = torch.cat([_attn_dense(qp[i:i + c], k, v)
-                             for i in range(0, l, c)])[:l]
+            ckpt = torch.is_grad_enabled() and q.requires_grad
+
+            def attn(qc):
+                if ckpt:
+                    return checkpoint(_attn_dense, qc, k, v, use_reentrant=False,
+                                      preserve_rng_state=False)
+                return _attn_dense(qc, k, v)
+
+            att = torch.cat([attn(qp[i:i + c]) for i in range(0, l, c)])[:l]
         else:
             att = _attn_dense(q, k, v)
         return self.out_proj(att.reshape(l, n, e))
@@ -180,6 +198,40 @@ class ConformerBlock(nn.Module):
         return self.post_norm(x)
 
 
+@contextmanager
+def restored_batch_stats(module: nn.Module):
+    """The BatchNorm buffers of `module` (running statistics and
+    num_batches_tracked) as they were on entry, once the block is left."""
+    bufs = [b for m in module.modules()
+            if isinstance(m, nn.modules.batchnorm._BatchNorm)
+            for b in m.buffers()]
+    saved = [b.clone() for b in bufs]
+    try:
+        yield
+    finally:
+        with torch.no_grad():
+            for b, v in zip(bufs, saved):
+                b.copy_(v)
+
+
+def remat(block: nn.Module, x):
+    """block(x) with its activations recomputed in the backward
+    (torch.utils.checkpoint). The first run moves the BatchNorm running
+    statistics; the recompute runs the same ops (so it saves the same
+    tensors) and its update is undone, so one step moves them once, as JAX
+    nn.remat applies the batch_stats mutation once."""
+    runs = []
+
+    def run(y):
+        runs.append(None)
+        if len(runs) == 1:
+            return block(y)
+        with restored_batch_stats(block):
+            return block(y)
+
+    return checkpoint(run, x, use_reentrant=False, preserve_rng_state=False)
+
+
 class TSConformerBlock(nn.Module):
     """The time conformer over (B F, T, C), then the frequency conformer
     over (B T, F, C), each with a residual."""
@@ -244,14 +296,22 @@ class PhaseDecoder(nn.Module):
 class MPNet(nn.Module):
     """Reference widths by default. Built on the CPU with seeded weights
     (nn/init.py), then moved to `device` ("cuda" by default; raises if CUDA
-    is absent). attn_chunk as TorchMHA's, in every conformer."""
+    is absent). attn_chunk as TorchMHA's, in every conformer.
+
+    A serving build (the default) is frozen, in eval() mode, and takes
+    B = 1. `train=True` leaves every parameter trainable and the module in
+    train() mode, and takes any B (the rows of a batch attend to each
+    other, as in the JAX trainer); `remat` then checkpoints each TS block
+    under autograd. Both builds hold the same weights for a seed."""
 
     def __init__(self, dense_channel: int = 64, num_tsblocks: int = 4,
                  n_freqs: int = 201, beta: float = 2.0,
                  attn_chunk: Optional[int] = None, seed: int = 0,
-                 device: str | torch.device = "cuda"):
+                 device: str | torch.device = "cuda", train: bool = False,
+                 remat: bool = False):
         super().__init__()
         dev = resolve_device(device)
+        self.batched, self.remat = train, remat
         self.dense_encoder = DenseEncoder(dense_channel)
         self.TSConformer = nn.ModuleList(
             TSConformerBlock(dense_channel, attn_chunk)
@@ -259,7 +319,9 @@ class MPNet(nn.Module):
         self.mask_decoder = MaskDecoder(dense_channel, n_freqs, beta)
         self.phase_decoder = PhaseDecoder(dense_channel)
         init_weights(self, seed)
-        self.eval().requires_grad_(False).to(dev)
+        if not train:
+            self.eval().requires_grad_(False)
+        self.to(dev)
 
     def set_attn_chunk(self, chunk: Optional[int]) -> None:
         """Query chunk of every conformer's attention (None: dense)."""
@@ -268,15 +330,16 @@ class MPNet(nn.Module):
                 m.attn_chunk = chunk
 
     def forward(self, noisy_mag, noisy_pha):
-        """noisy_mag / noisy_pha: (1, T, F) -> (denoised mag, denoised pha),
-        each (1, T, F). One waveform at a time: the attention mixes axis 0,
-        which holds the batch with the frequencies or frames."""
-        if noisy_mag.shape[0] != 1:
+        """noisy_mag / noisy_pha: (B, T, F) -> (denoised mag, denoised pha),
+        each (B, T, F). A serving build takes B = 1: the attention mixes
+        axis 0, which holds the batch with the frequencies or frames."""
+        if noisy_mag.shape[0] != 1 and not self.batched:
             raise ValueError(
                 f"MPNet runs at B = 1 (got B = {noisy_mag.shape[0]}): its "
                 "attention mixes the rows of a batch")
-        x = torch.stack([noisy_mag, noisy_pha], dim=1)  # (1, 2, T, F)
+        x = torch.stack([noisy_mag, noisy_pha], dim=1)  # (B, 2, T, F)
         x = self.dense_encoder(x)
+        ckpt = self.remat and torch.is_grad_enabled()
         for block in self.TSConformer:
-            x = block(x)
+            x = remat(block, x) if ckpt else block(x)
         return noisy_mag * self.mask_decoder(x), self.phase_decoder(x)

@@ -57,12 +57,17 @@ def interp_linear(x, out_len: int):
 class SpeechSR(nn.Module):
     """rate_num / rate_den = 3/1 for 48 kHz, 3/2 for 24 kHz. Built on the
     CPU with seeded weights, then moved to `device` ("cuda" by default;
-    raises if CUDA is absent)."""
+    raises if CUDA is absent). A serving build (the default) is frozen;
+    `train=True` leaves every parameter trainable (the same weights for a
+    seed). The forward is the same in both: at C <= 64 the whole hi-rate
+    stage runs as fused_amp_triple, whose backward reaches conv_pre, every
+    AMPBlock, activation_post and conv_post."""
 
     def __init__(self, upsample_initial_channel: int = 32, rate_num: int = 3,
                  rate_den: int = 1, resblock_kernel_sizes=(3, 7, 11),
                  resblock_dilation_sizes=((1, 3, 5), (1, 3, 5), (1, 3, 5)),
-                 seed: int = 0, device: str | torch.device = "cuda"):
+                 seed: int = 0, device: str | torch.device = "cuda",
+                 train: bool = False):
         super().__init__()
         dev = resolve_device(device)
         ch = upsample_initial_channel
@@ -75,7 +80,9 @@ class SpeechSR(nn.Module):
         self.activation_post = AASnakeBeta(ch)
         self.conv_post = Conv1d(ch, 1, 7, padding=3, bias=False)
         init_weights(self, seed)
-        self.eval().requires_grad_(False).to(dev)
+        if not train:
+            self.eval().requires_grad_(False)
+        self.to(dev)
 
     def forward(self, x):
         """x: (B, T, 1) 16 kHz waveform -> (B, T * rate, 1)."""

@@ -1,10 +1,10 @@
-"""Periodic-eval hooks of the s2 and s1 training CLIs.
+"""Periodic-eval hooks of the training CLIs.
 
-Counterpart of `make_s2_eval_fn` / `make_s1_eval_fn` in
-`megatts2_hierspeechpp_tpu/train/evalhooks.py` (reference evaluate() and its
-TensorBoard images, train_ms.py:345-405): each hook runs on a fixed
-held-out batch and returns scalars, which the loop logs under "eval/"; the
-s2 hook also writes w2v and f0 PNGs into <model_dir>/eval/ when `plot`.
+Counterpart of `megatts2_hierspeechpp_tpu/train/evalhooks.py` (reference
+evaluate() and its TensorBoard images, train_ms.py:345-405): each hook runs
+on a fixed held-out batch and returns scalars, which the loop logs under
+"eval/"; the s2, vocoder and SpeechSR hooks also write PNGs into
+<model_dir>/eval/ when `plot` (matplotlib is imported only then).
 """
 from __future__ import annotations
 
@@ -14,6 +14,7 @@ from typing import Callable, Dict
 import numpy as np
 import torch
 
+from megatts2_hierspeechpp_torch.ops import stft as tstft
 from megatts2_hierspeechpp_torch.train.s1 import EXTRACT_INPUTS, extract
 
 
@@ -21,6 +22,12 @@ def _masked_l1(pred, target, mask):
     """mean |pred - target| over the mask broadcast to pred's shape."""
     mask = torch.broadcast_to(mask.to(pred.dtype), pred.shape)
     return ((pred - target).abs() * mask).sum() / mask.sum().clamp_min(1.0)
+
+
+def _snr_db(est, ref):
+    """10 log10 of ref's energy over the energy of est - ref."""
+    err = (est - ref).square().sum()
+    return 10.0 * torch.log10(ref.square().sum() / err.clamp_min(1e-12))
 
 
 def _on(batch: Dict[str, np.ndarray], device) -> Dict[str, torch.Tensor]:
@@ -79,5 +86,100 @@ def make_s1_eval_fn(eval_batch: Dict[str, np.ndarray]) -> Callable:
             out = state.plm.loss_dict(x_frame, lr_codes, b["mel_lengths"])
         return {"plm_loss": float(out["loss_log"]),
                 "plm_acc_top10": float(out["acc"])}
+
+    return eval_fn
+
+
+def make_vocoder_eval_fn(eval_batch: Dict[str, np.ndarray],
+                         plot: bool = True) -> Callable:
+    """Inference of the vocoder being trained (HierVocoder.forward with no
+    generator: z = m x mask) on the held-out batch: scalar mel_l1, the
+    masked L1 between the fixed log-mels of the synthesized and the true
+    audio over the shorter frame count; with `plot`, the first item's
+    excitation (expm1 of e_, in Hz) over its f0 as a PNG."""
+
+    def eval_fn(state, step: int, model_dir: str) -> Dict[str, float]:
+        gen = state.gen
+        b = _on(eval_batch, next(gen.parameters()).device)
+        with torch.no_grad():
+            # log1p: the serving-domain f0, as train/vocoder.py encodes it
+            wav_hat, e_ = gen(b["mel"], b["w2v"], b["mask"],
+                              torch.log1p(b["f0"])[..., None])
+            mel_hat = tstft.mel_spectrogram_fixed(wav_hat[..., 0].float())
+            mel_gt = tstft.mel_spectrogram_fixed(b["audio"])
+            t = min(mel_hat.shape[1], mel_gt.shape[1], b["mask"].shape[1])
+            l1 = _masked_l1(mel_hat[:, :t], mel_gt[:, :t], b["mask"][:, :t])
+        if plot:
+            from megatts2_hierspeechpp_torch.utils.plotting import save_f0_plot
+
+            n0 = int(eval_batch["lengths"][0])
+            save_f0_plot(eval_batch["f0"][0, :4 * n0],
+                         np.expm1(e_[0, :4 * n0, 0].float().cpu().numpy()),
+                         os.path.join(model_dir, "eval", f"excitation_{step}.png"))
+        return {"mel_l1": float(l1)}
+
+    return eval_fn
+
+
+def make_sr_eval_fn(eval_batch: Dict[str, np.ndarray], sr_out: int,
+                    plot: bool = True) -> Callable:
+    """SpeechSR on the held-out (lo, hi) batch: scalars mel_l1 (the mean
+    L1 of the slaney log-mels at sr_out, n_fft 1280, hop 320, 128 bins) and
+    snr_db (10 log10 of the target's energy over the error's); with `plot`,
+    the first item's predicted and true log-mels as PNGs (the JAX hook
+    takes the log of these log-mels once more, which is NaN below 1)."""
+
+    def mel(wav):
+        spec = tstft.linear_spectrogram(wav[..., 0], 1280, 320, 1280)
+        return tstft.spec_to_mel(spec, sr_out, 1280, 128, 0.0, None)
+
+    def eval_fn(state, step: int, model_dir: str) -> Dict[str, float]:
+        b = _on(eval_batch, next(state.gen.parameters()).device)
+        with torch.no_grad():
+            fake = state.gen(b["lo"])
+            mel_f, mel_r = mel(fake), mel(b["hi"])
+            l1 = (mel_f - mel_r).abs().mean()
+            snr = _snr_db(fake, b["hi"])
+        if plot:
+            from megatts2_hierspeechpp_torch.utils.plotting import (
+                save_spectrogram_plot)
+
+            out = os.path.join(model_dir, "eval")
+            for name, m in (("pred", mel_f), ("gt", mel_r)):
+                save_spectrogram_plot(m[0].cpu().numpy(),
+                                      os.path.join(out, f"sr_{name}_{step}.png"),
+                                      title=name)
+        return {"mel_l1": float(l1), "snr_db": float(snr)}
+
+    return eval_fn
+
+
+def make_denoiser_eval_fn(eval_batch: Dict[str, np.ndarray], n_fft: int = 400,
+                          hop: int = 100, win: int = 400,
+                          compress: float = 0.3) -> Callable:
+    """MP-SENet in eval() mode (BatchNorm on its running statistics) on the
+    held-out (noisy, clean) batch: scalars mag_mse (compressed magnitude
+    against the clean one) and snr_improvement_db (the denoised waveform's
+    SNR minus the noisy input's)."""
+
+    def eval_fn(state, step: int, model_dir: str) -> Dict[str, float]:
+        model = state.model
+        b = _on(eval_batch, next(model.parameters()).device)
+        was_training = model.training
+        model.eval()
+        try:
+            with torch.no_grad():
+                mag_n, pha_n = tstft.mag_pha_stft(b["noisy"], n_fft, hop, win,
+                                                  compress)
+                mag_c, _ = tstft.mag_pha_stft(b["clean"], n_fft, hop, win,
+                                              compress)
+                mag_g, pha_g = model(mag_n, pha_n)
+                l_mag = (mag_g - mag_c).square().mean()
+                spec = torch.polar(mag_g ** (1.0 / compress), pha_g)
+                wav_g = tstft.istft(spec, n_fft, hop, win, b["clean"].shape[-1])
+                snr_i = _snr_db(wav_g, b["clean"]) - _snr_db(b["noisy"], b["clean"])
+        finally:
+            model.train(was_training)
+        return {"mag_mse": float(l_mag), "snr_improvement_db": float(snr_i)}
 
     return eval_fn

@@ -25,7 +25,13 @@ spectrum is not near zero, on one STFT fed to both (the first frame's
 phases are +-pi by the FFT's rounding, see tests/test_torch_denoiser.py);
 the query-chunked attention equal to the dense form within 1e-5 x
 max|ref|; `vc` with the f0 and the denoiser's STFT given, 48 kHz waveform
-before normalisation within 1e-3, as chip_smoke.py's card-vs-CPU gate."""
+before normalisation within 1e-3, as chip_smoke.py's card-vs-CPU gate.
+
+Training on the card: one SpeechSR step (the stage kernel forward and
+backward) against the CPU, losses 1e-4 relative and gradients 1e-3
+relative L2, chip_smoke.py's gates; MPNet's training build with remat on
+and off (loss 1e-6 relative, running statistics 1e-6 x max) and chunked
+attention (loss 1e-5 relative)."""
 import numpy as np
 import pytest
 import torch
@@ -395,3 +401,68 @@ def test_vc_card_matches_cpu(dev, monkeypatch):
         outs.append(seen["wav"][0, :, 0].cpu().numpy())
     assert outs[0].shape == (3 * 16640,)
     assert np.abs(outs[1] - outs[0]).max() <= 1e-3
+
+
+@pytest.mark.cuda
+def test_sr_train_step_card_matches_cpu(dev):
+    """One SpeechSR train step (ch 32: the stage kernel with its tail,
+    forward and plain-VJP backward; a one-resolution, one-period
+    discriminator) on the card and on the CPU from the same weights and
+    batch: losses within 1e-4 relative, G and D gradients within 1e-3
+    relative L2; one amp_triple launch."""
+    from megatts2_hierspeechpp_torch.models.discriminators import (
+        MultiPeriodDiscriminator)
+    from megatts2_hierspeechpp_torch.train import speechsr as srt
+
+    rng = np.random.default_rng(7)
+    lo = (0.1 * np.sin(np.arange(800) * 0.07)[None, :, None]
+          + 0.01 * rng.standard_normal((2, 800, 1))).astype(np.float32)
+    hi = (0.1 * rng.standard_normal((2, 2400, 1))).astype(np.float32)
+    out = []
+    for d in ("cpu", "cuda"):
+        state = srt.create_state(
+            SpeechSR(32, 3, 1, seed=8, device=d, train=True),
+            MultiPeriodDiscriminator(((128, 32, 128),), (2,), seed=9, device=d))
+        cuda_lib.reset_launches()
+        state, m = srt.TrainStep(n_fft=512, hop=128, n_mels=64)(
+            state, {"lo": torch.from_numpy(lo).to(d), "hi": torch.from_numpy(hi).to(d)})
+        launches = cuda_lib.LAUNCHES["amp_triple"]
+        out.append(({k: float(v) for k, v in m.items()},
+                    [torch.cat([p.grad.flatten().cpu() for p in opt.params])
+                     for opt in (state.opt_g, state.opt_d)], launches))
+    (mc, gc, _), (mg, gg, launches) = out
+    assert launches == 1
+    for k, v in mc.items():
+        assert abs(mg[k] - v) <= 1e-4 * abs(v), k
+    for a, b in zip(gg, gc):
+        assert ((a - b).norm() / b.norm()).item() <= 1e-3
+
+
+@pytest.mark.cuda
+def test_mpnet_training_remat_and_chunks_on_card(dev):
+    """MPNet's training build on the card at B = 2: remat on against off
+    gives the same loss and running statistics (the recompute moves them
+    once), and the query-chunked attention the dense form's loss."""
+    from megatts2_hierspeechpp_torch.train import denoiser as dnt
+
+    rng = np.random.default_rng(10)
+    clean = rng.uniform(-0.5, 0.5, (2, 4000)).astype(np.float32)
+    noisy = clean + 0.1 * rng.standard_normal((2, 4000)).astype(np.float32)
+    spectra = [a.to(dev) for w in (noisy, clean)
+               for a in mag_pha_stft(torch.from_numpy(w), 400, 100, 400, 0.3)]
+    res = {}
+    for remat, chunk in ((False, None), (True, None), (True, 16)):
+        model = MPNet(16, 2, seed=11, device="cuda", train=True, remat=remat,
+                      attn_chunk=chunk)
+        state = dnt.create_state(model, lr=1e-4)
+        _, m = dnt.TrainStep().with_spectra(state, *spectra,
+                                            torch.from_numpy(clean).to(dev))
+        res[(remat, chunk)] = (float(m["loss/total"]), {
+            k: v.cpu() for k, v in model.state_dict().items()
+            if k.endswith(("running_mean", "running_var", "num_batches_tracked"))})
+    loss, stats = res[(False, None)]
+    assert res[(True, None)][0] == pytest.approx(loss, rel=1e-6)
+    for k, v in stats.items():
+        torch.testing.assert_close(res[(True, None)][1][k], v, rtol=0,
+                                   atol=1e-6 * v.abs().max().item())
+    assert res[(True, 16)][0] == pytest.approx(loss, rel=1e-5)
