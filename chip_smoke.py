@@ -23,7 +23,11 @@ Phases, in order; any failure exits non-zero:
      teacher-forced check; its bf16 weight / cache configuration at T = 500
      (ms, teacher-forced gap against the bf16 plain twin, token agreement
      with float32, 10 repeats identical), and the per-row greedy decode of
-     a batch of 4 in float32 and bf16 (one launch per row);
+     a batch of 4 in float32 and bf16 (one launch per row); the three
+     vocoder kernels' bf16 configuration (bf16 in and out, float32 inside,
+     each conv one bf16 mma pass) at the same serving shapes against their
+     bf16 twins (`kernel_bf16` lines: bf16_check, ms, device ms, the twin's
+     ms, the bf16 bound beside the 3xTF32 one);
   4. the decode half (`synthesize`) at the published HierSpeech++ widths
      with seeded random weights: one 3 s prompt, three requests of
      100/250/500 frames (2/5/10 s) through vocoder + SpeechSR-48k, checking
@@ -54,7 +58,9 @@ Phases, in order; any failure exits non-zero:
      for 4 speakers through TTSServer (ms per request, tts_batch calls);
      then every kernel against its plain version at each distinct launch
      shape these paths gave it (`new_shape` lines; the AA-snake and the
-     epilogue with their device ms; the shared-prompt batch profiled);
+     epilogue with their device ms; bf16 snake_conv launches with
+     "events_ms", those that write float32 also held by their mean error;
+     the shared-prompt batch profiled);
   9. the denoiser and voice conversion at full width: `denoise`, MP-SENet
      (dense_channel 64, 4 TS blocks) on the 3 s prompt (49,600 padded
      samples, 497 STFT frames): ms by CUDA events, peak memory, the
@@ -69,25 +75,42 @@ Phases, in order; any failure exits non-zero:
      vc, one f0 (the first STFT frame's phases are +-pi by the FFT's
      rounding, and a YIN frame at its threshold can flip; both are held on
      their own). These paths' launch shapes join the `new_shape` lines,
-     which run last;
+     which run last; then `bf16_forward`: the bf16 HierVocoder and
+     SpeechSR-48k built as bench.py builds them, at its B = 4, T = 1000
+     frames (80 s of audio): ms, audio-s per s, peak memory, launches per
+     call (19 / 6 / 4 and 1 under the _bf16 keys), the profiled split, the
+     float32 forward of the same weights beside it and the distance
+     between them; at B = 1, 100 frames the card's bf16-to-float32
+     distance within EXACT_RATIO x the CPU's; the bf16 launch shapes join
+     the `new_shape` lines (dtype bf16);
  10. vocoder training at the published widths (configs/hierspeechpp.json,
-     batch 32, 32-frame windows): cli/make_synth_corpus writes 96
+     batch 32, 32-frame windows) at the CLI's default, bf16 compute (the
+     config sets no train.dtype): cli/make_synth_corpus writes 96
      utterances, cli/train_vocoder.main runs in-process for one epoch (3
      steps, a checkpoint at step 2 and at the epoch's end), then again on
      the same directory for a second epoch, resumed from the checkpoint:
      each step's ms (CUDA events) and kernel launches (zeroed before each
-     step; each kernel must launch in every step), audio-s per s encoded and
-     decoded, peak memory; one step under torch.profiler by group (our
-     kernels' forward, their plain-VJP recompute and backward, cuDNN /
-     cuBLAS, optimizer, elementwise) with the idle share; one step at B = 2,
-     64 frames, card against CPU from the same weights and draws (each loss
-     within 1e-4 relative, G and D gradients within 1e-3 relative L2); and
-     each kernel's wrapper at every training launch shape, forward and
-     backward against autograd of its plain version (`train_shape` lines:
-     forward, plain and backward ms, bound). The eval hook
+     step; each bf16 kernel must launch in every step, no float32 one),
+     audio-s per s encoded and decoded, peak memory; then train.dtype
+     "fp32" on 32 of the utterances, 1 step and 1 resumed, its float32
+     kernels in every step, the eval hook after each (its B = 32 launch
+     shapes join the float32 `new_shape` lines); one step of each under
+     torch.profiler on the same batch, by group (our kernels' forward,
+     their plain-VJP recompute and backward, cuDNN / cuBLAS, optimizer,
+     elementwise) with the idle share; one step at B = 2, 64 frames, card against CPU from the same
+     weights and draws, in float32 (each loss within 1e-4 relative, G and D
+     gradients within 1e-3 relative L2) and in bf16 (each side's distance
+     from its own float32 step, the card's within EXACT_RATIO x the
+     CPU's); and each kernel's wrapper at every training launch shape of
+     both runs, forward and backward against autograd of its plain version
+     (`train_shape` lines: forward, plain and backward ms, bound; the
+     gradients within 1e-4 x max|ref| per tensor with cuDNN deterministic;
+     the bf16 ones against autograd of the twin, with bf16_check, the bf16
+     bound and what a float32 backward would read). The eval hook
      (make_vocoder_eval_fn: B = 32 inference of epoch 0's first batch,
-     eval/mel_l1) runs at steps 3 and 6, its ms and launches recorded. The
-     training and eval launch shapes join the `new_shape` lines;
+     eval/mel_l1) runs at steps 3 and 6 of the bf16 run and 1 and 2 of the
+     float32 one, its ms and launches recorded. The training and eval
+     launch shapes join the `new_shape` lines;
  11. MegaTTS2 training at the published widths and depths
      (configs/config.json: batch 8, lr 1e-4, c_commit 100; TTVModel and
      the MultiResSpecDiscriminator, ProsodyLM 4 layers, d 276): `train_s2`,
@@ -133,17 +156,21 @@ Phases, in order; any failure exits non-zero:
      `serve_trained_dn`, the trained model in a serving MPNet denoising the
      3 s prompt through TTSPipeline.denoise at B = 1.
 Then the run's seconds, and one JSON line with every kernel's numbers (launches: the f32 rows
-from the tts requests of phase 5, or one training step of phase 10 where
-that count is larger, and the serve_trained request's beside them; the
-bf16 row from its batch decode of phase 3; the triple's row also with its
-launches per SR training step and its SR training shapes), the card's name
-and power limit from phase 1 printed first, and last the device line.
+from the tts requests of phase 5, or one float32 training step of phase 10
+where that count is larger, and the serve_trained request's beside them;
+the decode's bf16 row from its batch decode of phase 3; the three _bf16
+rows from one bf16_forward vocoder call, with their launches per bf16
+training step beside it; the triple's row also with its launches per SR
+training step and its SR training shapes), the card's name and power limit
+from phase 1 printed first, and last the device line.
 
-Float32 throughout (but for the bf16 decode configuration), TF32 off.
+Float32 (TF32 off) but for the bf16 decode configuration, the bf16 kernel
+lines, bf16_forward and the bf16 vocoder training of phase 10.
 Without CUDA it exits non-zero before printing any result.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import subprocess
@@ -156,7 +183,9 @@ import numpy as np
 T_FRAMES = 500          # frames of the longest request; kernel shapes derive from it
 REQUEST_FRAMES = (100, 250, 500)
 EXPECTED_CALLS = {"aa_snakebeta": 19, "ampblock": 6, "amp_triple": 5,
-                  "plm_decode": 0, "plm_decode_bf16": 0}
+                  "plm_decode": 0, "plm_decode_bf16": 0,
+                  "aa_snakebeta_bf16": 0, "ampblock_bf16": 0,
+                  "amp_triple_bf16": 0}
 # the kernels of the serving path (float32 decode, the port's default)
 PATH_KERNELS = ("aa_snakebeta", "ampblock", "amp_triple", "plm_decode")
 TTS_CALLS = dict(EXPECTED_CALLS, plm_decode=1)
@@ -169,6 +198,13 @@ TF_MARGIN = 1e-4        # teacher-forced gap, x max|logits|
 # error of a bf16 rounding boundary rounds one way in one order and the
 # other way in another, some 0.5 times per token.
 BF16_MARGIN = 2.0 ** -8
+# A bf16-product snake_conv launch that writes float32 (c1, x' between a
+# block's launches): its mean |error| over the mean |ref| of the plain
+# version on the same rounded operands. Its largest error is a rounding
+# flip of one operand, as large as a bf16 step of the output at C = 16; a
+# flip is rare, so the mean stays near float32 sums, while a kernel that
+# rounded the output to bf16 reads a step's mean (both reported per line).
+MMA_F32_MEAN_TOL = 1e-4
 BF16_LATENTS = 3        # T=500 latents of the bf16 comparison
 PLM_REPEATS = 10        # launches at the main path's T that must give the same codes
 BATCH_ROWS = 4          # serve_batch's rows (one shared prompt) and the per-row decode
@@ -200,6 +236,7 @@ HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
 F32_FLOPS_PER_S = 67e12     # H100 SXM data sheet, non-tensor float32
 TF32_FLOPS_PER_S = 495e12   # H100 SXM data sheet, dense TF32 tensor cores
 TF32_PASSES = 3             # snake_conv's split-TF32 products per product
+BF16_FLOPS_PER_S = 989e12   # H100 SXM data sheet, dense bf16 tensor cores
 SNAKE_FLOPS = 58            # per element: 2 x 6-tap up, 2 snakes, 12-tap down
 SOURCES = {  # launch-count key: (kernel, source, TPU kernel it replaces)
     "aa_snakebeta": ("aa_snakebeta", "megatts2_hierspeechpp_torch/csrc/aa_snake.cu",
@@ -216,7 +253,19 @@ SOURCES = {  # launch-count key: (kernel, source, TPU kernel it replaces)
     "plm_decode_bf16": ("plm_decode_bf16",
                         "megatts2_hierspeechpp_torch/csrc/plm_decode.cu",
                         "megatts2_hierspeechpp_tpu/ops/pallas_plm_decode.py:59"),
+    # the vocoder kernels' bf16 configuration (bf16 in and out, float32
+    # inside, each conv one bf16 product pass)
+    "aa_snakebeta_bf16": ("aa_snakebeta_bf16",
+                          "megatts2_hierspeechpp_torch/csrc/aa_snake.cu",
+                          "megatts2_hierspeechpp_tpu/ops/pallas_snake.py:93"),
+    "ampblock_bf16": ("ampblock_bf16",
+                      "megatts2_hierspeechpp_torch/csrc/snake_conv.cu",
+                      "megatts2_hierspeechpp_tpu/ops/pallas_ampblock.py:151"),
+    "amp_triple_bf16": ("triple_epilogue_bf16",
+                        "megatts2_hierspeechpp_torch/csrc/triple_epilogue.cu",
+                        "megatts2_hierspeechpp_tpu/ops/pallas_amp_triple.py:60"),
 }
+BF16_KERNELS = ("aa_snakebeta_bf16", "ampblock_bf16", "amp_triple_bf16")
 
 
 def fail(msg: str):
@@ -240,16 +289,17 @@ def time_ms(torch, fn, reps: int) -> float:
 
 
 def device_ms(torch, fn, keys, reps: int = 20, attempts: int = 3,
-              required: bool = True):
-    """Median device time (ms) of the kernels whose names hold one of
-    `keys`, over reps back-to-back calls of fn() under torch.profiler, after
-    2 warm-ups. This is the kernel's own time on the card; the wrapper's
-    host cost (time_ms) is about 10x it at the snake's shapes. The
-    profiler's activity records can drop launches (19 of 20 copies seen on
-    an H100 in one run, 7 of 20 in another), so the median is over the
-    launches it recorded, at least half of them; a window with fewer is
-    profiled again, up to `attempts` times, and then fails the run, or
-    gives None when not `required`."""
+              required: bool = True, launches: int | None = None):
+    """Device time (ms) of the kernels whose names hold one of `keys`, over
+    reps back-to-back calls of fn() under torch.profiler, after 2 warm-ups:
+    the median launch, or with `launches` (that many a call) their sum per
+    call. This is the kernel's own time on the card; the wrapper's host
+    cost (time_ms) is about 10x it at the snake's shapes. The profiler's
+    activity records can drop launches (19 of 20 copies seen on an H100 in
+    one run, 7 of 20 in another), so the median takes a window that
+    recorded at least half of them, the sum one that recorded every one; a
+    window with fewer is profiled again, up to `attempts` times, and then
+    fails the run, or gives None when not `required`."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -264,12 +314,33 @@ def device_ms(torch, fn, keys, reps: int = 20, attempts: int = 3,
         us = [ev.time_range.elapsed_us() for ev in prof.events()
               if ev.device_type == DeviceType.CUDA
               and any(k in ev.name for k in keys)]
-        if 2 * len(us) >= reps:
+        if launches is None and 2 * len(us) >= reps:
             return float(np.median(us)) / 1e3
+        if launches is not None and len(us) == reps * launches:
+            return float(sum(us)) / 1e3 / reps
     if not required:
         return None
-    fail(f"profiler saw {len(us)} of {reps} launches of {keys}, "
-         f"{attempts} times")
+    fail(f"profiler saw {len(us)} of {reps * (launches or 1)} launches of "
+         f"{keys}, {attempts} times")
+
+
+def back_to_back_ms(torch, fn, reps: int = 10) -> float:
+    """ms per call of fn() from CUDA events around reps calls issued back
+    to back, after 2 warm-ups: the larger of the host's time to issue a
+    call and the device's time to run it, so at least the device time, and
+    equal to it only where a launch outlasts its issue. Reported as
+    "events_ms", never as device time."""
+    for _ in range(2):
+        fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
 
 
 def copy_floor_ms(torch, dev, n_bytes: float):
@@ -298,6 +369,68 @@ def bound_ms_f32(n_bytes: float, flops: float, conv_flops: float = 0.0):
     """The same work with every flop on the float32 CUDA cores."""
     return 1e3 * max(n_bytes / HBM_BYTES_PER_S,
                      (flops + conv_flops) / F32_FLOPS_PER_S)
+
+
+def bound_ms_bf16(n_bytes: float, flops: float, conv_flops: float = 0.0):
+    """(ms, what bounds it) of the bf16 configuration's work: the conv
+    products one bf16 tensor-core pass each, the rest float32 on the CUDA
+    cores; n_bytes counts bf16 activations at 2 bytes."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S
+    t_ops = flops / F32_FLOPS_PER_S + conv_flops / BF16_FLOPS_PER_S
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else
+                                      "operations")
+
+
+def bf16_twin(torch, kind, x, ws):
+    """The bf16 twin of a vocoder kernel on bf16 x, as float32 values:
+    (its float32 result before the final rounding, the float32 plain
+    version on the same input, whether the kernel is a chain of rounded
+    convs). kind: "aa_snakebeta" (ws = alpha, beta), "ampblock" (ws =
+    weights, k, dilations), "amp_triple" (block weights, ks, dilations,
+    post)."""
+    from megatts2_hierspeechpp_torch.ops import amp_triple, ampblock, snake
+
+    x32 = x.float()
+    if kind == "aa_snakebeta":
+        y = snake.composed_snakebeta(x32, *ws)
+        return y, y, False
+    if kind == "ampblock":
+        *w, k, dils = ws
+        return (ampblock.block_math(x32, *w, k, dils, bf16_products=True),
+                ampblock.block_math(x32, *w, k, dils), True)
+    bws, ks, dils, post = ws
+    return (amp_triple.triple_math(x32, bws, ks, dils, post, bf16_products=True),
+            amp_triple.triple_math(x32, bws, ks, dils, post), True)
+
+
+def bf16_check(y, twin32, f32, chain: bool) -> dict:
+    """A bf16 kernel output against its twin (bf16_twin). One rounding
+    (the AA-snake): within BF16_MARGIN x max|ref| of the twin before its
+    final rounding, half a bf16 step. A chain of rounded convs (an AMPBlock,
+    a stage): its distance from the float32 plain version at most
+    EXACT_RATIO x the twin's (rounded as the kernel rounds it). The two
+    round the same operands, but a value within float error of a bf16
+    boundary rounds either way and the chain carries the flip on, so the
+    kernel reaches just past one half step of the twin at C = 128, k = 11
+    (tests/test_torch_cuda.py). Returns the numbers and "ok"."""
+    y = y.float()  # the kernel's bf16 output
+    scale = twin32.abs().max().item()
+    err = (y - twin32).abs().max().item()
+    out = {"max_abs_err": err, "max_abs_ref": scale,
+           "err_over_ref": err / max(scale, 1e-30)}
+    if not chain:
+        out.update(tolerance=f"{BF16_MARGIN:g} x max|ref| (the twin before "
+                   "its final rounding)",
+                   ok=bool(math.isfinite(err) and err <= BF16_MARGIN * scale))
+        return out
+    d_kernel = (y - f32).abs().max().item()
+    d_twin = (twin32.bfloat16().float() - f32).abs().max().item()
+    out.update(dist_to_f32_kernel=d_kernel, dist_to_f32_twin=d_twin,
+               tolerance=f"distance to float32 <= {EXACT_RATIO:g} x the "
+               "twin's",
+               ok=bool(math.isfinite(d_kernel)
+                       and d_kernel <= EXACT_RATIO * d_twin))
+    return out
 
 
 def block_flops(t: int, c: int, k: int):
@@ -416,6 +549,109 @@ def kernel_phase(torch, dev):
         print(json.dumps(line), flush=True)
         if not ok:
             fail(f"{name} {label}: max abs err {err} > {tol} x {scale}")
+        results.setdefault(name, []).append(line)
+    return results
+
+
+def kernel_bf16_phase(torch, dev):
+    """The three vocoder kernels' bf16 configuration at the serving path's
+    shapes (B = 1, T_FRAMES frames, the shapes of kernel_phase), bf16 x,
+    against their bf16 twins (bf16_check): error, ms (CUDA events around
+    the wrapper), device ms per call (profiler, the wrapper's launches
+    summed), the twin's ms, the bf16 bound and the 3xTF32 configuration's
+    bound of the same shape."""
+    from megatts2_hierspeechpp_torch.ops.amp_triple import (
+        composed_triple, fused_amp_triple)
+    from megatts2_hierspeechpp_torch.ops.ampblock import (
+        composed_ampblock, fused_ampblock)
+    from megatts2_hierspeechpp_torch.ops.snake import (
+        composed_snakebeta, fused_aa_snakebeta)
+
+    gen = torch.Generator().manual_seed(3)
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(shape, generator=gen) * scale).to(dev)
+
+    def pos(*shape):
+        return torch.exp(randn(*shape, scale=0.2))
+
+    def block_ws(c, k):
+        return (pos(3, c), pos(3, c), randn(3, k, c, c, scale=(c * k) ** -0.5),
+                randn(3, c, scale=0.05), pos(3, c), pos(3, c),
+                randn(3, k, c, c, scale=(c * k) ** -0.5), randn(3, c, scale=0.05))
+
+    T = T_FRAMES
+    dil = (1, 3, 5)
+    bf = torch.bfloat16
+    # (kind, label, x, twin args, fused fn, plain fn, launches a call, f32
+    # bytes, bf16 bytes, flops, conv flops, device kernel names)
+    cases = []
+    for c in (256, 64):
+        x, a, b = randn(1, 4 * T, c).to(bf), pos(c), pos(c)
+        n = 4 * T * c
+        cases.append(("aa_snakebeta", f"C={c} T={4 * T}", x, (a, b),
+                      lambda x=x, a=a, b=b: fused_aa_snakebeta(x, a, b),
+                      lambda x=x, a=a, b=b: composed_snakebeta(x, a, b), 1,
+                      4.0 * (2 * n + 2 * c), 2.0 * 2 * n + 8.0 * c,
+                      SNAKE_FLOPS * n, 0.0, ("aa_snakebeta_kernel",)))
+    for c, t, k in [(128, 20 * T, k) for k in (3, 7, 11)] + [
+            (128, 2 * T, k) for k in (3, 5, 7)]:
+        x, ws = randn(1, t, c).to(bf), block_ws(c, k)
+        w_bytes = 4.0 * (6 * k * c * c + 10 * c)
+        cases.append(("ampblock", f"C={c} T={t} k={k}", x, (*ws, k, dil),
+                      lambda x=x, ws=ws, k=k: fused_ampblock(x, *ws, k, dil),
+                      lambda x=x, ws=ws, k=k: composed_ampblock(x, *ws, k, dil),
+                      6, 4.0 * 2 * t * c + w_bytes, 2.0 * 2 * t * c + w_bytes,
+                      *block_flops(t, c, k), ("snake_conv_kernel",)))
+    for c, t, ks, tail in ((64, 4 * T, (3, 5, 7), False),
+                           (64, 80 * T, (3, 7, 11), False),
+                           (32, 160 * T, (3, 7, 11), False),
+                           (16, 320 * T, (3, 7, 11), True),
+                           (32, 960 * T, (3, 7, 11), True)):
+        x = randn(1, t, c).to(bf)
+        bws = [block_ws(c, k) for k in ks]
+        dils = (dil,) * 3
+        post = (pos(c), pos(c), randn(7, c, scale=0.1 * (7 * c) ** -0.5)) if tail else None
+        flops = sum(block_flops(t, c, k)[0] for k in ks) + 3.0 * t * c
+        conv_flops = sum(block_flops(t, c, k)[1] for k in ks)
+        if tail:
+            flops += (SNAKE_FLOPS + 14) * t * c + t
+        w_bytes = 4.0 * sum(6 * k * c * c + 10 * c for k in ks)
+        out_n = t if tail else t * c
+        cases.append(("amp_triple",
+                      f"C={c} T={t} ks={list(ks)}{' +tail' if tail else ''}",
+                      x, (bws, ks, dils, post),
+                      lambda x=x, bws=bws, ks=ks, dils=dils, post=post:
+                          fused_amp_triple(x, bws, ks, dils, post),
+                      lambda x=x, bws=bws, ks=ks, dils=dils, post=post:
+                          composed_triple(x, bws, ks, dils, post),
+                      19, 4.0 * (t * c + out_n) + w_bytes,
+                      2.0 * (t * c + out_n) + w_bytes, flops, conv_flops,
+                      ("snake_conv_kernel", "triple_avg_kernel",
+                       "triple_post_kernel")))
+
+    results = {}
+    for (kind, label, x, twin_args, fused, plain, launches, bytes_f32,
+         bytes_bf16, flops, conv_flops, names) in cases:
+        name = kind + "_bf16"
+        with torch.inference_mode():
+            y = fused()
+            twin32, f32, chain = bf16_twin(torch, kind, x, twin_args)
+            torch.cuda.synchronize()
+            check = bf16_check(y, twin32, f32, chain)
+            del twin32, f32
+            ms = time_ms(torch, fused, 10)
+            dev_ms = device_ms(torch, fused, names, 10, required=False,
+                               launches=launches)
+            plain_ms = time_ms(torch, plain, 3)
+        b_ms, b_by = bound_ms_bf16(bytes_bf16, flops, conv_flops)
+        line = {"phase": "kernel_bf16", "name": name, "shape": label,
+                "dtype": "bf16", **check, "ms": ms, "device_ms": dev_ms,
+                "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+                "bound_ms_3xtf32": bound_ms(bytes_f32, flops, conv_flops)[0]}
+        print(json.dumps(line), flush=True)
+        if not check["ok"]:
+            fail(f"{name} {label}: {check}")
         results.setdefault(name, []).append(line)
     return results
 
@@ -1069,10 +1305,11 @@ def tts_phase(torch, pipe, prompt):
 class LaunchShapes:
     """The distinct launch shapes of the port's kernels while recording:
     every kernel launches through cuda_lib.call, so its C arguments give
-    the shape. Keys: ("aa_snakebeta", B, T, C), ("snake_conv", B, T, C, k,
-    d, with the residual), ("triple_avg" | "triple_post", B, T, C),
-    ("plm_decode", T, weight bytes, cache bytes); each with the path that
-    first launched it."""
+    the shape. Keys: ("aa_snakebeta", B, T, C, activation bytes),
+    ("snake_conv", B, T, C, k, d, with the residual, io flags),
+    ("triple_avg" | "triple_post", B, T, C, output bytes), ("plm_decode", T,
+    weight bytes, cache bytes); each with the path that first launched it.
+    Activation bytes 2 and io flags > 0 are the bf16 configuration."""
 
     def __init__(self, cuda_lib):
         self.lib = cuda_lib
@@ -1090,17 +1327,17 @@ class LaunchShapes:
 
     def _note(self, name, a):
         if name == "aa_snakebeta_fwd":
-            key = ("aa_snakebeta", a[4], a[5], a[6])
+            key = ("aa_snakebeta", a[4], a[5], a[6], a[9])
         elif name == "snake_conv_fwd":
-            b, t, cin, cout, k, d = a[7:13]
+            b, t, cin, cout, k, d, io = a[7:14]
             self._conv = (b, t, cout)
-            key = ("snake_conv", b, t, cin, k, d, a[5].value is not None)
+            key = ("snake_conv", b, t, cin, k, d, a[5].value is not None, io)
         elif name == "triple_avg_fwd":  # the average of the stage's last convs
             if self._conv is None or self._conv[0] * self._conv[1] * self._conv[2] != a[4]:
                 fail(f"triple_avg of {a[4]} elements after snake_conv {self._conv}")
-            key = ("triple_avg", *self._conv)
+            key = ("triple_avg", *self._conv, a[5])
         elif name == "triple_post_fwd":
-            key = ("triple_post", a[7], a[8], a[9])
+            key = ("triple_post", a[7], a[8], a[9], a[13])
         elif name == "plm_decode_fwd":
             key = ("plm_decode", a[17], a[28], a[29])
         else:
@@ -1354,8 +1591,11 @@ def serve_server_phase(torch, pipe, reqs, shapes):
         fail(f"serve_server: a kernel was not launched: {counts}")
 
 
-# the paths whose snake_conv launch shapes also get their device ms
-DEVICE_MS_PATHS = ("vc", "train_vocoder eval", "train_sr")
+# the float32 paths whose snake_conv launch shapes also get their device ms
+# from the profiler; every bf16 launch shape gets "events_ms" instead, CUDA
+# events around back-to-back launches (back_to_back_ms), a tenth of the
+# profiler's cost
+DEVICE_MS_PATHS = ("vc", "train_vocoder fp32 eval", "train_sr")
 SHAPE_TOL = {"aa_snakebeta": 1e-5, "triple_avg": 1e-5, "triple_post": 1e-4,
              "snake_conv": 1e-4}   # x max|ref|, PERF.md section 2
 
@@ -1367,15 +1607,23 @@ def new_shapes_phase(torch, dev, shapes):
     plans were picked at B=1, T=2000) also with their device ms per launch
     (profiler; "device_ms": null where the profiler recorded too few of
     the launches, which it does late in a long run), and snake_conv at the
-    shapes of DEVICE_MS_PATHS (summed per B, T, C). One line per kernel and shape
+    shapes of DEVICE_MS_PATHS (profiler, summed per B, T, C; null unless it
+    recorded every launch shape) and at every bf16 shape ("events_ms",
+    back_to_back_ms summed per B, T, C). One line per kernel, shape and dtype
     (snake_conv: per B, T, C), with the worst error over the tolerance, the
     bound and the plain version's ms (CUDA events, a second call after the
-    one compared; for snake_conv both summed over the launch shapes)."""
+    one compared; for snake_conv both summed over the launch shapes). A
+    bf16 launch (the bf16 configuration) is held as bf16_check holds one
+    rounding: within BF16_MARGIN x max|ref| of the bf16 twin before its
+    final rounding; a bf16 snake_conv launch that writes float32 also by its
+    mean error (MMA_F32_MEAN_TOL), with what a bf16-rounded output would
+    read beside it."""
     from megatts2_hierspeechpp_torch.models.plm import ProsodyLM, teacher_forced_gap
     from megatts2_hierspeechpp_torch.nn.conv import conv1d_op
     from megatts2_hierspeechpp_torch.ops.amp_triple import (
         composed_epilogue, fused_epilogue)
-    from megatts2_hierspeechpp_torch.ops.ampblock import snake_conv
+    from megatts2_hierspeechpp_torch.ops.ampblock import (
+        IO_BF16_MMA, IO_RES_BF16, IO_X_BF16, IO_Y_BF16, rounded, snake_conv)
     from megatts2_hierspeechpp_torch.ops.plm_decode import (
         plain_gap, plm_decode_greedy)
     from megatts2_hierspeechpp_torch.ops.resample import activation1d
@@ -1391,7 +1639,9 @@ def new_shapes_phase(torch, dev, shapes):
         return torch.exp(randn(*shape, scale=0.2))
 
     def err_of(y, ref):
-        return (y - ref).abs().max().item(), ref.abs().max().item()
+        return (y.float() - ref).abs().max().item(), ref.abs().max().item()
+
+    bf = torch.bfloat16
 
     model = None
     convs = {}
@@ -1399,27 +1649,31 @@ def new_shapes_phase(torch, dev, shapes):
     for key, path in sorted(shapes.seen.items(), key=lambda kv: str(kv[0])):
         kind = key[0]
         line = {"phase": "new_shape", "kernel": kind, "path": path}
+        mean_err = rounded_mean = None  # a float32-output bf16 snake_conv's
         with torch.inference_mode():
             if kind == "aa_snakebeta":
-                _, b, t, c = key
-                x, a, be = randn(b, t, c), pos(c), pos(c)
+                _, b, t, c, ab = key
+                dt = bf if ab == 2 else torch.float32
+                x, a, be = randn(b, t, c).to(dt), pos(c), pos(c)
                 ib = inverse_beta(be)
                 fn = lambda: fused_aa_snakebeta(x, a, be, ib)  # noqa: E731
                 plain = lambda: composed_snakebeta(x, a, be)  # noqa: E731
-                err, scale = err_of(fn(), plain())
+                # the twin before its final rounding (bf16_check)
+                err, scale = err_of(fn(), composed_snakebeta(x.float(), a, be))
                 n = b * t * c
                 line.update(shape=f"B={b} T={t} C={c}",
                             plain_ms=event_ms(torch, plain)[1],
                             device_ms=device_ms(torch, fn, ("aa_snakebeta",), 10,
                                                 required=False))
-                line["bound_ms"], line["bound_by"] = bound_ms(
-                    4.0 * (2 * n + 2 * c), SNAKE_FLOPS * n)
+                line["bound_ms"], line["bound_by"] = (bound_ms if ab == 4 else bound_ms_bf16)(
+                    ab * (2.0 * n) + 8.0 * c, SNAKE_FLOPS * n)
             elif kind in ("triple_avg", "triple_post"):
-                _, b, t, c = key
+                _, b, t, c, yb = key
+                dt = bf if yb == 2 else torch.float32
                 rs = [randn(b, t, c, scale=3.0) for _ in range(3)]
                 post = ((pos(c), pos(c), randn(7, c, scale=0.1 * (7 * c) ** -0.5))
                         if kind == "triple_post" else None)
-                fn = lambda: fused_epilogue(*rs, post)  # noqa: E731
+                fn = lambda: fused_epilogue(*rs, post, dt)  # noqa: E731
                 plain = lambda: composed_epilogue(*rs, post)  # noqa: E731
                 err, scale = err_of(fn(), plain())
                 n = b * t * c
@@ -1427,35 +1681,56 @@ def new_shapes_phase(torch, dev, shapes):
                             plain_ms=event_ms(torch, plain)[1],
                             device_ms=device_ms(torch, fn, (kind + "_kernel",), 10,
                                                 required=False))
-                line["bound_ms"], line["bound_by"] = bound_ms(
-                    *((4.0 * (3 * n + b * t + 9 * c),
+                line["bound_ms"], line["bound_by"] = (bound_ms if yb == 4 else bound_ms_bf16)(
+                    *((12.0 * n + yb * b * t + 36.0 * c,
                        3.0 * n + (SNAKE_FLOPS + 14) * n + b * t)
-                      if post is not None else (16.0 * n, 3.0 * n)))
+                      if post is not None else (12.0 * n + yb * n, 3.0 * n)))
             elif kind == "snake_conv":
-                _, b, t, c, k, d, has_res = key
-                x = randn(b, t, c)
-                res = randn(b, t, c) if has_res else None
+                _, b, t, c, k, d, has_res, io = key
+                mma = bool(io & IO_BF16_MMA)
+                x = randn(b, t, c).to(bf if io & IO_X_BF16 else torch.float32)
+                res = (randn(b, t, c).to(bf if io & IO_RES_BF16 else torch.float32)
+                       if has_res else None)
+                out_dt = bf if io & IO_Y_BF16 else torch.float32
                 a, ib = pos(c), pos(c)
                 w, bias = randn(k, c, c, scale=(c * k) ** -0.5), randn(c, scale=0.05)
-                y = snake_conv(x, a, ib, w, bias, d, res=res)
+                y = snake_conv(x, a, ib, w, bias, d, res=res, bf16_mma=mma,
+                               out_dtype=out_dt)
+                op = rounded if mma else (lambda v: v)
 
                 def plain():
-                    ref = conv1d_op(activation1d(
-                        x, lambda v: v + torch.sin(v * a).square() * ib),
-                        w.permute(1, 2, 0).contiguous(), bias, 1,
+                    ref = conv1d_op(op(activation1d(
+                        x.float(), lambda v: v + torch.sin(v * a).square() * ib)),
+                        op(w.permute(1, 2, 0).contiguous()), bias, 1,
                         (k - 1) // 2 * d, d)
-                    return ref if res is None else ref + res
+                    return ref if res is None else ref + res.float()
 
                 ref = plain()
                 err, scale = err_of(y, ref)
+                if mma and out_dt == torch.float32:
+                    m = ref.abs().mean().item()
+                    mean_err = (y - ref).abs().mean().item() / m
+                    rounded_mean = (ref.to(bf).float() - ref).abs().mean().item() / m
                 conv_plain = event_ms(torch, plain)[1]
-                n, n_io = b * t * c, 3 if has_res else 2
-                conv_bound = bound_ms(4.0 * (n_io * n + k * c * c + 3 * c),
-                                      SNAKE_FLOPS * n + (n_io - 1) * n,
-                                      2.0 * n * c * k)[0]
-                conv_dev = (device_ms(torch, lambda: snake_conv(
-                    x, a, ib, w, bias, d, res=res), ("snake_conv",), 10,
-                    required=False) if path.startswith(DEVICE_MS_PATHS) else None)
+                n = b * t * c
+                io_bytes = (x.element_size() + y.element_size()
+                            + (res.element_size() if has_res else 0)) * n
+                conv_bound = (bound_ms_bf16 if mma else bound_ms)(
+                    io_bytes + 4.0 * (k * c * c + 3 * c),
+                    SNAKE_FLOPS * n + (2 if has_res else 1) * n,
+                    2.0 * n * c * k)[0]
+
+                def run():
+                    return snake_conv(x, a, ib, w, bias, d, res=res,
+                                      bf16_mma=mma, out_dtype=out_dt)
+
+                conv_dev = conv_ev = None
+                if path.startswith(DEVICE_MS_PATHS) and not mma:
+                    conv_dev = device_ms(torch, run, ("snake_conv",), 10,
+                                         required=False)
+                if mma:
+                    conv_ev = back_to_back_ms(torch, run)
+                kind = "snake_conv_bf16" if mma else "snake_conv"
                 del x, res, y, ref
             else:  # plm_decode at a new length
                 _, t, wb, cb = key
@@ -1470,25 +1745,47 @@ def new_shapes_phase(torch, dev, shapes):
                                              model.go_id, dts[wb], dts[cb]))
                 kind = "plm_gap" if wb == cb == 4 else "plm_gap_bf16"
                 line.update(shape=f"T={t} weight bytes {wb} cache bytes {cb}")
-        tol = SHAPE_TOL.get(kind, TF_MARGIN if kind == "plm_gap" else BF16_MARGIN)
-        if not (math.isfinite(err) and err <= tol * scale):
-            print(json.dumps(dict(line, max_abs_err=err, max_abs_ref=scale)),
+        bf16_io = kind == "snake_conv_bf16" or (
+            kind in ("aa_snakebeta", "triple_avg", "triple_post") and key[-1] == 2)
+        if bf16_io:  # the bf16 configuration: bf16_check's single rounding
+            line["dtype"] = "bf16"
+        tol = (BF16_MARGIN if bf16_io else
+               SHAPE_TOL.get(kind, TF_MARGIN if kind == "plm_gap" else BF16_MARGIN))
+        mean_ok = mean_err is None or mean_err <= MMA_F32_MEAN_TOL < rounded_mean
+        if not (math.isfinite(err) and err <= tol * scale and mean_ok):
+            print(json.dumps(dict(line, max_abs_err=err, max_abs_ref=scale,
+                                  mean_err_over_mean_ref=mean_err,
+                                  rounded_output_mean_err=rounded_mean)),
                   flush=True)
-            fail(f"{kind} {key}: max abs err {err} > {tol} x {scale}")
+            fail(f"{kind} {key}: max abs err {err} > {tol} x {scale}, or the "
+                 f"float32 output's mean error {mean_err} > {MMA_F32_MEAN_TOL} "
+                 f"(a bf16-rounded output: {rounded_mean})")
         n_checked += 1
-        if kind == "snake_conv":  # one line per (path, B, T, C)
-            g = convs.setdefault((path, key[1], key[2], key[3]),
+        if kind.startswith("snake_conv"):  # one line per (path, B, T, C, dtype)
+            g = convs.setdefault((path, key[1], key[2], key[3], kind),
                                  {"phase": "new_shape", "kernel": "snake_conv",
                                   "path": path,
                                   "shape": f"B={key[1]} T={key[2]} C={key[3]}",
+                                  **({"dtype": "bf16"} if bf16_io else {}),
                                   "launch_shapes": 0, "worst_err_over_tol": 0.0,
+                                  **({"f32_out_worst_mean_err": 0.0,
+                                      "f32_out_rounded_least_mean_err": 1.0}
+                                     if bf16_io else {}),
                                   "bound_ms": 0.0, "device_ms": 0.0,
+                                  **({"events_ms": 0.0} if bf16_io else {}),
                                   "plain_ms": 0.0})
             g["launch_shapes"] += 1
             g["bound_ms"] += conv_bound
             g["plain_ms"] += conv_plain
             g["device_ms"] = (None if conv_dev is None or g["device_ms"] is None
                               else g["device_ms"] + conv_dev)
+            if bf16_io:
+                g["events_ms"] += conv_ev
+            if mean_err is not None:
+                g["f32_out_worst_mean_err"] = max(g["f32_out_worst_mean_err"],
+                                                  mean_err)
+                g["f32_out_rounded_least_mean_err"] = min(
+                    g["f32_out_rounded_least_mean_err"], rounded_mean)
             g["worst_err_over_tol"] = max(g["worst_err_over_tol"],
                                           err / (tol * scale))
             continue
@@ -1890,17 +2187,134 @@ def vc_phase(torch, dev, pipe, cpu_pipe, shapes):
              f"{CPU_TOL}")
 
 
+# ---- the bf16 forward: bench.py's vocoder and SpeechSR-48k in bf16 ----
+
+BF16_FORWARD = (4, 1000)     # bench.py's shape: B, frames (80 s of 16 kHz audio)
+BF16_CPU_FRAMES = 100        # the card-vs-CPU gate: B = 1, 100 frames
+BF16_VOC_CALLS = {"aa_snakebeta_bf16": 19, "ampblock_bf16": 6,
+                  "amp_triple_bf16": 4}
+BF16_SR_CALLS = {"amp_triple_bf16": 1}
+
+
+def rel_l2(a, b) -> float:
+    a, b = a.float(), b.float()
+    return ((a - b).norm() / b.norm()).item()
+
+
+def bf16_forward_phase(torch, dev, shapes):
+    """The bf16 HierVocoder and SpeechSR-48k built as bench.py builds them
+    (HierVocoder(dtype=bf16), SpeechSR(rate 3 / 1, dtype=bf16)) on its
+    inputs, B = 4, T = 1000 frames: ms (CUDA events, median of 5 after 2
+    warm-ups), audio-s per s, peak memory, launches per call (each kernel
+    under its _bf16 key, none under the float32 keys; the bf16 launch shapes
+    join the new_shape lines) and the profiled device split with the idle
+    share; the float32 forward of the same weights beside it, and the bf16
+    output's distance from it (relative L2, max abs over the peak). Gate:
+    at B = 1, BF16_CPU_FRAMES frames that distance on the card within
+    EXACT_RATIO x the same distance on the CPU. Returns the launches per
+    vocoder call."""
+    from megatts2_hierspeechpp_torch.models.speechsr import SpeechSR
+    from megatts2_hierspeechpp_torch.models.vocoder import HierVocoder
+    from megatts2_hierspeechpp_torch.ops import cuda_lib
+
+    b, t = BF16_FORWARD
+    rng = np.random.default_rng(0)   # bench.py's inputs, in its order
+    mel = rng.standard_normal((b, t, 80)).astype(np.float32)
+    w2v = rng.standard_normal((b, t, 1024)).astype(np.float32)
+    mask = np.ones((b, t, 1), np.float32)
+    f0 = np.abs(rng.standard_normal((b, 4 * t, 1))).astype(np.float32)
+    wav16 = (rng.standard_normal((b, t * 320, 1)) * 0.1).astype(np.float32)
+    tc = BF16_CPU_FRAMES
+    models = (
+        ("vocoder", lambda dt, d: HierVocoder(seed=1234, device=d, dtype=dt),
+         (mel, w2v, mask, f0), lambda m, *a: m(*a)[0], BF16_VOC_CALLS,
+         (mel[:1, :tc], w2v[:1, :tc], mask[:1, :tc], f0[:1, :4 * tc])),
+        ("speechsr48", lambda dt, d: SpeechSR(32, 3, 1, seed=4321, device=d,
+                                             dtype=dt),
+         (wav16,), lambda m, x: m(x), BF16_SR_CALLS, (wav16[:1, :320 * tc],)))
+    total = dict.fromkeys(BF16_KERNELS, 0)
+    voc_calls = None
+    for name, build, args, call, want, small in models:
+        xs = [torch.from_numpy(a).to(dev) for a in args]
+        line = {"phase": "bf16_forward", "model": name, "B": b, "frames": t,
+                "audio_s": b * t / 50.0}
+        outs = {}
+        for dt, tag in ((torch.bfloat16, "bf16"), (None, "f32")):
+            model = build(dt, dev)
+            fn = lambda: call(model, *xs)  # noqa: E731
+            with torch.no_grad():
+                fn()
+                fn()
+                torch.cuda.reset_peak_memory_stats()
+                y, counts = run_path(torch, cuda_lib, shapes,
+                                     f"bf16_forward {name}" if dt else None, fn)
+                peak = torch.cuda.max_memory_allocated()
+                ms = time_ms(torch, fn, 5)
+                profile_phase(torch, f"bf16_forward {name} {tag} B={b}", t,
+                              lambda: (fn(), torch.cuda.synchronize()))
+            outs[tag] = y
+            line.update({f"ms_{tag}": ms,
+                         f"audio_s_per_s_{tag}": line["audio_s"] / (ms / 1e3),
+                         f"peak_memory_mb_{tag}": peak / 2 ** 20,
+                         f"launches_per_call_{tag}": counts})
+            if dt is not None:
+                if {k: counts[k] for k in want} != want or any(
+                        counts[k] for k in counts if k not in want):
+                    print(json.dumps(line), flush=True)
+                    fail(f"bf16_forward {name}: launches {counts}, expected {want}")
+                for k in want:
+                    total[k] += counts[k]
+                if name == "vocoder":
+                    voc_calls = dict(counts)
+            del model
+            torch.cuda.empty_cache()
+        y16, y32 = outs["bf16"], outs["f32"]
+        line["dist_bf16_to_f32"] = {
+            "rel_l2": rel_l2(y16, y32),
+            "max_abs_over_peak": ((y16.float() - y32).abs().max()
+                                  / y32.abs().max()).item()}
+        if not (torch.isfinite(y16).all() and y16.shape == y32.shape):
+            fail(f"bf16_forward {name}: output {tuple(y16.shape)}, finite "
+                 f"{bool(torch.isfinite(y16).all())}")
+        del xs, outs, y16, y32
+        # the gate: card and CPU, each bf16 against its own float32
+        dist = {}
+        for d in (dev, torch.device("cpu")):
+            xs = [torch.from_numpy(np.ascontiguousarray(a)).to(d) for a in small]
+            with torch.no_grad():
+                o16 = call(build(torch.bfloat16, d), *xs)
+                o32 = call(build(None, d), *xs)
+            dist[d.type] = rel_l2(o16, o32)
+            del xs, o16, o32
+        line["card_vs_cpu"] = {"B": 1, "frames": tc,
+                               "rel_l2_bf16_to_f32_card": dist["cuda"],
+                               "rel_l2_bf16_to_f32_cpu": dist["cpu"],
+                               "tolerance": f"card <= {EXACT_RATIO:g} x cpu"}
+        print(json.dumps(line), flush=True)
+        if not dist["cuda"] <= EXACT_RATIO * dist["cpu"]:
+            fail(f"bf16_forward {name}: card {dist['cuda']} from float32, CPU "
+                 f"{dist['cpu']}")
+        torch.cuda.empty_cache()
+    print(json.dumps({"phase": "bf16_forward_calls",
+                      "vocoder_plus_speechsr": total}), flush=True)
+    if total != {"aa_snakebeta_bf16": 19, "ampblock_bf16": 6, "amp_triple_bf16": 5}:
+        fail(f"bf16_forward: launches {total}")
+    return voc_calls
+
+
 # ---- phase 10: vocoder training through cli/train_vocoder ----
 
 TRAIN_CONFIG = "configs/hierspeechpp.json"  # published widths, batch 32, 32-frame windows
 TRAIN_UTTERANCES = 96       # the synthetic corpus: three batches of 32
+TRAIN_FP32_UTTERANCES = 32  # the float32 run: one batch an epoch, 1 + 1 steps
 TRAIN_KERNELS = ("aa_snakebeta", "ampblock", "amp_triple")
 TRAIN_CPU_FRAMES = 64       # card vs CPU step: 2 utterances cut to 64 frames
 TRAIN_EVAL_INTERVAL = 3     # the eval hook's steps: 3 and 6 (the end of each run)
 TRAIN_LOSS_TOL = 1e-4       # card vs CPU, each loss, relative
 TRAIN_GRAD_TOL = 1e-3       # card vs CPU, relative L2 of all G (all D) gradients
 TRAIN_BWD_TOL = 1e-4        # a kernel's gradients against autograd of its
-                            # plain version, x max|ref| of each tensor
+                            # plain version (the bf16 twin for bf16 x), x
+                            # max|ref| of each tensor, cuDNN deterministic
 TRAIN_FWD_TOL = {"aa_snakebeta": 1e-5, "ampblock": 1e-4, "amp_triple": 1e-4}
 OURS = ("aa_snakebeta_kernel", "snake_conv_kernel", "triple_avg_kernel",
         "triple_post_kernel")
@@ -1917,9 +2331,9 @@ TRAIN_GROUPS = (  # the rest of a step's kernels, first match wins
 
 class KernelCalls:
     """The distinct calls of the three vocoder kernels' autograd Functions
-    while `on`: (kernel, x shape, the static arguments) -> calls. The
-    wrappers look the Functions up at call time, so a shim in their place
-    sees each call."""
+    while `on`: (kernel, x shape, the static arguments, x dtype) -> calls.
+    The wrappers look the Functions up at call time, so a shim in their
+    place sees each call."""
 
     def __init__(self):
         from megatts2_hierspeechpp_torch.ops import amp_triple, ampblock, snake
@@ -1940,7 +2354,8 @@ class KernelCalls:
                 if rec.on:
                     static = (() if kind == "aa_snakebeta" else
                               args[1:3] if kind == "ampblock" else args[1:4])
-                    key = (kind, tuple(args[0].shape), static)
+                    key = (kind, tuple(args[0].shape), static,
+                           str(args[0].dtype).replace("torch.", ""))
                     rec.seen[key] = rec.seen.get(key, 0) + 1
                 return fn.apply(*args)
 
@@ -2126,10 +2541,16 @@ def train_profile(torch, step, state, batch, seed: int, label=None):
 
 def train_cpu_phase(torch, dev, hps, ds):
     """One step at full width on the card and on the CPU from the same
-    weights, batch and draws: every loss, and the G and D gradients."""
+    weights, batch and draws, in float32 and in bf16 compute: the float32
+    steps' losses and G and D gradients against each other; each bf16
+    step judged by its distance from its own device's float32 step (each
+    loss relative, each gradient relative L2), the card's within
+    EXACT_RATIO x the CPU's (two bf16 paths that sum in other orders cannot
+    meet TRAIN_LOSS_TOL against each other)."""
     from megatts2_hierspeechpp_torch.cli.train_vocoder import (
         build_state, vocoder_batch)
     from megatts2_hierspeechpp_torch.train import vocoder as vt
+    from megatts2_hierspeechpp_torch.utils.config import HParams
 
     t = TRAIN_CPU_FRAMES
     full = vocoder_batch(ds, [0, 1])
@@ -2139,24 +2560,27 @@ def train_cpu_phase(torch, dev, hps, ds):
     batch["lengths"] = np.minimum(full["lengths"], t)
     step = vt.TrainStep(segment_frames=hps.train.segment_frames,
                               c_mel=hps.train.c_mel, c_kl=hps.train.c_kl)
-    out = []
-    for d in (dev, torch.device("cpu")):
-        state = build_state(hps, d, hps.train.seed)
-        tb = {k: torch.from_numpy(v).to(d) for k, v in batch.items()}
-        draws = step.draw(state, tb, torch.Generator().manual_seed(11))
-        t0 = time.perf_counter()
-        state, m = step.with_draws(state, tb, *draws)
-        m = {k: float(v) for k, v in m.items()}  # waits for the device
-        ms = 1e3 * (time.perf_counter() - t0)
-        grads = {name: torch.cat([p.grad.detach().flatten().cpu()
-                                  for p in mod.parameters()])
-                 for name, mod in (("G", state.gen), ("D", state.disc))}
-        out.append((m, grads, ms))
-        del state
-    (mc, gc, ms_c), (mp, gp, ms_p) = out
+    out = {}
+    for dtype in ("fp32", "bf16"):
+        h = HParams(**hps.to_dict())
+        h.train.dtype = dtype
+        for d in (dev, torch.device("cpu")):
+            state = build_state(h, d, hps.train.seed)
+            tb = {k: torch.from_numpy(v).to(d) for k, v in batch.items()}
+            draws = step.draw(state, tb, torch.Generator().manual_seed(11))
+            t0 = time.perf_counter()
+            state, m = step.with_draws(state, tb, *draws)
+            m = {k: float(v) for k, v in m.items()}  # waits for the device
+            ms = 1e3 * (time.perf_counter() - t0)
+            grads = {name: torch.cat([p.grad.detach().flatten().cpu()
+                                      for p in mod.parameters()])
+                     for name, mod in (("G", state.gen), ("D", state.disc))}
+            out[dtype, d.type] = (m, grads, ms)
+            del state
+    (mc, gc, ms_c), (mp, gp, ms_p) = out["fp32", "cuda"], out["fp32", "cpu"]
     loss_err = {k: abs(mc[k] - mp[k]) / max(abs(mp[k]), 1e-30) for k in mp}
     grad_err = {k: ((gc[k] - gp[k]).norm() / gp[k].norm()).item() for k in gp}
-    line = {"phase": "train_card_vs_cpu", "B": 2, "frames": t,
+    line = {"phase": "train_card_vs_cpu", "B": 2, "frames": t, "dtype": "fp32",
             "card_ms": ms_c, "cpu_ms": ms_p, "losses_card": mc,
             "loss_rel_err": loss_err, "grad_rel_l2": grad_err,
             "tolerance": {"loss": TRAIN_LOSS_TOL, "grad": TRAIN_GRAD_TOL}}
@@ -2168,13 +2592,57 @@ def train_cpu_phase(torch, dev, hps, ds):
     if not max(grad_err.values()) <= TRAIN_GRAD_TOL:
         fail(f"train card vs CPU: gradients differ {grad_err}")
 
+    dist, per_loss = {}, {}  # side -> distance of bf16 from float32
+    for side in ("cuda", "cpu"):
+        (m16, g16, _), (m32, g32, _) = out["bf16", side], out["fp32", side]
+        per_loss[side] = {k: abs(m16[k] - m32[k]) / max(abs(m32[k]), 1e-30)
+                          for k in m32}
+        dist[side] = {"losses": max(per_loss[side].values()),
+                      **{k: ((g16[k] - g32[k]).norm() / g32[k].norm()).item()
+                         for k in g32}}
+    bad = {k: (dist["cuda"][k], dist["cpu"][k]) for k in dist["cpu"]
+           if not dist["cuda"][k] <= EXACT_RATIO * dist["cpu"][k]}
+    m16 = out["bf16", "cuda"][0]
+    line = {"phase": "train_card_vs_cpu", "B": 2, "frames": t, "dtype": "bf16",
+            "card_ms": out["bf16", "cuda"][2], "cpu_ms": out["bf16", "cpu"][2],
+            "losses_card": m16, "bf16_to_fp32_card": dist["cuda"],
+            "bf16_to_fp32_cpu": dist["cpu"], "per_loss": per_loss,
+            "tolerance": f"card <= {EXACT_RATIO:g} x cpu: the largest loss "
+                         "distance (relative), G and D (relative L2)"}
+    print(json.dumps(line), flush=True)
+    if not all(math.isfinite(v) for v in m16.values()):
+        fail(f"train card vs CPU bf16: non-finite loss {m16}")
+    if bad:
+        fail(f"train card vs CPU bf16: farther from float32 than the CPU {bad}")
+
+
+@contextlib.contextmanager
+def deterministic_cudnn(torch):
+    """cuDNN restricted to deterministic algorithms while active. Its
+    default backward sums in an order that varies between calls, which
+    flips the bf16 rounding of a bf16 x's gradient (and, in the bf16 twin,
+    roundings downstream of it): two autograd runs of one twin then differ
+    by a bf16 step. Deterministic, they agree to the bit."""
+    old = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = old
+
 
 def train_backward_phase(torch, dev, calls):
     """Each kernel at every training launch shape: its wrapper's forward and
-    backward (plain_vjp) against autograd of its plain version on the card,
-    the same inputs and cotangent; ms of the kernel's forward, the plain
-    forward and the wrapper's backward (CUDA events), and the forward's
-    bound."""
+    backward (plain_vjp) against autograd of its plain version on the card
+    (the bf16 twin on a bf16 x), the same inputs and cotangent, both under
+    deterministic_cudnn: each gradient within TRAIN_BWD_TOL x max|ref| of
+    its tensor. ms of the kernel's forward, the plain forward and the
+    wrapper's backward (CUDA events), and the forward's bound. A bf16 shape
+    (the bf16 configuration) holds the forward with bf16_check and takes the
+    bf16 bound; where the twin rounds (the AMPBlock, the stage), autograd of
+    the float32 plain version must be farther than TRAIN_BWD_TOL from the
+    twin's gradient in some tensor, so that a backward which skipped the
+    twin would fail the gate."""
     from megatts2_hierspeechpp_torch.ops.amp_triple import (
         composed_triple, fused_amp_triple)
     from megatts2_hierspeechpp_torch.ops.ampblock import (
@@ -2197,22 +2665,30 @@ def train_backward_phase(torch, dev, calls):
                 leaf(3, k, c, c, scale=(c * k) ** -0.5), leaf(3, c, scale=0.05)]
 
     rows = []
-    for (kind, shape, static), n_calls in sorted(calls.items(), key=str):
+    for (kind, shape, static, dtype), n_calls in sorted(calls.items(), key=str):
         b, t, c = shape
+        half = dtype == "bfloat16"
         x = leaf(b, t, c)
+        if half:
+            x = x.detach().bfloat16().requires_grad_()
         if kind == "aa_snakebeta":
             ws = [leaf(c, scale=0.2, positive=True),
                   leaf(c, scale=0.2, positive=True)]
             fused = lambda: fused_aa_snakebeta(x, *ws)  # noqa: E731
             plain = lambda: composed_snakebeta(x, *ws)  # noqa: E731
+            twin_args = ws
             n_bytes, flops, conv = 4.0 * (2 * b * t * c + 2 * c), SNAKE_FLOPS * b * t * c, 0.0
+            act_bytes = 4.0 * 2 * b * t * c
             label = f"B={b} T={t} C={c}"
         elif kind == "ampblock":
             k, dil = static
             ws = block_ws(c, k)
             fused = lambda: fused_ampblock(x, *ws, k, dil)  # noqa: E731
             plain = lambda: composed_ampblock(x, *ws, k, dil)  # noqa: E731
+            plain32 = lambda xf: composed_ampblock(xf, *ws, k, dil)  # noqa: E731
+            twin_args = (*ws, k, dil)
             n_bytes = 4.0 * (2 * b * t * c + 6 * k * c * c + 10 * c)
+            act_bytes = 4.0 * 2 * b * t * c
             flops, conv = block_flops(b * t, c, k)
             label = f"B={b} T={t} C={c} k={k}"
         else:
@@ -2224,39 +2700,71 @@ def train_backward_phase(torch, dev, calls):
             ws = [w for bw in bws for w in bw] + (post or [])
             fused = lambda: fused_amp_triple(x, bws, ks, dils, post)  # noqa: E731
             plain = lambda: composed_triple(x, bws, ks, dils, post)  # noqa: E731
+            plain32 = lambda xf: composed_triple(xf, bws, ks, dils, post)  # noqa: E731
+            twin_args = (bws, ks, dils, post)
             flops = sum(block_flops(b * t, c, k)[0] for k in ks) + 3.0 * b * t * c
             conv = sum(block_flops(b * t, c, k)[1] for k in ks)
             if has_post:
                 flops += (SNAKE_FLOPS + 14) * b * t * c + b * t
             n_bytes = 4.0 * (b * t * c + (b * t if has_post else b * t * c)
                              + sum(6 * k * c * c + 10 * c for k in ks))
+            act_bytes = 4.0 * (b * t * c + (b * t if has_post else b * t * c))
             label = f"B={b} T={t} C={c} ks={list(ks)}{' +tail' if has_post else ''}"
         leaves = [x] + ws
         y = fused()
-        ct = torch.randn(y.shape, generator=gen).to(dev)
-        grads = torch.autograd.grad(y, leaves, ct, retain_graph=True)
-        yr = plain()
-        refs = torch.autograd.grad(yr, leaves, ct)
-        fwd_err = ((y - yr).abs().max() / yr.abs().max()).item()
-        grad_err = max(((g - r).abs().max() / r.abs().max().clamp_min(1e-30)).item()
-                       for g, r in zip(grads, refs))
+        ct = torch.randn(y.shape, generator=gen).to(dev, y.dtype)
+        with deterministic_cudnn(torch):
+            grads = torch.autograd.grad(y, leaves, ct, retain_graph=True)
+            yr = plain()
+            refs = torch.autograd.grad(yr, leaves, ct)
+        if half:
+            with torch.no_grad():
+                check = bf16_check(y.detach(), *bf16_twin(torch, kind, x.detach(),
+                                                           twin_args))
+            fwd_err, fwd_ok = check["err_over_ref"], check["ok"]
+        else:
+            fwd_err = ((y - yr).abs().max() / yr.abs().max()).item()
+            fwd_ok = fwd_err <= TRAIN_FWD_TOL[kind]
+        def rel(gs, rs):  # per tensor, max abs difference over max|ref|
+            return [((g.float() - r.float()).abs().max()
+                     / r.float().abs().max().clamp_min(1e-30)).item()
+                    for g, r in zip(gs, rs)]
+
+        grad_err = max(rel(grads, refs))
+        f32_err = None
+        if half and kind != "aa_snakebeta":  # the AA-snake's twin rounds nothing
+            xf = x.detach().float().requires_grad_()
+            with deterministic_cudnn(torch):
+                refs32 = torch.autograd.grad(plain32(xf), [xf] + ws, ct.float())
+            f32_err = max(rel([refs32[0].to(x.dtype), *refs32[1:]], refs))
+            del refs32, xf
         del yr, refs
         with torch.no_grad():
             ms = time_ms(torch, fused, 5)
             plain_ms = time_ms(torch, plain, 3)
         bwd_ms = time_ms(torch, lambda: torch.autograd.grad(
             y, leaves, ct, retain_graph=True), 3)
-        b_ms, b_by = bound_ms(n_bytes, flops, conv)
+        if half:  # bf16 activations, the products one bf16 pass
+            b_ms, b_by = bound_ms_bf16(n_bytes - act_bytes / 2, flops, conv)
+        else:
+            b_ms, b_by = bound_ms(n_bytes, flops, conv)
         line = {"phase": "train_shape", "kernel": kind, "shape": label,
+                **({"dtype": "bf16", "fwd_check": check} if half else {}),
                 "calls_in_first_run": n_calls, "fwd_err_over_ref": fwd_err,
                 "grad_err_over_ref": grad_err,
-                "tolerance": {"fwd": f"{TRAIN_FWD_TOL[kind]:g} x max|ref|",
-                              "grad": f"{TRAIN_BWD_TOL:g} x max|ref| per tensor"},
+                **({"grad_f32_backward_over_ref": f32_err} if half else {}),
+                "tolerance": {"fwd": (check["tolerance"] if half else
+                                      f"{TRAIN_FWD_TOL[kind]:g} x max|ref|"),
+                              "grad": f"{TRAIN_BWD_TOL:g} x max|ref| per tensor, "
+                                      "cuDNN deterministic"},
                 "ms": ms, "plain_ms": plain_ms, "bwd_plain_vjp_ms": bwd_ms,
                 "bound_ms": b_ms, "bound_by": b_by}
         print(json.dumps(line), flush=True)
-        if not (fwd_err <= TRAIN_FWD_TOL[kind] and grad_err <= TRAIN_BWD_TOL):
-            fail(f"{kind} {label} under autograd: forward {fwd_err}, "
+        if f32_err is not None and f32_err <= TRAIN_BWD_TOL:
+            fail(f"{kind} {label} {dtype}: the float32 backward is within "
+                 f"{f32_err} of the twin's, the gate cannot tell them apart")
+        if not (fwd_ok and grad_err <= TRAIN_BWD_TOL):
+            fail(f"{kind} {label} {dtype} under autograd: forward {fwd_err}, "
                  f"gradients {grad_err} of max|ref|")
         rows.append(line)
         del x, ws, leaves, y, grads, ct
@@ -2264,83 +2772,67 @@ def train_backward_phase(torch, dev, calls):
     return rows
 
 
-def train_vocoder_phase(torch, dev, shapes, tmp):
-    """cli/train_vocoder at the published widths on a synthetic corpus
-    written into `tmp`: 3 steps, a checkpoint, a resumed run of 3 more; each
-    step's ms and kernel launches, audio-s per s, peak memory; one step
-    profiled; one step card against CPU; every kernel's backward at its
-    training shapes. Returns (per-step launches of the first step, the
-    train_shape rows, the corpus directory); the run's checkpoints are
-    deleted."""
+def train_run(torch, cli, shapes, calls, logs, cfgs, label, kernels):
+    """cli/train_vocoder.main on each config path of `cfgs` in turn, on one
+    run directory (each later run resumes): TrainStep timed (TimedStep,
+    counting `kernels`), the eval hook probed, the first run's kernel calls
+    recorded in `calls` and its launch shapes under `label`. Returns (the
+    last state, the step records, scalars.jsonl, the EvalProbe, seconds per
+    run, peak memory of the first run, the checkpoint after it)."""
     import os
-    import shutil
 
-    from megatts2_hierspeechpp_torch.cli import make_synth_corpus
-    from megatts2_hierspeechpp_torch.cli import train_vocoder as cli
-    from megatts2_hierspeechpp_torch.data.dataset import (
-        DatasetConfig, DistributedBucketSampler, SidecarDataset)
-    from megatts2_hierspeechpp_torch.ops import cuda_lib
     from megatts2_hierspeechpp_torch.train import checkpoints as ckpt
-    from megatts2_hierspeechpp_torch.utils.config import load_hparams
 
-    hps = load_hparams(TRAIN_CONFIG)
-    corpus = os.path.join(tmp, "corpus")
-    t0 = time.perf_counter()
-    make_synth_corpus.make_corpus(corpus, n=TRAIN_UTTERANCES, seed=0)
-    corpus_s = time.perf_counter() - t0
-    logs = os.path.join(tmp, "logs")
-    evals = dict(eval_interval=TRAIN_EVAL_INTERVAL, eval_plots=False)
-    cfg1 = train_config(os.path.join(tmp, "c1.json"), hps, corpus, epochs=1,
-                        log_interval=1, save_interval=2, **evals)
-    cfg2 = train_config(os.path.join(tmp, "c2.json"), hps, corpus, epochs=2,
-                        log_interval=1, save_interval=2, **evals)
-    steps = []
+    steps, secs = [], []
     make_step = cli.vt.TrainStep
 
     def timed_step(**kw):
-        steps.append(TimedStep(torch, make_step(**kw)))
+        steps.append(TimedStep(torch, make_step(**kw), kernels))
         return steps[-1]
 
-    calls = KernelCalls()
     cli.vt.TrainStep = timed_step
     torch.cuda.reset_peak_memory_stats()
     try:
         with EvalProbe(torch, cli, "make_vocoder_eval_fn", shapes,
-                       "train_vocoder eval", calls) as probe:
-            calls.on = True
-            shapes.path = "train_vocoder"
-            t0 = time.perf_counter()
-            state = cli.main(["-c", cfg1, "-m", "run", "--logs_dir", logs])
-            first_s = time.perf_counter() - t0
-            calls.on = False
-            shapes.path = None
-            peak = torch.cuda.max_memory_allocated()
-            after_first = ckpt.latest_step(os.path.join(logs, "run", "ckpt"))
-            t0 = time.perf_counter()
-            state = cli.main(["-c", cfg2, "-m", "run", "--logs_dir", logs])
-            second_s = time.perf_counter() - t0
+                       f"{label} eval", calls) as probe:
+            for i, cfg in enumerate(cfgs):
+                calls.on = i == 0
+                shapes.path = label if i == 0 else None
+                t0 = time.perf_counter()
+                state = cli.main(["-c", cfg, "-m", "run", "--logs_dir", logs])
+                secs.append(time.perf_counter() - t0)
+                calls.on, shapes.path = False, None
+                if i == 0:
+                    peak = torch.cuda.max_memory_allocated()
+                    after_first = ckpt.latest_step(os.path.join(logs, "run", "ckpt"))
     finally:
         cli.vt.TrainStep = make_step
-        calls.close()
-        shapes.path = None
-    recs = [r for s in steps for r in s.records]
+        calls.on, shapes.path = False, None
     with open(os.path.join(logs, "run", "scalars.jsonl")) as f:
-        all_scalars = [json.loads(line) for line in f]
-    scalars = [s for s in all_scalars if "loss/g/total" in s]
-    for r in recs:
-        print(json.dumps(dict(r, phase="train_step")), flush=True)
+        scalars = [json.loads(line) for line in f]
+    return (state, [r for s in steps for r in s.records], scalars, probe,
+            secs, peak, after_first)
+
+
+def train_line(label, dtype, hps, recs, scalars, evals, secs, peak, after_first,
+               corpus_s=None):
+    """The train_vocoder line of one run, and its checks: the steps 1..n
+    logged with finite losses, the checkpoint after the first run, and every
+    kernel of `dtype`'s configuration launched in every step, none of the
+    other's."""
     hop_s = 320 / 16000
+    n = len(recs)
     med = float(np.median([r["ms"] for r in recs[1:]]))
 
     def rate(seconds_of):  # median audio-s per s of the steps after the first
         return float(np.median([seconds_of(r) / (r["ms"] / 1e3)
                                 for r in recs[1:]]))
 
-    line = {"phase": "train_vocoder", "config": TRAIN_CONFIG,
-            "utterances": TRAIN_UTTERANCES, "corpus_s": corpus_s,
+    losses = [s for s in scalars if "loss/g/total" in s]
+    line = {"phase": "train_vocoder", "config": TRAIN_CONFIG, "dtype": dtype,
+            "run": label, "corpus_s": corpus_s,
             "steps": [r["step"] for r in recs],
-            "first_run_s": first_s, "resumed_run_s": second_s,
-            "checkpoint_after_first_run": after_first,
+            "runs_s": secs, "checkpoint_after_first_run": after_first,
             "step_ms_median_after_first": med,
             "step_ms": [r["ms"] for r in recs],
             "audio_s_per_s_encoded": rate(lambda r: r["frames"] * hop_s),
@@ -2350,28 +2842,59 @@ def train_vocoder_phase(torch, dev, shapes, tmp):
                 lambda r: r["B"] * hps.train.segment_frames * hop_s),
             "peak_memory_mb": peak / 2 ** 20,
             "launches_per_step": recs[0]["launches"],
-            "losses_last": {k: v for k, v in scalars[-1].items()
+            "losses_last": {k: v for k, v in losses[-1].items()
                             if k.startswith("loss/")},
-            "eval": probe.records}
+            "eval": evals}
     print(json.dumps(line), flush=True)
-    check_evals("train_vocoder", probe, all_scalars, ("mel_l1",), (3, 6))
-    if [r["step"] for r in recs] != [1, 2, 3, 4, 5, 6]:
-        fail(f"train_vocoder: steps {[r['step'] for r in recs]}, expected 1-6 "
-             "(3, then 3 resumed from the checkpoint)")
-    if after_first != 3 or state.step != 6:
-        fail(f"train_vocoder: checkpoint {after_first}, final step {state.step}")
-    if [s["step"] for s in scalars] != [1, 2, 3, 4, 5, 6]:
-        fail(f"train_vocoder: logged steps {[s['step'] for s in scalars]}")
-    for s in scalars:
+    if [r["step"] for r in recs] != list(range(1, n + 1)):
+        fail(f"{label}: steps {[r['step'] for r in recs]}, expected 1-{n}")
+    if after_first != n // 2:
+        fail(f"{label}: checkpoint {after_first} after the first run")
+    if [s["step"] for s in losses] != list(range(1, n + 1)):
+        fail(f"{label}: logged steps {[s['step'] for s in losses]}")
+    for s in losses:
         bad = {k: v for k, v in s.items()
                if k.startswith("loss/") and not math.isfinite(v)}
         if bad:
-            fail(f"train_vocoder step {s['step']}: non-finite losses {bad}")
+            fail(f"{label} step {s['step']}: non-finite losses {bad}")
+    want = BF16_KERNELS if dtype == "bf16" else TRAIN_KERNELS
     for r in recs:
-        if min(r["launches"].values()) < 1:
-            fail(f"train_vocoder step {r['step']}: a kernel was not launched "
-                 f"{r['launches']}")
+        if min(r["launches"][k] for k in want) < 1 or any(
+                v for k, v in r["launches"].items() if k not in want):
+            fail(f"{label} step {r['step']}: launches {r['launches']}, each "
+                 f"of {want} expected")
 
+
+def train_vocoder_phase(torch, dev, shapes, tmp):
+    """cli/train_vocoder at the published widths on a synthetic corpus
+    written into `tmp`, at its default compute (bf16: the config sets no
+    train.dtype, as the JAX CLI): 3 steps, a checkpoint, a resumed run of 3
+    more, the eval hook at steps 3 and 6; then "fp32" on 32 of the
+    utterances (one batch an epoch): 1 step, a checkpoint, 1 resumed, the
+    eval hook after each (its B = 32 float32 launch shapes). Each
+    step's ms and kernel launches, audio-s per s, peak memory; one step of
+    each profiled on the same batch; one step card against CPU in each
+    dtype; every kernel's backward at its training shapes of both runs.
+    Returns (launches of a bf16 step, launches of a float32 step, the
+    train_shape rows, the corpus directory); the runs' checkpoints are
+    deleted."""
+    import os
+    import shutil
+
+    from megatts2_hierspeechpp_torch.cli import make_synth_corpus
+    from megatts2_hierspeechpp_torch.cli import train_vocoder as cli
+    from megatts2_hierspeechpp_torch.data.dataset import (
+        DatasetConfig, DistributedBucketSampler, SidecarDataset)
+    from megatts2_hierspeechpp_torch.ops import cuda_lib
+    from megatts2_hierspeechpp_torch.utils.config import load_hparams
+
+    hps = load_hparams(TRAIN_CONFIG)
+    if "dtype" in hps.train:
+        fail(f"{TRAIN_CONFIG} sets train.dtype: the default is not exercised")
+    corpus = os.path.join(tmp, "corpus")
+    t0 = time.perf_counter()
+    make_synth_corpus.make_corpus(corpus, n=TRAIN_UTTERANCES, seed=0)
+    corpus_s = time.perf_counter() - t0
     ds = SidecarDataset(f"{corpus}/train_list.txt", DatasetConfig())
     sampler = DistributedBucketSampler(ds.lengths(), hps.train.batch_size,
                                        list(cli.BOUNDARIES),
@@ -2379,16 +2902,49 @@ def train_vocoder_phase(torch, dev, shapes, tmp):
     batch = cli.vocoder_batch(ds, sampler.epoch_batches(0)[0])
     batch = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
     step = cli.vt.TrainStep(segment_frames=hps.train.segment_frames,
-                                  c_mel=hps.train.c_mel, c_kl=hps.train.c_kl)
-    train_profile(torch, step, state, batch, seed=5)
-    del state, batch
-    torch.cuda.empty_cache()
-    shutil.rmtree(logs)   # 3 checkpoints of 1.7 GB
+                            c_mel=hps.train.c_mel, c_kl=hps.train.c_kl)
+    kernels = TRAIN_KERNELS + BF16_KERNELS
+    calls = KernelCalls()
+    try:
+        logs = os.path.join(tmp, "logs")
+        evals = dict(eval_interval=TRAIN_EVAL_INTERVAL, eval_plots=False)
+        cfgs = [train_config(os.path.join(tmp, f"c{e}.json"), hps, corpus,
+                             epochs=e, log_interval=1, save_interval=2, **evals)
+                for e in (1, 2)]
+        state, recs, scalars, probe, secs, peak, first = train_run(
+            torch, cli, shapes, calls, logs, cfgs, "train_vocoder", kernels)
+        train_line("train_vocoder", "bf16", hps, recs, scalars, probe.records,
+                   secs, peak, first, corpus_s)
+        check_evals("train_vocoder", probe, scalars, ("mel_l1",), (3, 6))
+        train_profile(torch, step, state, batch, seed=5,
+                      label="train_vocoder bf16 B=32")
+        del state
+        torch.cuda.empty_cache()
+        shutil.rmtree(logs)   # 3 checkpoints of 1.7 GB
+
+        sub = s_subset(corpus, os.path.join(tmp, "corpus32"),
+                       TRAIN_FP32_UTTERANCES, cli.BOUNDARIES)
+        cfgs = [train_config(os.path.join(tmp, f"f{e}.json"), hps, sub,
+                             epochs=e, log_interval=1, save_interval=2,
+                             dtype="fp32", eval_interval=1, eval_plots=False)
+                for e in (1, 2)]
+        state, recs32, scalars, probe, secs, peak, first = train_run(
+            torch, cli, shapes, calls, logs, cfgs, "train_vocoder fp32", kernels)
+        train_line("train_vocoder fp32", "fp32", hps, recs32, scalars,
+                   probe.records, secs, peak, first)
+        check_evals("train_vocoder fp32", probe, scalars, ("mel_l1",), (1, 2))
+        train_profile(torch, step, state, batch, seed=5,
+                      label="train_vocoder fp32 B=32")
+        del state, batch
+        torch.cuda.empty_cache()
+        shutil.rmtree(logs)
+    finally:
+        calls.close()
     train_cpu_phase(torch, dev, hps, ds)
     torch.cuda.empty_cache()
     rows = train_backward_phase(torch, dev, calls.seen)
     cuda_lib.reset_launches()
-    return recs[0]["launches"], rows, corpus
+    return recs[0]["launches"], recs32[0]["launches"], rows, corpus
 
 
 # ---- phase 11: s2 / s1 training (cli/train_s2, cli/train_s1) and the
@@ -2417,19 +2973,21 @@ S_GROUPS = (  # a step's kernels by name, first match wins
 )
 
 
-def s_subset(corpus, dst, n: int = S_UTTERANCES):
+def s_subset(corpus, dst, n: int = S_UTTERANCES, boundaries=None):
     """A filelist of n of the corpus's utterances, all in its most common
-    length bucket (cli/train_s2.BOUNDARIES), so that an epoch at batch 8 is
-    n / 8 steps. Returns dst."""
+    length bucket (`boundaries`, cli/train_s2.BOUNDARIES by default), so
+    that an epoch at batch b is n / b steps. Returns dst."""
     import os
 
     from megatts2_hierspeechpp_torch.cli.train_s2 import BOUNDARIES
     from megatts2_hierspeechpp_torch.data.dataset import (
         DatasetConfig, SidecarDataset)
 
+    bounds = boundaries or BOUNDARIES
+
     ds = SidecarDataset(f"{corpus}/train_list.txt", DatasetConfig())
-    bucket = [next(i for i in range(len(BOUNDARIES) - 1)
-                   if BOUNDARIES[i] < t <= BOUNDARIES[i + 1]) for t in ds.lengths()]
+    bucket = [next(i for i in range(len(bounds) - 1)
+                   if bounds[i] < t <= bounds[i + 1]) for t in ds.lengths()]
     common = max(set(bucket), key=bucket.count)
     rows = [ds.items[i][:3] for i, b in enumerate(bucket) if b == common][:n]
     if len(rows) < n:
@@ -3155,12 +3713,19 @@ def main() -> int:
     print(json.dumps({"phase": "build", "seconds": time.perf_counter() - t0,
                       "library": so.name}), flush=True)
 
+    def clock(after):  # the run's seconds at a phase boundary
+        print(json.dumps({"phase": "clock", "after": after,
+                          "seconds": time.perf_counter() - t_start}), flush=True)
+
     kernels = kernel_phase(torch, dev)
     kernels["amp_triple"] = epilogue_phase(torch, dev)
+    kernels.update(kernel_bf16_phase(torch, dev))
+    clock("kernel_bf16")
     snake_conv_phase(torch, dev)
     kernels["plm_decode"] = plm_phase(torch, dev)
     bf16 = plm_bf16_phase(torch, dev)
     kernels["plm_decode_bf16"] = [bf16]
+    clock("plm_bf16")
     _, pipe, prompt, audio, inputs = path_phase(torch, dev)
     launches, reqs = tts_phase(torch, pipe, prompt)
     if min(launches[k] for k in PATH_KERNELS) < 1:
@@ -3187,16 +3752,24 @@ def main() -> int:
     vc_phase(torch, dev, pipe, cpu_pipe, shapes)
     del pipe, cpu_pipe
     torch.cuda.empty_cache()
+    clock("vc")
+    voc_bf16_calls = bf16_forward_phase(torch, dev, shapes)
+    clock("bf16_forward")
     with tempfile.TemporaryDirectory() as tmp:
-        train_launches, _, corpus = train_vocoder_phase(torch, dev, shapes, tmp)
+        train_bf16, train_launches, _, corpus = train_vocoder_phase(
+            torch, dev, shapes, tmp)
+        clock("train_vocoder")
         s2_dir, cfgs, first = train_s2_phase(torch, dev, tmp, corpus)
         s1_state, batch = train_s1_phase(torch, dev, tmp, s2_dir, cfgs, first)
         serve_launches = serve_trained_phase(torch, dev, shapes, audio,
                                              s1_state, batch)
         del s1_state, batch
         torch.cuda.empty_cache()
+        clock("serve_trained")
         sr_launches, sr_rows = train_sr_phase(torch, dev, tmp, corpus, shapes)
+        clock("train_sr")
         train_denoiser_phase(torch, dev, tmp, corpus, shapes, audio)
+        clock("train_denoiser")
     torch.cuda.empty_cache()
     new_shapes_phase(torch, dev, shapes)
 
@@ -3219,9 +3792,17 @@ def main() -> int:
                               if key == "plm_decode_bf16" else
                               "tts requests, phase 5"),
         })
+        if key in BF16_KERNELS:
+            out[-1].update(
+                launches=voc_bf16_calls[key],
+                launches_from="bf16_forward, one bf16 HierVocoder call at B=4",
+                launches_train_step=train_bf16[key],
+                bound_ms_3xtf32=slowest["bound_ms_3xtf32"],
+                err_over_ref=max(ln["err_over_ref"] for ln in lines))
+            continue
         if train_launches.get(key, 0) > out[-1]["launches"]:
             out[-1].update(launches=train_launches[key],
-                           launches_from="train_vocoder, one B=32 step, phase 10")
+                           launches_from="train_vocoder fp32, one B=32 step, phase 10")
         if key in serve_launches:
             out[-1]["launches_serve_trained"] = serve_launches[key]
         if key == "amp_triple":

@@ -9,9 +9,11 @@ model.posterior_wn_layers / n_flows / flow_layers and model.mpd_resolutions
 / mpd_periods, where present, cut the model's depth (the JAX CLI builds
 their defaults, which are the values these keys default to).
 
+train.dtype is the compute dtype, as in the JAX CLI: "bf16" (the default
+when the key is absent) computes in bf16 with float32 parameters, "fp32" in
+float32; any other value raises.
+
 Differences from the JAX CLI:
-  - training computes in float32; train.dtype "fp32" is accepted and "bf16"
-    (the JAX default) raises: bf16 compute is not in the port yet;
   - the fused stage kernels run in the step (the JAX CLI turns them off for
     its compile time; the port has no compile);
   - a resumed run starts at the epoch its step count is in (the JAX CLI
@@ -93,17 +95,18 @@ def vocoder_batch(ds: SidecarDataset, idxs, hop: int = 320,
     return batch
 
 
+COMPUTE_DTYPES = {"bf16": torch.bfloat16, "fp32": None}   # train.dtype
+
+
 def build_state(hps, device, seed: int) -> vt.VocTrainState:
     """A step-0 train state from a config: a training build of the vocoder
-    (seeded `seed`), the discriminator (`seed + 1`) and their AdamWs."""
+    (seeded `seed`), the discriminator (`seed + 1`) and their AdamWs, both
+    models computing in train.dtype ("bf16" when absent, as the JAX CLI)."""
     m, tr = hps.model, hps.train
-    dtype = tr.get("dtype", "fp32")
-    if dtype == "bf16":
-        raise NotImplementedError(
-            'train.dtype "bf16": bf16 training compute is not in the port '
-            'yet (ROADMAP.md section 1, "bf16 training compute"); use "fp32"')
-    if dtype != "fp32":
-        raise ValueError(f"unknown train.dtype {dtype!r}")
+    name = tr.get("dtype", "bf16")
+    if name not in COMPUTE_DTYPES:
+        raise ValueError(f"unknown train.dtype {name!r}")
+    dtype = COMPUTE_DTYPES[name]
     gen = HierVocoder(
         inter_channels=m.inter_channels, hidden_channels=m.hidden_channels,
         upsample_rates=tuple(m.upsample_rates),
@@ -112,10 +115,11 @@ def build_state(hps, device, seed: int) -> vt.VocTrainState:
         posterior_wn_layers=m.get("posterior_wn_layers", 16),
         n_flows=m.get("n_flows", 4), flow_layers=m.get("flow_layers", 3),
         spec_channels=m.spec_channels, filter_channels=m.filter_channels,
-        seed=seed, device=device, train=True)
+        seed=seed, device=device, train=True, dtype=dtype)
     disc = MultiPeriodDiscriminator(
         tuple(map(tuple, m.get("mpd_resolutions", VOCODER_RESOLUTIONS))),
-        tuple(m.get("mpd_periods", PERIODS)), seed=seed + 1, device=device)
+        tuple(m.get("mpd_periods", PERIODS)), seed=seed + 1, device=device,
+        dtype=dtype)
     return vt.create_state(gen, disc, lr=tr.learning_rate,
                            betas=tuple(tr.betas), eps=tr.eps,
                            lr_decay=tr.lr_decay,

@@ -29,6 +29,29 @@ __device__ __forceinline__ int clampi(int v, int lo, int hi) {
   return v < lo ? lo : (v > hi ? hi : v);
 }
 
+// Activations in device memory are float32 or bf16 (the TPU kernels' bf16
+// configuration: bf16 in and out, float32 inside). A bf16 value is held as
+// its 16 bits, the high half of a float32; the kernels load it as float32
+// and round a float32 result to it on store.
+struct bf16 {
+  unsigned short bits;
+};
+
+// float32 -> bf16 bits, round to nearest even (as torch's .to(bfloat16))
+__device__ __forceinline__ unsigned short bf16_bits(float f) {
+  const unsigned u = __float_as_uint(f);
+  return static_cast<unsigned short>((u + 0x7fffu + ((u >> 16) & 1u)) >> 16);
+}
+
+__device__ __forceinline__ float ld_act(const float* p) { return __ldg(p); }
+__device__ __forceinline__ float ld_act(const bf16* p) {
+  return __uint_as_float(
+      static_cast<unsigned>(__ldg(reinterpret_cast<const unsigned short*>(p)))
+      << 16);
+}
+__device__ __forceinline__ void st_act(float* p, float v) { *p = v; }
+__device__ __forceinline__ void st_act(bf16* p, float v) { p->bits = bf16_bits(v); }
+
 // Stages of one channel chunk of an anti-aliased snake over the output
 // window [w0, w0 + n). Shared-memory rows are [row][kChunk], one channel per
 // lane, so a warp reads and writes 32 consecutive floats.

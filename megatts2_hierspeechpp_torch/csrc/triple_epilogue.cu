@@ -3,7 +3,10 @@
 //
 //   y = tanh(conv_post(snake(avg)))   conv_post: C -> 1, k = 7, no bias
 //
-// written straight to the (B, T, 1) waveform.
+// written straight to the (B, T, 1) waveform. The block outputs are
+// float32; the output is float32, or bf16 in the TPU kernels' bf16
+// configuration (the average, the AA-snake, conv_post and tanh still in
+// float32, rounded once on store).
 //
 // Replaces the averaging and tail of megatts2_hierspeechpp_tpu/ops/
 // pallas_amp_triple.py:_kernel (its blocks run through snake_conv.cu).
@@ -51,13 +54,14 @@ constexpr int kMaxDevices = 64;  // cards whose shared memory opt-in is kept
 // channel), average (rows + 10) x C, AA-snake C x (rows + 1)
 int post_smem(int C, int rows) { return 4 * C * (2 * rows + 19); }
 
+template <typename Out>
 __global__ void triple_avg_kernel(const float* __restrict__ r0,
                                   const float* __restrict__ r1,
                                   const float* __restrict__ r2,
-                                  float* __restrict__ y, int n) {
+                                  Out* __restrict__ y, int n) {
   for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < n;
        i += gridDim.x * blockDim.x)
-    y[i] = (r0[i] + r1[i] + r2[i]) / 3.0f;
+    st_act(y + i, (r0[i] + r1[i] + r2[i]) / 3.0f);
 }
 
 __device__ __forceinline__ float4 avg3(float4 a, float4 b, float4 c) {
@@ -65,13 +69,14 @@ __device__ __forceinline__ float4 avg3(float4 a, float4 b, float4 c) {
                      (a.z + b.z + c.z) / 3.0f, (a.w + b.w + c.w) / 3.0f);
 }
 
+template <typename Out>
 __global__ void __launch_bounds__(kThreads)
 triple_post_kernel(const float* __restrict__ r0, const float* __restrict__ r1,
                    const float* __restrict__ r2,
                    const float* __restrict__ alpha,
                    const float* __restrict__ inv_beta,
                    const float* __restrict__ w7,  // (7, C)
-                   float* __restrict__ y, int T, int C, int tile,
+                   Out* __restrict__ y, int T, int C, int tile,
                    bool vec4, long long* __restrict__ stamps) {
   extern __shared__ float4 smem4[];
   const int rows = tile + 8, nx = rows + 10, stride = rows + 1;
@@ -158,7 +163,7 @@ triple_post_kernel(const float* __restrict__ r0, const float* __restrict__ r1,
       for (int j = 0; j < 7; ++j) v = fmaf(w[j], a[j], v);
       if (c & 1) acc1 += v; else acc0 += v;
     }
-    y[(size_t)blockIdx.y * T + t] = tanhf(acc0 + acc1);
+    st_act(y + (size_t)blockIdx.y * T + t, tanhf(acc0 + acc1));
   }
   if (st) {
     __syncthreads();
@@ -166,31 +171,20 @@ triple_post_kernel(const float* __restrict__ r0, const float* __restrict__ r1,
   }
 }
 
-}  // namespace
-
-extern "C" int triple_avg_fwd(const float* r0, const float* r1,
-                              const float* r2, float* y, int n,
-                              void* stream) {
+template <typename Out>
+int launch_avg(const float* r0, const float* r1, const float* r2, void* y,
+               int n, cudaStream_t stream) {
   const int blocks = std::max(1, std::min((n + kThreads - 1) / kThreads, 132 * 16));
-  triple_avg_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(r0, r1, r2,
-                                                                    y, n);
+  triple_avg_kernel<Out><<<blocks, kThreads, 0, stream>>>(
+      r0, r1, r2, static_cast<Out*>(y), n);
   return (int)cudaGetLastError();
 }
 
-// tile and smem_bytes: the caller's plan (ops/amp_triple.py:epilogue_plan),
-// one of kTiles with the shared memory that tile needs, within the limit.
-// stamps: null, or 4 int64 per block (B x ceil(T / tile)).
-extern "C" int triple_post_fwd(const float* r0, const float* r1,
-                               const float* r2, const float* alpha,
-                               const float* inv_beta, const float* w7,
-                               float* y, int B, int T, int C, int tile,
-                               int smem_bytes, long long* stamps,
-                               void* stream) {
-  const bool known = std::find(std::begin(kTiles), std::end(kTiles), tile) !=
-                     std::end(kTiles);
-  if (B < 1 || T < 1 || C < 1 || !known ||
-      smem_bytes != post_smem(C, tile + 8) || smem_bytes > kSmemLimit)
-    return (int)cudaErrorInvalidValue;
+template <typename Out>
+int launch_post(const float* r0, const float* r1, const float* r2,
+                const float* alpha, const float* inv_beta, const float* w7,
+                void* y, int B, int T, int C, int tile, int smem_bytes,
+                long long* stamps, cudaStream_t stream) {
   // the shared memory limit is raised per device; the largest set so far
   static int opted_in[kMaxDevices] = {};
   int dev = 0;
@@ -198,7 +192,7 @@ extern "C" int triple_post_fwd(const float* r0, const float* r1,
   if (err != cudaSuccess) return (int)err;
   if (dev >= kMaxDevices) return (int)cudaErrorInvalidDevice;
   if (smem_bytes > 48 * 1024 && smem_bytes > opted_in[dev]) {
-    err = cudaFuncSetAttribute(triple_post_kernel,
+    err = cudaFuncSetAttribute(triple_post_kernel<Out>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                smem_bytes);
     if (err != cudaSuccess) return (int)err;
@@ -207,7 +201,45 @@ extern "C" int triple_post_fwd(const float* r0, const float* r1,
   const bool vec4 = C % 4 == 0 &&
       (((uintptr_t)r0 | (uintptr_t)r1 | (uintptr_t)r2) & 15) == 0;
   dim3 grid((T + tile - 1) / tile, B);
-  triple_post_kernel<<<grid, kThreads, smem_bytes, (cudaStream_t)stream>>>(
-      r0, r1, r2, alpha, inv_beta, w7, y, T, C, tile, vec4, stamps);
+  triple_post_kernel<Out><<<grid, kThreads, smem_bytes, stream>>>(
+      r0, r1, r2, alpha, inv_beta, w7, static_cast<Out*>(y), T, C, tile, vec4,
+      stamps);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// y_bytes: 4 for a float32 output, 2 for bf16.
+extern "C" int triple_avg_fwd(const float* r0, const float* r1,
+                              const float* r2, void* y, int n, int y_bytes,
+                              void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  if (y_bytes == 4) return launch_avg<float>(r0, r1, r2, y, n, s);
+  if (y_bytes == 2) return launch_avg<bf16>(r0, r1, r2, y, n, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// tile and smem_bytes: the caller's plan (ops/amp_triple.py:epilogue_plan),
+// one of kTiles with the shared memory that tile needs, within the limit.
+// stamps: null, or 4 int64 per block (B x ceil(T / tile)). y_bytes: 4 for
+// a float32 waveform, 2 for bf16.
+extern "C" int triple_post_fwd(const float* r0, const float* r1,
+                               const float* r2, const float* alpha,
+                               const float* inv_beta, const float* w7,
+                               void* y, int B, int T, int C, int tile,
+                               int smem_bytes, long long* stamps, int y_bytes,
+                               void* stream) {
+  const bool known = std::find(std::begin(kTiles), std::end(kTiles), tile) !=
+                     std::end(kTiles);
+  if (B < 1 || T < 1 || C < 1 || !known ||
+      smem_bytes != post_smem(C, tile + 8) || smem_bytes > kSmemLimit)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (y_bytes == 4)
+    return launch_post<float>(r0, r1, r2, alpha, inv_beta, w7, y, B, T, C,
+                              tile, smem_bytes, stamps, s);
+  if (y_bytes == 2)
+    return launch_post<bf16>(r0, r1, r2, alpha, inv_beta, w7, y, B, T, C,
+                             tile, smem_bytes, stamps, s);
+  return (int)cudaErrorInvalidValue;
 }

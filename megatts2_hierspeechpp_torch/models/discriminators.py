@@ -19,6 +19,10 @@ SpecDiscriminators on a (B, 1024, T) w2v map as a one-channel image, the
 second on it average-pooled by 2 along T; the first is spectral-normalised
 (nn/conv.SNConv2d), the second weight-normalised. Its names are the
 reference's (`discriminators.{0,1}.discriminators.{0-3}`, `.out`).
+
+`dtype` on the vocoder's discriminators is the compute dtype of their convs
+(the JAX field): the STFT stays float32, a bf16 D takes bf16 conv operands
+and returns bf16 logits and feature maps; the losses read them in float32.
 """
 from __future__ import annotations
 
@@ -45,17 +49,18 @@ class DiscriminatorP(nn.Module):
 
     chans = (32, 128, 512, 1024)
 
-    def __init__(self, period: int, kernel_size: int = 5, stride: int = 3):
+    def __init__(self, period: int, kernel_size: int = 5, stride: int = 3,
+                 dtype=None):
         super().__init__()
         self.period = period
         pad = (get_padding(kernel_size), 0)
         cin = (1,) + self.chans
         self.convs = nn.ModuleList(
-            WNConv2d(cin[i], c, (kernel_size, 1), (stride, 1), pad)
+            WNConv2d(cin[i], c, (kernel_size, 1), (stride, 1), pad, dtype=dtype)
             for i, c in enumerate(self.chans))
         self.convs.append(WNConv2d(self.chans[-1], 1024, (kernel_size, 1),
-                                   (1, 1), pad))
-        self.conv_post = WNConv2d(1024, 1, (3, 1), (1, 1), (1, 0))
+                                   (1, 1), pad, dtype=dtype))
+        self.conv_post = WNConv2d(1024, 1, (3, 1), (1, 1), (1, 0), dtype=dtype)
 
     def forward(self, x):
         """x: (B, T, 1) -> (logits (B, N), feature maps (B, H, W, C))."""
@@ -93,13 +98,13 @@ class DiscriminatorR(nn.Module):
              ((3, 9), (1, 2), (4, 1), (4, 4)),
              ((3, 3), (1, 1), (1, 1), (1, 1)))
 
-    def __init__(self, resolution: Sequence[int]):
+    def __init__(self, resolution: Sequence[int], dtype=None):
         super().__init__()
         self.resolution = tuple(resolution)
         self.convs = nn.ModuleList(
-            WNConv2d(2 if i == 0 else 32, 32, k, s, p, d)
+            WNConv2d(2 if i == 0 else 32, 32, k, s, p, d, dtype=dtype)
             for i, (k, s, d, p) in enumerate(self.specs))
-        self.conv_post = WNConv2d(32, 1, (3, 3), (1, 1), (1, 1))
+        self.conv_post = WNConv2d(32, 1, (3, 3), (1, 1), (1, 1), dtype=dtype)
 
     def forward(self, x):
         """x: (B, T, 1) -> (logits (B, N), feature maps (B, F, W, C))."""
@@ -122,12 +127,13 @@ class MultiPeriodDiscriminator(nn.Module):
     `device` ("cuda" by default; raises if CUDA is absent)."""
 
     def __init__(self, resolutions=VOCODER_RESOLUTIONS, periods=PERIODS,
-                 seed: int = 0, device: str | torch.device = "cuda"):
+                 seed: int = 0, device: str | torch.device = "cuda",
+                 dtype=None):
         super().__init__()
         dev = resolve_device(device)
         self.discriminators = nn.ModuleList(
-            [DiscriminatorR(r) for r in resolutions]
-            + [DiscriminatorP(p) for p in periods])
+            [DiscriminatorR(r, dtype) for r in resolutions]
+            + [DiscriminatorP(p, dtype=dtype) for p in periods])
         init_weights(self, seed)
         self.to(dev)
 

@@ -31,8 +31,8 @@ def interp_linear(x, out_len: int):
 
     Each of the `num` phases is a constant-weight lerp of two stride-`den`
     slices of x replicate-padded by one sample; the phases interleave into
-    the output stream. Weights are float32 and (1 - w) is formed in float32,
-    as the JAX function forms them."""
+    the output stream. The weights w and 1 - w are formed in x's dtype, as
+    the JAX function forms them (float32, or bf16 for a bf16 x)."""
     b, t, c = x.shape
     if out_len == t:
         return x
@@ -41,7 +41,8 @@ def interp_linear(x, out_len: int):
     q_len = out_len // num
     pos_s = (np.arange(num) + 0.5) * den / num - 0.5  # float64, one period
     lo_s = np.floor(pos_s).astype(np.int64)  # in [-1, den - 1]
-    w_s = (pos_s - lo_s).astype(np.float32)
+    w_s = torch.from_numpy(pos_s - lo_s).to(x.dtype)
+    w_1 = 1 - w_s
     xp = torch.cat([x[:, :1], x, x[:, -1:]], dim=1)  # (B, t + 2, C)
     phases = []
     for s in range(num):
@@ -49,8 +50,7 @@ def interp_linear(x, out_len: int):
         end = a + (q_len - 1) * den + 1
         lo_v = xp[:, a:end:den]
         hi_v = xp[:, a + 1:end + 1:den]
-        w = float(w_s[s])
-        phases.append(lo_v * float(np.float32(1) - w_s[s]) + hi_v * w)
+        phases.append(lo_v * float(w_1[s]) + hi_v * float(w_s[s]))
     return torch.stack(phases, dim=2).reshape(b, out_len, c)
 
 
@@ -61,24 +61,26 @@ class SpeechSR(nn.Module):
     `train=True` leaves every parameter trainable (the same weights for a
     seed). The forward is the same in both: at C <= 64 the whole hi-rate
     stage runs as fused_amp_triple, whose backward reaches conv_pre, every
-    AMPBlock, activation_post and conv_post."""
+    AMPBlock, activation_post and conv_post. `dtype`: the compute dtype of
+    the convs (bf16: the stage kernel's bf16 configuration, bench.py's
+    SpeechSR-48k); the weights stay float32."""
 
     def __init__(self, upsample_initial_channel: int = 32, rate_num: int = 3,
                  rate_den: int = 1, resblock_kernel_sizes=(3, 7, 11),
                  resblock_dilation_sizes=((1, 3, 5), (1, 3, 5), (1, 3, 5)),
                  seed: int = 0, device: str | torch.device = "cuda",
-                 train: bool = False):
+                 train: bool = False, dtype=None):
         super().__init__()
         dev = resolve_device(device)
         ch = upsample_initial_channel
         self.rate_num, self.rate_den = rate_num, rate_den
         self.ks = tuple(resblock_kernel_sizes)
         self.dils = tuple(tuple(d) for d in resblock_dilation_sizes)
-        self.conv_pre = WNConv1d(1, ch, 7, padding=3)
+        self.conv_pre = WNConv1d(1, ch, 7, padding=3, dtype=dtype)
         self.resblocks = nn.ModuleList(
-            AMPBlock(ch, k, d) for k, d in zip(self.ks, self.dils))
+            AMPBlock(ch, k, d, dtype=dtype) for k, d in zip(self.ks, self.dils))
         self.activation_post = AASnakeBeta(ch)
-        self.conv_post = Conv1d(ch, 1, 7, padding=3, bias=False)
+        self.conv_post = Conv1d(ch, 1, 7, padding=3, bias=False, dtype=dtype)
         init_weights(self, seed)
         if not train:
             self.eval().requires_grad_(False)

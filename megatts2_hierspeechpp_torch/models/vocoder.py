@@ -22,6 +22,14 @@ Inference data flow:
 Posterior noise is noise_scale * N(0, 1) drawn on the CPU from the caller's
 torch.Generator and moved to the model's device, so the same seed gives the
 same noise on every device.
+
+`dtype` (None: float32) is the JAX modules' compute dtype, handed to every
+member: each conv, projection and attention product takes its operands in
+it, while parameters stay float32 and the masks, the posterior statistics
+after their mask and the LayerNorms stay float32 as the JAX dataflow
+promotes them. bf16 runs the three vocoder kernels in their bf16
+configuration (bench.py's `HierVocoder(dtype=jnp.bfloat16)`, the JAX
+vocoder CLI's default).
 """
 from __future__ import annotations
 
@@ -71,19 +79,20 @@ class PosteriorSFEncoder(nn.Module):
     def __init__(self, src_channels: int = 1024, out_channels: int = 192,
                  hidden_channels: int = 192, kernel_size: int = 5,
                  dilation_rate: int = 1, n_layers: int = 16,
-                 gin_channels: int = 256):
+                 gin_channels: int = 256, dtype=None):
         super().__init__()
         self.out_channels = out_channels
         half = n_layers // 2
-        self.pre_source = Conv1d(src_channels, hidden_channels, 1)
-        self.pre_filter = Conv1d(1, hidden_channels, 9, stride=4, padding=4)
+        self.pre_source = Conv1d(src_channels, hidden_channels, 1, dtype=dtype)
+        self.pre_filter = Conv1d(1, hidden_channels, 9, stride=4, padding=4,
+                                 dtype=dtype)
         self.source_enc = WN(hidden_channels, kernel_size, dilation_rate, half,
-                             gin_channels)
+                             gin_channels, dtype=dtype)
         self.filter_enc = WN(hidden_channels, kernel_size, dilation_rate, half,
-                             gin_channels)
+                             gin_channels, dtype=dtype)
         self.enc = WN(hidden_channels, kernel_size, dilation_rate, half,
-                      gin_channels)
-        self.proj = Conv1d(hidden_channels, 2 * out_channels, 1)
+                      gin_channels, dtype=dtype)
+        self.proj = Conv1d(hidden_channels, 2 * out_channels, 1, dtype=dtype)
 
     def forward(self, x_src, x_ftr, x_mask, g):
         """x_src: (B, T, 1024) w2v; x_ftr: (B, 4T, 1) log-f0; x_mask:
@@ -112,23 +121,26 @@ class PosteriorAudioEncoder(nn.Module):
     def __init__(self, in_channels: int = 641, out_channels: int = 192,
                  hidden_channels: int = 192, kernel_size: int = 5,
                  dilation_rate: int = 1, n_layers: int = 16,
-                 gin_channels: int = 256):
+                 gin_channels: int = 256, dtype=None):
         super().__init__()
         self.out_channels = out_channels
         ch = self.chans
-        self.down_pre = Conv1d(1, ch[0], 7, padding=3)
+        self.down_pre = Conv1d(1, ch[0], 7, padding=3, dtype=dtype)
         self.downs = nn.ModuleList(
-            WNConv1d(ch[i], ch[i + 1], k, stride=u, padding=(k - 1) // 2)
+            WNConv1d(ch[i], ch[i + 1], k, stride=u, padding=(k - 1) // 2,
+                     dtype=dtype)
             for i, (u, k) in enumerate(zip(self.down_rates, self.down_kernels)))
         self.resblocks = nn.ModuleList(
-            AMPBlock(ch[i + 1], k, (1, 3, 5))
+            AMPBlock(ch[i + 1], k, (1, 3, 5), dtype=dtype)
             for i in range(len(self.downs)) for k in self.resblock_kernels)
         self.activation_post = AASnakeBeta(ch[-1])
-        self.conv_post = Conv1d(ch[-1], hidden_channels, 7, padding=3)
-        self.pre = Conv1d(in_channels, hidden_channels, 1)
+        self.conv_post = Conv1d(ch[-1], hidden_channels, 7, padding=3,
+                                dtype=dtype)
+        self.pre = Conv1d(in_channels, hidden_channels, 1, dtype=dtype)
         self.enc = WN(hidden_channels, kernel_size, dilation_rate, n_layers,
-                      gin_channels)
-        self.proj = Conv1d(2 * hidden_channels, 2 * out_channels, 1)
+                      gin_channels, dtype=dtype)
+        self.proj = Conv1d(2 * hidden_channels, 2 * out_channels, 1,
+                           dtype=dtype)
 
     def forward(self, x_spec, x_audio, x_mask, g, noise=None):
         """x_spec: (B, T, 641); x_audio: (B, 320T, 1); x_mask: (B, T, 1); g:
@@ -160,13 +172,15 @@ class MelDecoder(nn.Module):
 
     def __init__(self, hidden_channels: int = 192, filter_channels: int = 768,
                  n_heads: int = 2, n_layers: int = 2, kernel_size: int = 5,
-                 mel_size: int = 20, gin_channels: int = 256):
+                 mel_size: int = 20, gin_channels: int = 256, dtype=None):
         super().__init__()
-        self.conv_pre = Conv1d(hidden_channels, hidden_channels, 3, padding=1)
-        self.cond = Conv1d(gin_channels, hidden_channels, 1)
+        self.conv_pre = Conv1d(hidden_channels, hidden_channels, 3, padding=1,
+                               dtype=dtype)
+        self.cond = Conv1d(gin_channels, hidden_channels, 1, dtype=dtype)
         self.encoder = Encoder(hidden_channels, filter_channels, n_heads,
-                               n_layers, kernel_size)
-        self.proj = Conv1d(hidden_channels, mel_size, 1, bias=False)
+                               n_layers, kernel_size, dtype=dtype)
+        self.proj = Conv1d(hidden_channels, mel_size, 1, bias=False,
+                           dtype=dtype)
 
     def forward(self, x, x_mask, g=None):
         """x: (B, T, C); x_mask: (B, T, 1); g: (B, Gin) -> (B, T, 20)."""
@@ -185,22 +199,25 @@ class SourceNetwork(nn.Module):
     up_kernels = (4, 4)
 
     def __init__(self, upsample_initial_channel: int = 256,
-                 initial_channel: int = 192, gin_channels: int = 256):
+                 initial_channel: int = 192, gin_channels: int = 256,
+                 dtype=None):
         super().__init__()
         uic = upsample_initial_channel
-        self.conv_pre = WNConv1d(initial_channel, uic, 7, padding=3)
-        self.cond = Conv1d(gin_channels, uic, 1)
+        self.conv_pre = WNConv1d(initial_channel, uic, 7, padding=3,
+                                 dtype=dtype)
+        self.cond = Conv1d(gin_channels, uic, 1, dtype=dtype)
         self.ups = nn.ModuleList()
         self.resblocks = nn.ModuleList()
         ch = uic
         for i, (u, k) in enumerate(zip(self.up_rates, self.up_kernels)):
             ch = uic // 2 ** (i + 1)
             self.ups.append(WNConvTranspose1d(2 * ch, ch, k, stride=u,
-                                              padding=(k - u) // 2))
+                                              padding=(k - u) // 2,
+                                              dtype=dtype))
             for rk in self.resblock_kernels:
-                self.resblocks.append(AMPBlock(ch, rk, (1, 3, 5)))
+                self.resblocks.append(AMPBlock(ch, rk, (1, 3, 5), dtype=dtype))
         self.activation_post = AASnakeBeta(ch)
-        self.conv_post = Conv1d(ch, 1, 7, padding=3, bias=False)
+        self.conv_post = Conv1d(ch, 1, 7, padding=3, bias=False, dtype=dtype)
 
     def forward(self, x, g):
         """x: (B, T, C_in); g: (B, Gin) -> (e (B, 4T, C/4), e_ (B, 4T, 1))."""
@@ -240,13 +257,14 @@ def _interp_linear(x, out_len: int):
 class DBlock(nn.Module):
     """Pitch/excitation downsampling block of the Generator."""
 
-    def __init__(self, in_channels: int, hidden_size: int, factor: int):
+    def __init__(self, in_channels: int, hidden_size: int, factor: int,
+                 dtype=None):
         super().__init__()
         self.factor = factor
-        self.residual_dense = WNConv1d(in_channels, hidden_size, 1)
+        self.residual_dense = WNConv1d(in_channels, hidden_size, 1, dtype=dtype)
         self.conv = nn.ModuleList(
             WNConv1d(in_channels if i == 0 else hidden_size, hidden_size, 3,
-                     dilation=d, padding=d)
+                     dilation=d, padding=d, dtype=dtype)
             for i, d in enumerate((1, 2, 4)))
 
     def forward(self, x):
@@ -268,26 +286,29 @@ class Generator(nn.Module):
                  upsample_rates: Sequence[int] = (4, 5, 4, 2, 2),
                  upsample_initial_channel: int = 512,
                  upsample_kernel_sizes: Sequence[int] = (8, 11, 8, 4, 4),
-                 gin_channels: int = 256, pitch_channels: int = 64):
+                 gin_channels: int = 256, pitch_channels: int = 64,
+                 dtype=None):
         super().__init__()
         uic = upsample_initial_channel
         self.ks = tuple(resblock_kernel_sizes)
         self.dils = tuple(tuple(d) for d in resblock_dilation_sizes)
-        self.conv_pre = WNConv1d(initial_channel, uic, 7, padding=3)
-        self.downs = DBlock(pitch_channels, uic, 4)
-        self.cond = Conv1d(gin_channels, uic, 1)
-        self.proj = Conv1d(pitch_channels, uic // 2, 7, padding=3)
+        self.conv_pre = WNConv1d(initial_channel, uic, 7, padding=3,
+                                 dtype=dtype)
+        self.downs = DBlock(pitch_channels, uic, 4, dtype)
+        self.cond = Conv1d(gin_channels, uic, 1, dtype=dtype)
+        self.proj = Conv1d(pitch_channels, uic // 2, 7, padding=3, dtype=dtype)
         self.ups = nn.ModuleList()
         self.resblocks = nn.ModuleList()
         ch = uic
         for i, (u, k) in enumerate(zip(upsample_rates, upsample_kernel_sizes)):
             ch = uic // 2 ** (i + 1)
             self.ups.append(WNConvTranspose1d(2 * ch, ch, k, stride=u,
-                                              padding=(k - u) // 2))
+                                              padding=(k - u) // 2,
+                                              dtype=dtype))
             for rk, rd in zip(self.ks, self.dils):
-                self.resblocks.append(AMPBlock(ch, rk, rd))
+                self.resblocks.append(AMPBlock(ch, rk, rd, dtype=dtype))
         self.activation_post = AASnakeBeta(ch)
-        self.conv_post = Conv1d(ch, 1, 7, padding=3, bias=False)
+        self.conv_post = Conv1d(ch, 1, 7, padding=3, bias=False, dtype=dtype)
 
     def forward(self, x, pitch, g=None):
         """x: (B, T, C); pitch (excitation e): (B, 4T, C_e); g: (B, Gin)
@@ -328,7 +349,8 @@ class HierVocoder(nn.Module):
     (the default) holds the inference members, frozen; `train=True` adds
     enc_p, enc_q and mel_decoder after them (so the inference members get
     the same seeded weights in both builds) and leaves every parameter
-    trainable."""
+    trainable. `dtype`: the compute dtype (module docstring); the weights
+    are float32 and the same for a seed whatever it is."""
 
     def __init__(self, inter_channels: int = 192, hidden_channels: int = 192,
                  resblock_kernel_sizes: Sequence[int] = (3, 7, 11),
@@ -340,34 +362,38 @@ class HierVocoder(nn.Module):
                  gin_channels: int = 256, posterior_wn_layers: int = 16,
                  n_flows: int = 4, flow_layers: int = 3, seed: int = 0,
                  device: str | torch.device = "cuda", train: bool = False,
-                 spec_channels: int = 641, filter_channels: int = 768):
+                 spec_channels: int = 641, filter_channels: int = 768,
+                 dtype=None):
         super().__init__()
         dev = resolve_device(device)
+        self.dtype = dtype
         self.enc_p_l = PosteriorSFEncoder(
             1024, inter_channels, hidden_channels, 5, 1, posterior_wn_layers,
-            gin_channels)
+            gin_channels, dtype)
         self.flow_l = ResidualCouplingBlockTransformer(
             inter_channels, hidden_channels, flow_layers, n_flows,
-            gin_channels, attention_heads=2)
+            gin_channels, attention_heads=2, dtype=dtype)
         self.flow = ResidualCouplingBlockTransformer(
             inter_channels, hidden_channels, flow_layers, n_flows,
-            gin_channels, attention_heads=2)
+            gin_channels, attention_heads=2, dtype=dtype)
         self.dec = Generator(
             inter_channels, resblock_kernel_sizes, resblock_dilation_sizes,
             upsample_rates, upsample_initial_channel, upsample_kernel_sizes,
-            gin_channels, pitch_channels=upsample_initial_channel // 8)
+            gin_channels, pitch_channels=upsample_initial_channel // 8,
+            dtype=dtype)
         self.sn = SourceNetwork(upsample_initial_channel // 2, inter_channels,
-                                gin_channels)
-        self.emb_g = StyleEncoder(80, 256, gin_channels)
+                                gin_channels, dtype)
+        self.emb_g = StyleEncoder(80, 256, gin_channels, dtype)
         if train:
             self.enc_p = PosteriorSFEncoder(
                 1024, inter_channels, hidden_channels, 5, 1,
-                posterior_wn_layers, gin_channels)
+                posterior_wn_layers, gin_channels, dtype)
             self.enc_q = PosteriorAudioEncoder(
                 spec_channels, inter_channels, hidden_channels, 5, 1,
-                posterior_wn_layers, gin_channels)
+                posterior_wn_layers, gin_channels, dtype)
             self.mel_decoder = MelDecoder(
-                inter_channels, filter_channels, gin_channels=gin_channels)
+                inter_channels, filter_channels, gin_channels=gin_channels,
+                dtype=dtype)
         init_weights(self, seed)
         if not train:
             self.eval().requires_grad_(False)

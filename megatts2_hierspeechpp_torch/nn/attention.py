@@ -9,6 +9,10 @@ Parameter names are the reference checkpoint's (`attn_layers.{i}`,
 Dropout sites (p_dropout, training mode; nn/basic.Dropout) are the JAX
 package's, in its call order: the attention weights, the FFN's hidden
 activation, and each sublayer's output before its residual add.
+
+`dtype` is the JAX modules' compute dtype: the projections' operands, the
+attention products (scores, softmax, the relative-position tables cast to
+it) and the Encoder's LayerNorm outputs; the LayerNorms compute in float32.
 """
 from __future__ import annotations
 
@@ -53,15 +57,16 @@ def _slice_rel_emb(emb, length: int, window_size: int):
 
 class MultiHeadAttention(nn.Module):
     def __init__(self, channels: int, out_channels: int, n_heads: int,
-                 window_size: Optional[int] = None, p_dropout: float = 0.0):
+                 window_size: Optional[int] = None, p_dropout: float = 0.0,
+                 dtype=None):
         super().__init__()
         self.channels, self.n_heads = channels, n_heads
         self.window_size = window_size
         self.drop = Dropout(p_dropout)
-        self.conv_q = Conv1d(channels, channels, 1)
-        self.conv_k = Conv1d(channels, channels, 1)
-        self.conv_v = Conv1d(channels, channels, 1)
-        self.conv_o = Conv1d(channels, out_channels, 1)
+        self.conv_q = Conv1d(channels, channels, 1, dtype=dtype)
+        self.conv_k = Conv1d(channels, channels, 1, dtype=dtype)
+        self.conv_v = Conv1d(channels, channels, 1, dtype=dtype)
+        self.conv_o = Conv1d(channels, out_channels, 1, dtype=dtype)
         if window_size is not None:
             k_ch = channels // n_heads
             self.emb_rel_k = nn.Parameter(torch.zeros(1, 2 * window_size + 1, k_ch))
@@ -77,18 +82,20 @@ class MultiHeadAttention(nn.Module):
         q = self.conv_q(x).view(b, tq, h, k_ch).transpose(1, 2)
         k = self.conv_k(c).view(b, tk, h, k_ch).transpose(1, 2)
         v = self.conv_v(c).view(b, tk, h, k_ch).transpose(1, 2)
-        qs = q * (1.0 / math.sqrt(k_ch))
+        # the JAX scale: sqrt(k_ch) as an array of q's dtype, then 1 / it
+        qs = q * (1.0 / torch.tensor(math.sqrt(k_ch)).to(q.dtype))
         scores = torch.matmul(qs, k.transpose(-1, -2))
         if self.window_size is not None:
             rel_k = _slice_rel_emb(self.emb_rel_k, tk, self.window_size)
-            scores = scores + _rel_to_abs(torch.matmul(qs, rel_k[0].t()))
+            scores = scores + _rel_to_abs(
+                torch.matmul(qs, rel_k[0].t().to(qs.dtype)))
         if attn_mask is not None:
             scores = scores.masked_fill(~attn_mask.bool(), MASK_VALUE)
         p = self.drop(torch.softmax(scores, dim=-1))
         out = torch.matmul(p, v)
         if self.window_size is not None:
             rel_v = _slice_rel_emb(self.emb_rel_v, tk, self.window_size)
-            out = out + torch.matmul(_abs_to_rel(p), rel_v[0])
+            out = out + torch.matmul(_abs_to_rel(p), rel_v[0].to(out.dtype))
         out = out.transpose(1, 2).reshape(b, tq, self.channels)
         return self.conv_o(out)
 
@@ -99,14 +106,14 @@ class FFN(nn.Module):
 
     def __init__(self, in_channels: int, out_channels: int,
                  filter_channels: int, kernel_size: int,
-                 p_dropout: float = 0.0):
+                 p_dropout: float = 0.0, dtype=None):
         super().__init__()
         self.drop = Dropout(p_dropout)
         pad = ((kernel_size - 1) // 2, kernel_size // 2) if kernel_size > 1 else 0
         self.conv_1 = Conv1d(in_channels, filter_channels, kernel_size,
-                             padding=pad)
+                             padding=pad, dtype=dtype)
         self.conv_2 = Conv1d(filter_channels, out_channels, kernel_size,
-                             padding=pad)
+                             padding=pad, dtype=dtype)
 
     def forward(self, x, x_mask):
         y = self.drop(torch.relu(self.conv_1(x * x_mask)))
@@ -118,20 +125,20 @@ class Encoder(nn.Module):
 
     def __init__(self, hidden_channels: int, filter_channels: int,
                  n_heads: int, n_layers: int, kernel_size: int = 1,
-                 window_size: int = 4, p_dropout: float = 0.0):
+                 window_size: int = 4, p_dropout: float = 0.0, dtype=None):
         super().__init__()
         hc = hidden_channels
         self.drop = Dropout(p_dropout)
         self.attn_layers = nn.ModuleList(
-            MultiHeadAttention(hc, hc, n_heads, window_size, p_dropout)
+            MultiHeadAttention(hc, hc, n_heads, window_size, p_dropout, dtype)
             for _ in range(n_layers))
         self.norm_layers_1 = nn.ModuleList(
-            AffineLayerNorm(hc) for _ in range(n_layers))
+            AffineLayerNorm(hc, dtype=dtype) for _ in range(n_layers))
         self.ffn_layers = nn.ModuleList(
-            FFN(hc, hc, filter_channels, kernel_size, p_dropout)
+            FFN(hc, hc, filter_channels, kernel_size, p_dropout, dtype)
             for _ in range(n_layers))
         self.norm_layers_2 = nn.ModuleList(
-            AffineLayerNorm(hc) for _ in range(n_layers))
+            AffineLayerNorm(hc, dtype=dtype) for _ in range(n_layers))
 
     def forward(self, x, x_mask):
         """x: (B, T, C); x_mask: (B, T, 1) float."""

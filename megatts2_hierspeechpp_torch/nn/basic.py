@@ -12,39 +12,60 @@ from torch import nn
 
 LRELU_SLOPE = 0.1
 
-# torch.nn.Linear: weight (Out, In), the reference checkpoint's layout. The
-# JAX Dense stores the transpose.
-Dense = nn.Linear
+
+
+class Linear(nn.Linear):
+    """torch.nn.Linear (weight (Out, In), the reference checkpoint's layout;
+    the JAX Dense stores the transpose) with the JAX Dense's compute dtype:
+    `dtype` (None: float32) is the type x and the weight are cast to, the
+    bias cast to the output's; the parameters stay float32."""
+
+    def __init__(self, in_features: int, out_features: int, bias: bool = True,
+                 dtype=None):
+        super().__init__(in_features, out_features, bias)
+        self.dtype = dtype
+
+    def forward(self, x):
+        if self.dtype is None:
+            return super().forward(x)
+        return F.linear(x.to(self.dtype), self.weight.to(self.dtype),
+                        None if self.bias is None else self.bias.to(self.dtype))
+
+
+Dense = Linear
 # torch.nn.Embedding: weight (N, C), the JAX Embed's table.
 Embed = nn.Embedding
 
 
 class LayerNorm(nn.Module):
     """LayerNorm over the channel (last) axis without affine parameters (the
-    DiT blocks' norm)."""
+    DiT blocks' norm). Computed in float32, as the JAX LayerNorm; the result
+    in x's dtype."""
 
     def __init__(self, channels: int, eps: float = 1e-5):
         super().__init__()
         self.channels, self.eps = channels, eps
 
     def forward(self, x):
-        return F.layer_norm(x, (self.channels,), eps=self.eps)
+        return F.layer_norm(x.float(), (self.channels,), eps=self.eps).to(x.dtype)
 
 
 class AffineLayerNorm(nn.Module):
     """LayerNorm over the channel (last) axis with a scale and a bias, named
     gamma / beta as in the reference's VITS modules.LayerNorm (the JAX
-    LayerNorm's scale / bias)."""
+    LayerNorm's scale / bias). Computed in float32; the result in `dtype`,
+    or x's dtype when that is None."""
 
-    def __init__(self, channels: int, eps: float = 1e-5):
+    def __init__(self, channels: int, eps: float = 1e-5, dtype=None):
         super().__init__()
-        self.channels, self.eps = channels, eps
+        self.channels, self.eps, self.dtype = channels, eps, dtype
         self.gamma = nn.Parameter(torch.ones(channels))
         self.beta = nn.Parameter(torch.zeros(channels))
 
     def forward(self, x):
-        return F.layer_norm(x, (self.channels,), self.gamma, self.beta,
-                            self.eps)
+        y = F.layer_norm(x.float(), (self.channels,), self.gamma, self.beta,
+                         self.eps)
+        return y.to(self.dtype or x.dtype)
 
 
 def leaky_relu(x, slope: float = LRELU_SLOPE):

@@ -16,6 +16,12 @@ loads as it is:
 
 Weight norm is torch's `weight_norm(dim=0)`: w = g * v / ||v||, the norm
 taken over every axis but the first.
+
+Compute dtype (`dtype`, the JAX modules' field, None for float32): the
+input and the effective weight are cast to it and the bias to the output's
+dtype, so a bf16 conv takes bf16 operands and gives a bf16 result, as
+`conv1d_op(compute_dtype=)` does. Parameters stay float32; weight norm is
+computed in float32 before the cast.
 """
 from __future__ import annotations
 
@@ -24,12 +30,21 @@ import torch.nn.functional as F
 from torch import nn
 
 
+def _cast(x, weight, bias, compute_dtype):
+    """x, weight and bias in `compute_dtype` (None: as they are)."""
+    if compute_dtype is None:
+        return x, weight, bias
+    return (x.to(compute_dtype), weight.to(compute_dtype),
+            None if bias is None else bias.to(compute_dtype))
+
+
 def conv1d_op(x, weight, bias=None, stride: int = 1,
               padding: int | tuple[int, int] = 0, dilation: int = 1,
-              groups: int = 1):
+              groups: int = 1, compute_dtype=None):
     """x: (B, T, Cin); weight: (Cout, Cin/groups, K) -> (B, T', Cout).
     `padding` is symmetric, or (left, right) zeros. A pointwise conv runs as
     a matmul on the channels-last tensor."""
+    x, weight, bias = _cast(x, weight, bias, compute_dtype)
     if weight.shape[-1] == 1 and stride == 1 and groups == 1 and padding == 0:
         return F.linear(x, weight[:, :, 0], bias)
     xc = x.transpose(1, 2)
@@ -40,18 +55,28 @@ def conv1d_op(x, weight, bias=None, stride: int = 1,
 
 
 def conv_transpose1d_op(x, weight, bias=None, stride: int = 1,
-                        padding: int = 0):
+                        padding: int = 0, compute_dtype=None):
     """x: (B, T, Cin); weight: (Cin, Cout, K). Output length
     (T - 1) * stride - 2 * padding + K, as torch's ConvTranspose1d."""
+    x, weight, bias = _cast(x, weight, bias, compute_dtype)
+    if x.dtype == torch.bfloat16 and x.device.type == "cpu":
+        # PyTorch's CPU bf16 conv_transpose1d returns a wrong input gradient
+        # at some shapes (Cout = 8 with k = 2 x stride): float32 sums of the
+        # bf16 operands, rounded once, the arithmetic of a bf16 conv
+        y = F.conv_transpose1d(x.transpose(1, 2).float(), weight.float(),
+                               None if bias is None else bias.float(), stride,
+                               padding)
+        return y.transpose(1, 2).to(x.dtype)
     y = F.conv_transpose1d(x.transpose(1, 2), weight, bias, stride, padding)
     return y.transpose(1, 2)
 
 
 def conv2d_op(x, weight, bias=None, stride=(1, 1), padding=(0, 0),
-              dilation=(1, 1)):
+              dilation=(1, 1), compute_dtype=None):
     """x: (B, H, W, Cin); weight: (Cout, Cin, Kh, Kw) -> (B, H', W', Cout),
     symmetric zero padding (ph, pw). The input goes to F.conv2d as a
     channels_last view of NCHW, which cuDNN convolves without a transpose."""
+    x, weight, bias = _cast(x, weight, bias, compute_dtype)
     y = F.conv2d(x.permute(0, 3, 1, 2), weight, bias, tuple(stride),
                  tuple(padding), tuple(dilation))
     return y.permute(0, 2, 3, 1)
@@ -72,25 +97,26 @@ class Conv1d(nn.Module):
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
                  stride: int = 1, padding: int | tuple[int, int] = 0,
                  dilation: int = 1,
-                 groups: int = 1, bias: bool = True):
+                 groups: int = 1, bias: bool = True, dtype=None):
         super().__init__()
         self.stride, self.padding = stride, padding
-        self.dilation, self.groups = dilation, groups
+        self.dilation, self.groups, self.dtype = dilation, groups, dtype
         self.weight = nn.Parameter(
             torch.empty(out_channels, in_channels // groups, kernel_size))
         self.bias = nn.Parameter(torch.zeros(out_channels)) if bias else None
 
     def forward(self, x):
         return conv1d_op(x, self.weight, self.bias, self.stride, self.padding,
-                         self.dilation, self.groups)
+                         self.dilation, self.groups, self.dtype)
 
 
 class WNConv1d(nn.Module):
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
                  stride: int = 1, padding: int = 0, dilation: int = 1,
-                 bias: bool = True):
+                 bias: bool = True, dtype=None):
         super().__init__()
         self.stride, self.padding, self.dilation = stride, padding, dilation
+        self.dtype = dtype
         self.weight_g = nn.Parameter(torch.ones(out_channels, 1, 1))
         self.weight_v = nn.Parameter(
             torch.empty(out_channels, in_channels, kernel_size))
@@ -102,14 +128,15 @@ class WNConv1d(nn.Module):
 
     def forward(self, x):
         return conv1d_op(x, self.weight(), self.bias, self.stride,
-                         self.padding, self.dilation)
+                         self.padding, self.dilation, compute_dtype=self.dtype)
 
 
 class WNConvTranspose1d(nn.Module):
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
-                 stride: int = 1, padding: int = 0, bias: bool = True):
+                 stride: int = 1, padding: int = 0, bias: bool = True,
+                 dtype=None):
         super().__init__()
-        self.stride, self.padding = stride, padding
+        self.stride, self.padding, self.dtype = stride, padding, dtype
         self.weight_g = nn.Parameter(torch.ones(in_channels, 1, 1))
         self.weight_v = nn.Parameter(
             torch.empty(in_channels, out_channels, kernel_size))
@@ -117,7 +144,8 @@ class WNConvTranspose1d(nn.Module):
 
     def forward(self, x):
         w = weight_norm(self.weight_g, self.weight_v)
-        return conv_transpose1d_op(x, w, self.bias, self.stride, self.padding)
+        return conv_transpose1d_op(x, w, self.bias, self.stride, self.padding,
+                                   self.dtype)
 
 
 class WNConv2d(nn.Module):
@@ -127,9 +155,11 @@ class WNConv2d(nn.Module):
 
     def __init__(self, in_channels: int, out_channels: int,
                  kernel_size: tuple[int, int], stride=(1, 1),
-                 padding=(0, 0), dilation=(1, 1), bias: bool = True):
+                 padding=(0, 0), dilation=(1, 1), bias: bool = True,
+                 dtype=None):
         super().__init__()
         self.stride, self.padding, self.dilation = stride, padding, dilation
+        self.dtype = dtype
         self.weight_g = nn.Parameter(torch.ones(out_channels, 1, 1, 1))
         self.weight_v = nn.Parameter(
             torch.empty(out_channels, in_channels, *kernel_size))
@@ -137,7 +167,8 @@ class WNConv2d(nn.Module):
 
     def forward(self, x):
         return conv2d_op(x, weight_norm(self.weight_g, self.weight_v),
-                         self.bias, self.stride, self.padding, self.dilation)
+                         self.bias, self.stride, self.padding, self.dilation,
+                         self.dtype)
 
 
 class SNConv2d(nn.Module):

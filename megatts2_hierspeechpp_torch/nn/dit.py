@@ -6,7 +6,9 @@ Counterpart of `megatts2_hierspeechpp_tpu/nn/dit.py` (reference
 modules.py DiTConVBlock, ResidualCouplingLayer_Transformer_simple, Flip).
 Module names follow the reference checkpoint: `cond_block.{0,2}`,
 `flows.{2i}` (couplings; the odd entries are the parameterless Flips),
-`enc_block.{j}`, `adaLN_modulation.1`.
+`enc_block.{j}`, `adaLN_modulation.1`. `dtype`: the compute dtype of the
+projections, convs and attention products; the LayerNorms compute in
+float32 and return their input's dtype, as the JAX blocks' do.
 """
 from __future__ import annotations
 
@@ -25,11 +27,11 @@ def modulate(x, shift, scale):
 class TimmAttention(nn.Module):
     """timm vision_transformer.Attention: fused qkv, no masking."""
 
-    def __init__(self, dim: int, num_heads: int):
+    def __init__(self, dim: int, num_heads: int, dtype=None):
         super().__init__()
         self.num_heads = num_heads
-        self.qkv = Dense(dim, 3 * dim)
-        self.proj = Dense(dim, dim)
+        self.qkv = Dense(dim, 3 * dim, dtype=dtype)
+        self.proj = Dense(dim, dim, dtype=dtype)
 
     def forward(self, x):
         b, t, c = x.shape
@@ -46,11 +48,11 @@ class FFNConv(nn.Module):
     """Conv-FFN of the DiT block: fc1 conv k, GELU-tanh, fc2 1x1."""
 
     def __init__(self, in_features: int, hidden_features: int,
-                 out_features: int, kernel: int = 5):
+                 out_features: int, kernel: int = 5, dtype=None):
         super().__init__()
         self.fc1 = Conv1d(in_features, hidden_features, kernel,
-                          padding=(kernel - 1) // 2)
-        self.fc2 = Conv1d(hidden_features, out_features, 1)
+                          padding=(kernel - 1) // 2, dtype=dtype)
+        self.fc2 = Conv1d(hidden_features, out_features, 1, dtype=dtype)
 
     def forward(self, x, x_mask):
         y = gelu_tanh(self.fc1(x))
@@ -59,15 +61,15 @@ class FFNConv(nn.Module):
 
 class DiTConVBlock(nn.Module):
     def __init__(self, hidden_size: int, num_heads: int,
-                 mlp_ratio: float = 4.0, kernel: int = 9):
+                 mlp_ratio: float = 4.0, kernel: int = 9, dtype=None):
         super().__init__()
         self.norm1 = LayerNorm(hidden_size, eps=1e-6)
         self.norm2 = LayerNorm(hidden_size, eps=1e-6)
-        self.attn = TimmAttention(hidden_size, num_heads)
+        self.attn = TimmAttention(hidden_size, num_heads, dtype)
         self.mlp = FFNConv(hidden_size, int(hidden_size * mlp_ratio),
-                           hidden_size, kernel)
+                           hidden_size, kernel, dtype)
         self.adaLN_modulation = nn.Sequential(
-            nn.SiLU(), Dense(hidden_size, 6 * hidden_size))
+            nn.SiLU(), Dense(hidden_size, 6 * hidden_size, dtype=dtype))
 
     def forward(self, x, c, x_mask):
         """x: (B, T, C); c: (B, C) conditioning; x_mask: (B, T, 1)."""
@@ -84,14 +86,14 @@ class ResidualCouplingLayerTransformer(nn.Module):
     """Mean-only affine coupling with a DiT transformer as the shift net."""
 
     def __init__(self, channels: int, hidden_channels: int, n_layers: int,
-                 attention_heads: int = 2, kernel: int = 5):
+                 attention_heads: int = 2, kernel: int = 5, dtype=None):
         super().__init__()
         self.half = channels // 2
-        self.pre = Conv1d(self.half, hidden_channels, 1)
+        self.pre = Conv1d(self.half, hidden_channels, 1, dtype=dtype)
         self.enc_block = nn.ModuleList(
-            DiTConVBlock(hidden_channels, attention_heads, 4.0, kernel)
+            DiTConVBlock(hidden_channels, attention_heads, 4.0, kernel, dtype)
             for _ in range(n_layers))
-        self.post = Conv1d(hidden_channels, self.half, 1)
+        self.post = Conv1d(hidden_channels, self.half, 1, dtype=dtype)
 
     def _shift(self, x0, x_mask, c):
         h = self.pre(x0) * x_mask
@@ -124,15 +126,16 @@ class ResidualCouplingBlockTransformer(nn.Module):
 
     def __init__(self, channels: int, hidden_channels: int, n_layers: int = 3,
                  n_flows: int = 4, gin_channels: int = 256,
-                 attention_heads: int = 2):
+                 attention_heads: int = 2, dtype=None):
         super().__init__()
         self.cond_block = nn.Sequential(
-            Dense(gin_channels, 4 * hidden_channels), nn.SiLU(),
-            Dense(4 * hidden_channels, hidden_channels))
+            Dense(gin_channels, 4 * hidden_channels, dtype=dtype), nn.SiLU(),
+            Dense(4 * hidden_channels, hidden_channels, dtype=dtype))
         self.flows = nn.ModuleList()
         for _ in range(n_flows):
             self.flows.append(ResidualCouplingLayerTransformer(
-                channels, hidden_channels, n_layers, attention_heads))
+                channels, hidden_channels, n_layers, attention_heads,
+                dtype=dtype))
             self.flows.append(Flip())
 
     def forward(self, x, x_mask, g):

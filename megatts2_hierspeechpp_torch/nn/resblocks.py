@@ -6,7 +6,9 @@ with C <= 128 runs as one `fused_ampblock` call, a wider one layer by layer
 with each activation a `fused_aa_snakebeta` call, and a stage with C <= 64
 runs as one `fused_amp_triple` call (`fused_triple_enabled`). Each wrapper
 takes its plain version for CPU tensors, so the dispatch is the same on
-both devices.
+both devices. `dtype` is the convs' compute dtype; the fused wrappers take
+their activation's dtype (bf16: the kernels' bf16 configuration) with the
+weights of `fused_weights`, which stay float32.
 """
 from __future__ import annotations
 
@@ -31,15 +33,16 @@ class ResBlock1(nn.Module):
     leaky-ReLU -> WN conv, plus the residual."""
 
     def __init__(self, channels: int, kernel_size: int = 3,
-                 dilation: Sequence[int] = (1, 3, 5)):
+                 dilation: Sequence[int] = (1, 3, 5), dtype=None):
         super().__init__()
         self.convs1 = nn.ModuleList(
             WNConv1d(channels, channels, kernel_size,
-                     padding=get_padding(kernel_size, d), dilation=d)
+                     padding=get_padding(kernel_size, d), dilation=d,
+                     dtype=dtype)
             for d in dilation)
         self.convs2 = nn.ModuleList(
             WNConv1d(channels, channels, kernel_size,
-                     padding=get_padding(kernel_size, 1))
+                     padding=get_padding(kernel_size, 1), dtype=dtype)
             for _ in dilation)
 
     def forward(self, x):
@@ -52,17 +55,18 @@ class AMPBlock(nn.Module):
     """Anti-aliased Multi-Periodicity block (BigVGAN AMPBlock1 topology)."""
 
     def __init__(self, channels: int, kernel_size: int = 3,
-                 dilation: Sequence[int] = (1, 3, 5)):
+                 dilation: Sequence[int] = (1, 3, 5), dtype=None):
         super().__init__()
         self.kernel_size = kernel_size
         self.dilation = tuple(dilation)
         self.convs1 = nn.ModuleList(
             WNConv1d(channels, channels, kernel_size,
-                     padding=get_padding(kernel_size, d), dilation=d)
+                     padding=get_padding(kernel_size, d), dilation=d,
+                     dtype=dtype)
             for d in self.dilation)
         self.convs2 = nn.ModuleList(
             WNConv1d(channels, channels, kernel_size,
-                     padding=get_padding(kernel_size, 1))
+                     padding=get_padding(kernel_size, 1), dtype=dtype)
             for _ in self.dilation)
         self.activations = nn.ModuleList(
             AASnakeBeta(channels) for _ in range(2 * len(self.dilation)))

@@ -13,6 +13,12 @@ and one epilogue kernel (`csrc/triple_epilogue.cu`) averages the three
 block outputs and, with `post`, runs the tail without writing the average
 to device memory. Edges are exact, as in ops/ampblock.py, so no strip of
 `composed_triple` is stitched in.
+
+bf16 configuration (a bf16 x, counted as `amp_triple_bf16`): each block runs
+the AMPBlock's bf16 configuration (ops/ampblock.py) but writes its output in
+float32, and the epilogue averages in float32, runs the tail in float32 and
+rounds the stage's output to bf16 once, as the TPU kernel keeps the whole
+stage in float32 in VMEM.
 """
 from __future__ import annotations
 
@@ -22,7 +28,7 @@ import torch
 
 from megatts2_hierspeechpp_torch.nn.conv import conv1d_op
 from megatts2_hierspeechpp_torch.ops import cuda_lib
-from megatts2_hierspeechpp_torch.ops.ampblock import composed_ampblock, run_block
+from megatts2_hierspeechpp_torch.ops.ampblock import block_math, run_block
 from megatts2_hierspeechpp_torch.ops.resample import activation1d
 
 
@@ -39,14 +45,26 @@ def composed_epilogue(r0, r1, r2, post=None):
     return torch.tanh(y)
 
 
+def triple_math(x, block_ws, ks, dils, post=None, bf16_products=False):
+    """One stage in x's dtype; with `bf16_products` every conv's operands
+    rounded to bf16 (the bf16 configuration, on a float32 x)."""
+    rs = [block_math(x, *bw, k, d, bf16_products=bf16_products)
+          for bw, k, d in zip(block_ws, ks, dils)]
+    return composed_epilogue(*rs, post=post)
+
+
 def composed_triple(x, block_ws, ks, dils, post=None):
     """Plain version (the JAX `composed_triple`).
 
     x: (B, T, C); block_ws: per block (three) the ops/ampblock weight tuple;
     post: optional (alpha, 1/beta, w_post (7, C)) -> (B, T, 1) tanh
-    waveform, else the (B, T, C) averaged blocks."""
-    rs = [composed_ampblock(x, *bw, k, d) for bw, k, d in zip(block_ws, ks, dils)]
-    return composed_epilogue(*rs, post=post)
+    waveform, else the (B, T, C) averaged blocks. A bf16 x takes the bf16
+    configuration: the stage in float32 with bf16 conv operands, a bf16
+    result."""
+    if x.dtype == torch.bfloat16:
+        return triple_math(x.float(), block_ws, ks, dils, post,
+                           bf16_products=True).to(x.dtype)
+    return triple_math(x, block_ws, ks, dils, post)
 
 
 EPILOGUE_THREADS = 256          # csrc/triple_epilogue.cu kThreads
@@ -79,25 +97,29 @@ def epilogue_plan(b: int, t: int, c: int, tile: int | None = None) -> dict:
             "tasks": rows // EPILOGUE_ROWS_PER_TASK * c}
 
 
-def _epilogue(r0, r1, r2, post, tile=None, stamps=None):
+def _epilogue(r0, r1, r2, post, tile=None, stamps=None,
+              out_dtype=torch.float32):
     b, t, c = r0.shape
     dev = r0.device
     for name, r in (("r0", r0), ("r1", r1), ("r2", r2)):
         cuda_lib.check(r, name, dev, (b, t, c))
+    if out_dtype not in cuda_lib.ACT_DTYPES:
+        raise TypeError(f"triple epilogue output must be one of "
+                        f"{cuda_lib.ACT_DTYPES}, got {out_dtype}")
     if post is None:
-        y = torch.empty_like(r0)
+        y = torch.empty_like(r0, dtype=out_dtype)
         cuda_lib.call("triple_avg_fwd", *map(cuda_lib.ptr, (r0, r1, r2, y)),
-                      b * t * c, cuda_lib.stream(dev))
+                      b * t * c, cuda_lib.act_bytes(y), cuda_lib.stream(dev))
         return y
     pa, pib, pw = post
     cuda_lib.check(pa, "post alpha", dev, (c,))
     cuda_lib.check(pib, "post inv_beta", dev, (c,))
     cuda_lib.check(pw, "post weight", dev, (7, c))
     plan = epilogue_plan(b, t, c, tile)
-    y = torch.empty((b, t, 1), device=dev, dtype=r0.dtype)
+    y = torch.empty((b, t, 1), device=dev, dtype=out_dtype)
     cuda_lib.call("triple_post_fwd", *map(cuda_lib.ptr, (r0, r1, r2, pa, pib, pw, y)),
                   b, t, c, plan["tile"], plan["smem"], cuda_lib.ptr(stamps),
-                  cuda_lib.stream(dev))
+                  cuda_lib.act_bytes(y), cuda_lib.stream(dev))
     return y
 
 
@@ -111,21 +133,24 @@ def tail_stamps(r0, r1, r2, post):
     return _epilogue(r0, r1, r2, post, stamps=stamps), stamps
 
 
-def fused_epilogue(r0, r1, r2, post=None):
+def fused_epilogue(r0, r1, r2, post=None, out_dtype=torch.float32):
     """The epilogue alone on given block outputs (B, T, C) float32: the
-    average, or with `post` the (B, T, 1) tail. CUDA tensors run
+    average, or with `post` the (B, T, 1) tail, in `out_dtype` (float32, or
+    bf16 for the bf16 configuration). CUDA tensors run
     `csrc/triple_epilogue.cu`, CPU tensors `composed_epilogue`. Not counted
     and not differentiable: the stage wrapper is the path's entry point;
     this one holds the kernel against its plain version."""
     if r0.device.type == "cpu":
-        return composed_epilogue(r0, r1, r2, post)
+        return composed_epilogue(r0, r1, r2, post).to(out_dtype)
     if r0.device.type != "cuda":
         raise ValueError(f"unsupported device {r0.device}")
-    return _epilogue(r0, r1, r2, post)
+    return _epilogue(r0, r1, r2, post, out_dtype=out_dtype)
 
 
 def _launch(x, block_ws, dils, post):
-    return _epilogue(*[run_block(x, bw, d) for bw, d in zip(block_ws, dils)], post)
+    rs = [run_block(x, bw, d, out_dtype=torch.float32)
+          for bw, d in zip(block_ws, dils)]
+    return _epilogue(*rs, post, out_dtype=x.dtype)
 
 
 def _unflatten(flat, n_blocks: int, has_post: bool):
@@ -147,7 +172,8 @@ class _AMPTriple(torch.autograd.Function):
         ctx.static = (ks, dils, has_post)
         block_ws, post = _unflatten(flat, len(ks), has_post)
         y = _launch(x, block_ws, dils, post)
-        cuda_lib.LAUNCHES["amp_triple"] += 1
+        cuda_lib.LAUNCHES["amp_triple_bf16" if x.dtype == torch.bfloat16
+                          else "amp_triple"] += 1
         return y
 
     @staticmethod
@@ -165,8 +191,9 @@ def fused_amp_triple(
     dils: Sequence[Sequence[int]],
     post: Optional[Tuple[torch.Tensor, torch.Tensor, torch.Tensor]] = None,
 ):
-    """Whole decoder stage; x: (B, T, C) float32 -> (B, T, C), or the
-    (B, T, 1) tanh waveform with `post`.
+    """Whole decoder stage; x: (B, T, C) float32 or bf16 (the bf16
+    configuration) -> (B, T, C), or the (B, T, 1) tanh waveform with `post`,
+    in x's dtype.
 
     CUDA tensors run the kernels (any T >= 1); CPU tensors run the plain
     version."""

@@ -9,9 +9,11 @@ flags, so an unchanged tree reuses it.
 Each C entry point launches on the stream it is given and returns
 `cudaGetLastError()`; `call` raises when that is not 0.
 
-`LAUNCHES` counts, per kernel wrapper, the calls that ran CUDA kernels (one
-per wrapper call, however many launches it takes). CPU calls, which take
-the plain versions, do not count.
+`LAUNCHES` counts, per kernel wrapper and configuration, the calls that
+ran CUDA kernels (one per wrapper call, however many launches it takes):
+the vocoder kernels' bf16 configuration counts under its own `_bf16` key,
+as the decode's bf16 weights do. CPU calls, which take the plain versions,
+do not count.
 """
 from __future__ import annotations
 
@@ -31,22 +33,27 @@ NVCC_FLAGS = ARCH_FLAGS + ["-O3", "-std=c++17", "-Xcompiler", "-fPIC",
                            "-Xptxas", "-v"]
 
 LAUNCHES = {"aa_snakebeta": 0, "ampblock": 0, "amp_triple": 0,
-            "plm_decode": 0, "plm_decode_bf16": 0}
+            "plm_decode": 0, "plm_decode_bf16": 0, "aa_snakebeta_bf16": 0,
+            "ampblock_bf16": 0, "amp_triple_bf16": 0}
+# activation dtypes of the vocoder kernels: float32, or the bf16
+# configuration (bf16 in and out, float32 inside)
+ACT_DTYPES = (torch.float32, torch.bfloat16)
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
-    # x, alpha, inv_beta, y, B, T, C, rows, blocks, stream
-    "aa_snakebeta_fwd": [_P] * 4 + [_I] * 5 + [_P],
-    # x, alpha, inv_beta, w, bias, res, y, B, T, Cin, Cout, K, dil, stream
-    "snake_conv_fwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
-    # B, T, Cout, K, dil, &tm, &tn
-    "snake_conv_tile": [_I] * 5 + [_P, _P],
-    # r0, r1, r2, y, n, stream
-    "triple_avg_fwd": [_P, _P, _P, _P, _I, _P],
-    # r0, r1, r2, alpha, inv_beta, w7, y, B, T, C, tile, smem_bytes, stamps,
+    # x, alpha, inv_beta, y, B, T, C, rows, blocks, act_bytes, stream
+    "aa_snakebeta_fwd": [_P] * 4 + [_I] * 6 + [_P],
+    # x, alpha, inv_beta, w, bias, res, y, B, T, Cin, Cout, K, dil, io,
     # stream
-    "triple_post_fwd": [_P] * 7 + [_I] * 5 + [_P, _P],
+    "snake_conv_fwd": [_P] * 7 + [_I] * 7 + [_P],
+    # B, T, Cout, K, dil, bf16, &tm, &tn
+    "snake_conv_tile": [_I] * 6 + [_P, _P],
+    # r0, r1, r2, y, n, y_bytes, stream
+    "triple_avg_fwd": [_P, _P, _P, _P, _I, _I, _P],
+    # r0, r1, r2, alpha, inv_beta, w7, y, B, T, C, tile, smem_bytes, stamps,
+    # y_bytes, stream
+    "triple_post_fwd": [_P] * 7 + [_I] * 5 + [_P, _I, _P],
     # tc, pe, emb, wqkv, bqkv, wo, bo, ln, ff0, ff0b, ff1, ff1b, pred, cache,
     # xch, codes, stamps, T, L, D, TC, H, F, BINS, go_id, grid, smem_bytes,
     # xch_pairs, wbytes, cbytes, stream
@@ -146,24 +153,32 @@ def call(name: str, *args) -> None:
 
 def check(t: torch.Tensor, name: str, device: torch.device,
           shape: tuple | None = None,
-          dtype: torch.dtype = torch.float32) -> None:
-    """Raise unless `t` is a contiguous `dtype` tensor on `device` of
-    `shape`."""
+          dtypes: tuple = (torch.float32,)) -> None:
+    """Raise unless `t` is a contiguous tensor of one of `dtypes` on
+    `device` of `shape`."""
     if t.device != device:
         raise ValueError(f"{name} is on {t.device}, expected {device}")
-    if t.dtype != dtype:
-        raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
+    if t.dtype not in dtypes:
+        raise TypeError(f"{name} must be one of {dtypes}, got {t.dtype}")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
     if shape is not None and tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {shape}")
 
 
+def act_bytes(t: torch.Tensor) -> int:
+    """4 for a float32 activation, 2 for bf16: the kernels' type flag."""
+    return t.element_size()
+
+
 def plain_vjp(fn, saved, needs_grad, ct, *static):
     """Backward of a kernel through autograd of its plain version at the
-    saved primals. The cotangent is cast to the primal output's dtype (as
-    the JAX custom_vjp does). Runs in a "plain_vjp" profiler range, so a
-    trace can tell its recompute and backward from the rest of a step."""
+    saved primals, which recomputes in the primals' dtypes (a bf16 x runs
+    the bf16 twin). The cotangent is cast to the primal output's dtype (as
+    the JAX custom_vjp does): a bf16 discriminator may hand a bf16
+    cotangent to a float32 output, and the reverse. Runs in a "plain_vjp"
+    profiler range, so a trace can tell its recompute and backward from
+    the rest of a step."""
     with torch.enable_grad(), torch.profiler.record_function("plain_vjp"):
         xs = [t.detach().requires_grad_(n) for t, n in zip(saved, needs_grad)]
         out = fn(*xs, *static)

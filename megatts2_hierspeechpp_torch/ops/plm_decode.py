@@ -321,7 +321,7 @@ def _launch(w: PLMWeights, tc_latent: torch.Tensor, go_id: int,
     mats = ("wqkv", "wo", "ff0", "ff1", "pred")
     for name, tensor, shape in zip(names, tensors, shapes):
         cuda_lib.check(tensor, name, dev, shape,
-                       weight_dtype if name in mats else torch.float32)
+                       (weight_dtype if name in mats else torch.float32,))
         if name in mats + ("ln",) and tensor.data_ptr() % 16:
             raise ValueError(f"{name} must be 16-byte aligned (bulk copies)")
     pe = _scaled_positions(w, t, d, dev).contiguous()

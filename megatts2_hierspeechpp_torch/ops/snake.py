@@ -20,8 +20,14 @@ upsampler and s(u) before the downsampler, so the kernel clamps the x index
 to [0, T-1] and the u index to [0, 2T-1]. No edge strip is recomputed from
 the composed math, as the TPU wrapper had to.
 
+x and y are float32, or bf16 in the TPU kernel's bf16 configuration: x is
+read as bf16 and converted to float32, every tap and the snake run in
+float32 with float32 alpha and 1/beta (the Pallas kernel's `ab` operand),
+and y is rounded to bf16 once (counted as `aa_snakebeta_bf16`).
+
 The plain version, `composed_snakebeta`, is the composed math of the JAX
-`_composed_math`; CPU tensors take it, and it is the kernel's backward.
+`_composed_math`, in float32 for a bf16 x; CPU tensors take it, and it is
+the kernel's backward.
 """
 from __future__ import annotations
 
@@ -69,7 +75,10 @@ def _polyphase_taps():
 
 
 def composed_snakebeta(x, alpha, beta):
-    """Plain version: x (B, T, C); alpha, beta (C,) post-exp."""
+    """Plain version: x (B, T, C); alpha, beta (C,) post-exp. A bf16 x
+    takes the kernel's bf16 configuration: float32 math, a bf16 result."""
+    if x.dtype == torch.bfloat16:
+        return composed_snakebeta(x.float(), alpha, beta).to(x.dtype)
     a = alpha.to(x.dtype)
     b = beta.to(x.dtype)
     return activation1d(x, lambda v: v + torch.sin(v * a).square() / (b + EPS))
@@ -103,7 +112,7 @@ def snake_plan(b: int, t: int, c: int, rows: int | None = None) -> dict:
 def _launch(x, alpha, beta, inv_beta=None, rows=None):
     x = x.contiguous()
     b, t, c = x.shape
-    cuda_lib.check(x, "x", x.device)
+    cuda_lib.check(x, "x", x.device, dtypes=cuda_lib.ACT_DTYPES)
     cuda_lib.check(alpha, "alpha", x.device, (c,))
     cuda_lib.check(beta, "beta", x.device, (c,))
     if inv_beta is None:
@@ -113,8 +122,10 @@ def _launch(x, alpha, beta, inv_beta=None, rows=None):
     y = torch.empty_like(x)
     cuda_lib.call("aa_snakebeta_fwd", cuda_lib.ptr(x), cuda_lib.ptr(alpha),
                   cuda_lib.ptr(inv_beta), cuda_lib.ptr(y), b, t, c,
-                  plan["rows"], plan["blocks"], cuda_lib.stream(x.device))
-    cuda_lib.LAUNCHES["aa_snakebeta"] += 1
+                  plan["rows"], plan["blocks"], cuda_lib.act_bytes(x),
+                  cuda_lib.stream(x.device))
+    key = "aa_snakebeta_bf16" if x.dtype == torch.bfloat16 else "aa_snakebeta"
+    cuda_lib.LAUNCHES[key] += 1
     return y
 
 
@@ -131,7 +142,8 @@ class _AASnakeBeta(torch.autograd.Function):
 
 
 def fused_aa_snakebeta(x, alpha, beta, inv_beta=None):
-    """x: (B, T, C) float32; alpha/beta: (C,) post-exp -> (B, T, C).
+    """x: (B, T, C) float32 or bf16; alpha/beta: (C,) float32 post-exp ->
+    (B, T, C) in x's dtype.
     `inv_beta`, when given, is inverse_beta(beta) computed once by the
     caller (the per-call division then leaves the serving path).
 

@@ -92,8 +92,10 @@ def make_s1_eval_fn(eval_batch: Dict[str, np.ndarray]) -> Callable:
 
 def make_vocoder_eval_fn(eval_batch: Dict[str, np.ndarray],
                          plot: bool = True) -> Callable:
-    """Inference of the vocoder being trained (HierVocoder.forward with no
-    generator: z = m x mask) on the held-out batch: scalar mel_l1, the
+    """Inference of the vocoder being trained, as built (HierVocoder.forward
+    with no generator: z = m x mask; a bf16 build computes in bf16, as the
+    JAX hook runs the trained model's dtype) on the held-out batch, the mels
+    in float32: scalar mel_l1, the
     masked L1 between the fixed log-mels of the synthesized and the true
     audio over the shorter frame count; with `plot`, the first item's
     excitation (expm1 of e_, in Hz) over its f0 as a PNG."""

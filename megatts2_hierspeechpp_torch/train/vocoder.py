@@ -22,8 +22,12 @@ torch.Generator on the CPU (`TrainStep.draw`), so a given seed draws the
 same numbers on every device, and `TrainStep.with_draws` runs a step on
 draws given from outside (the tests feed it the JAX step's).
 
-Training computes in float32, the port's kernels' type; the JAX CLI's bf16
-default is not ported (ROADMAP).
+The models' compute dtype is theirs (HierVocoder(dtype=),
+MultiPeriodDiscriminator(dtype=)): with bf16, as the JAX CLI's default, the
+convs and the vocoder kernels run in bf16 while the parameters, their
+gradients and the AdamW state stay float32, and every loss reads its
+inputs in float32 (train/losses.py; the mel L1's spectra are float32, the
+excitation L1 casts e_).
 """
 from __future__ import annotations
 

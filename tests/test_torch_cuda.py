@@ -7,7 +7,15 @@ installed:
 Tolerance: atol 1e-5, rtol 1e-4 for the snake and the triple's average;
 1e-4 for the triple's tail (sin, tanh, 7 C-term sums) and the conv kernels
 (accumulation order over k*C terms; the split-TF32 products are as accurate
-as float32, a single TF32 pass would fail it, see test_torch_tf32split.py). The PLM decode kernel's codes must pass
+as float32, a single TF32 pass would fail it, see test_torch_tf32split.py).
+The vocoder kernels' bf16 configuration: the AA-snake and one snake_conv
+launch within 2^-8 x max|ref| of the bf16 twin's float32 value before its
+last rounding (half a bf16 step; against the rounded twin a single rounding
+flip in the top binade is a full step); a snake_conv launch that writes
+float32 also within 1e-4 x mean|ref| in mean |error| at T >= 127 (its
+operand flips are rare; a bf16-rounded output reads about 1.4e-3); the
+AMPBlock and the triple, chains of rounded convs, no farther from the
+float32 plain version than twice the twin is (see _chain_close). The PLM decode kernel's codes must pass
 the teacher-forced check (each code within 1e-4 x max|logits| of its row's
 max logit), since one near-tie flip changes every later step; its bf16
 configurations the same check against the bf16 plain twin (plain_gap)
@@ -52,6 +60,8 @@ from megatts2_hierspeechpp_torch.ops.stft import mag_pha_stft
 
 DIL = (1, 3, 5)
 BF16_MARGIN = 2.0 ** -8  # the bf16 decode's teacher-forced gap, x max|logits|
+EXACT_RATIO = 2.0        # a bf16 chain's distance from float32 over its twin's
+MMA_F32_MEAN_TOL = 1e-4  # a float32-output bf16 launch: mean |err| / mean |ref|
 CHANNELS = (7, 8, 16, 32, 48, 64, 128)  # 7: the 4-byte copy path, ragged tiles
 KERNEL_SIZES = (3, 5, 7, 11)
 # T = 1, 7, both sides of a time tile edge (snake_conv's tiles are 32, 64 or
@@ -81,8 +91,12 @@ def _block_ws(rng, dev, k, c):
     return (pos(), pos(), w(), b(), pos(), pos(), w(), b())
 
 
-def _plain_snake_conv(x, a, ib, w, bias, d, res=None):
+def _plain_snake_conv(x, a, ib, w, bias, d, res=None, rounded=False):
+    """conv_d(snake(x)) + bias (+ res); `rounded`: the snake's output
+    rounded to bf16 (the bf16 products; the caller rounds w)."""
     y = activation1d(x, lambda v: v + torch.sin(v * a).square() * ib)
+    if rounded:
+        y = ampblock.rounded(y)
     y = conv1d_op(y, w.permute(1, 2, 0), bias, 1, (w.shape[0] - 1) // 2 * d, d)
     return y if res is None else y + res
 
@@ -124,9 +138,86 @@ def test_kernels_match_plain(dev, t, c, k):
                 amp_triple.composed_triple(x, [ws] * 3, (k,) * 3, (DIL,) * 3, p),
                 atol=1e-4, rtol=1e-4)
     torch.cuda.synchronize()
-    assert cuda_lib.LAUNCHES == {"aa_snakebeta": 1, "ampblock": 1,
-                                 "amp_triple": 2, "plm_decode": 0,
-                                 "plm_decode_bf16": 0}
+    assert cuda_lib.LAUNCHES == dict.fromkeys(cuda_lib.LAUNCHES, 0) | {
+        "aa_snakebeta": 1, "ampblock": 1, "amp_triple": 2}
+
+
+def _close_bf16(got, want32):
+    """A bf16 kernel output against its plain version's float32 value
+    before the final rounding: within 2^-8 x max|ref| (a correctly rounded
+    bf16 value is within half a step of it; the float32 sums differ in
+    order)."""
+    assert got.dtype == torch.bfloat16
+    err = (got.float() - want32).abs().max().item()
+    scale = want32.abs().max().item()
+    assert err <= BF16_MARGIN * scale, (err, scale)
+
+
+def _chain_close(got, twin32, f32):
+    """A chain of rounded convs (an AMPBlock, a stage) in bf16: its distance
+    from the float32 plain version at most EXACT_RATIO x the bf16 twin's.
+    Kernel and twin round the same operands, but a value within float error
+    of a bf16 boundary rounds either way and the chain carries the flip on:
+    against the twin the kernel reaches 1.04-1.10 x 2^-8 x max|ref| in 5 of
+    these 252 shapes."""
+    assert got.dtype == torch.bfloat16
+    d_kernel = (got.float() - f32).abs().max().item()
+    d_twin = (twin32.bfloat16().float() - f32).abs().max().item()
+    assert d_kernel <= EXACT_RATIO * d_twin, (d_kernel, d_twin)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", KERNEL_SIZES)
+@pytest.mark.parametrize("c", CHANNELS)
+@pytest.mark.parametrize("t", LENGTHS)
+def test_kernels_match_plain_bf16(dev, t, c, k):
+    """The bf16 configuration at every shape of the float32 test: bf16 x,
+    float32 inside, bf16 out, each conv one bf16 product pass with float32
+    sums. The AA-snake and snake_conv alone (with each I/O type the blocks
+    use: bf16 x in, float32 out; float32 x with a bf16 residual, bf16 out)
+    against their bf16 twins before the final rounding; the AMPBlock and
+    the triple with and without the tail by their distance from float32
+    (_chain_close). Each wrapper call counts under its `_bf16` key."""
+    rng = np.random.default_rng(1000 * t + 10 * c + k + 1)
+    x = _rand(rng, dev, 2, t, c).bfloat16()
+    a, be = torch.exp(_rand(rng, dev, c, scale=0.3)), torch.exp(_rand(rng, dev, c, scale=0.3))
+    ws = _block_ws(rng, dev, k, c)
+    post = (torch.exp(_rand(rng, dev, c, scale=0.2)),
+            torch.exp(_rand(rng, dev, c, scale=0.2)),
+            _rand(rng, dev, 7, c, scale=0.1 * (7 * c) ** -0.5))
+    res = _rand(rng, dev, 2, t, c).bfloat16()
+    x32 = x.float()
+    cuda_lib.reset_launches()
+    with torch.inference_mode():
+        _close_bf16(snake.fused_aa_snakebeta(x, a, be),
+                    snake.composed_snakebeta(x32, a, be))
+        for i, d in enumerate(DIL):
+            args = (ws[0][i], ws[1][i], ws[2][i], ws[3][i], d)
+            w32 = ampblock.rounded(args[2])
+            want = _plain_snake_conv(x32, *args[:2], w32, *args[3:],
+                                     rounded=True)
+            got = ampblock.snake_conv(x, *args, bf16_mma=True)
+            assert got.dtype == torch.float32
+            assert (got - want).abs().max() <= BF16_MARGIN * want.abs().max()
+            if t >= 127:  # enough outputs that one operand flip averages out
+                mean_err = ((got - want).abs().mean() / want.abs().mean()).item()
+                assert mean_err <= MMA_F32_MEAN_TOL, mean_err
+            want = _plain_snake_conv(x32, *args[:2], w32, *args[3:],
+                                     res=res.float(), rounded=True)
+            _close_bf16(ampblock.snake_conv(x32, *args, res=res, bf16_mma=True,
+                                            out_dtype=torch.bfloat16), want)
+        _chain_close(ampblock.fused_ampblock(x, *ws, k, DIL),
+                     ampblock.block_math(x32, *ws, k, DIL, bf16_products=True),
+                     ampblock.block_math(x32, *ws, k, DIL))
+        for p in (None, post):
+            stage = (x32, [ws] * 3, (k,) * 3, (DIL,) * 3, p)
+            _chain_close(
+                amp_triple.fused_amp_triple(x, *stage[1:]),
+                amp_triple.triple_math(*stage, bf16_products=True),
+                amp_triple.triple_math(*stage))
+    torch.cuda.synchronize()
+    assert cuda_lib.LAUNCHES == dict.fromkeys(cuda_lib.LAUNCHES, 0) | {
+        "aa_snakebeta_bf16": 1, "ampblock_bf16": 1, "amp_triple_bf16": 2}
 
 
 @pytest.mark.cuda

@@ -135,7 +135,8 @@ def test_launch_counts_stay_zero_on_cpu():
     plm_decode.plm_decode_greedy(lm.packed(), torch.zeros(1, 5, 12), lm.go_id)
     assert cuda_lib.LAUNCHES == {"aa_snakebeta": 0, "ampblock": 0,
                                  "amp_triple": 0, "plm_decode": 0,
-                                 "plm_decode_bf16": 0}
+                                 "plm_decode_bf16": 0, "aa_snakebeta_bf16": 0,
+                                 "ampblock_bf16": 0, "amp_triple_bf16": 0}
 
 
 def test_taps_header_matches_polyphase_taps():

@@ -1,8 +1,9 @@
 """The port's training plumbing on the CPU: AdamW and its per-epoch decay
 against optax, checkpoints, the loop's resume and prefetch, the synthetic
 corpus against the JAX package's, and cli/train_vocoder end to end at the
-small configuration (see test_torch_train_modules.py), with the trained
-generator served afterwards.
+small configuration (see test_torch_train_modules.py): in float32 with the
+trained generator served afterwards, and at its default bf16 compute with
+a resumed run.
 
 Tolerances: AdamW parameters within 1e-6 of optax's after 3 updates (atol,
 unit-scale parameters); a resumed run's losses equal the straight run's to
@@ -223,23 +224,25 @@ def _small_config(path, corpus_dir, **train):
                         n_flows=1, flow_layers=1,
                         mpd_resolutions=[list(r) for r in MPD_SMALL["resolutions"]],
                         mpd_periods=list(MPD_SMALL["periods"]))
-    cfg["train"].update(batch_size=2, epochs=1, log_interval=1,
-                        save_interval=2, segment_frames=8, **train)
+    cfg["train"].update(dict(batch_size=2, epochs=1, log_interval=1,
+                             save_interval=2, segment_frames=8), **train)
     with open(path, "w") as f:
         json.dump(cfg, f)
     return str(path)
 
 
 def test_train_vocoder_cli_then_serve(corpus, tmp_path):
-    """cli/train_vocoder.main takes 2 steps on the port's corpus and writes
-    a checkpoint; the trained generator, without its training-only
-    members, loads into a serving HierVocoder whose forward runs."""
+    """cli/train_vocoder.main with train.dtype "fp32" takes 2 steps in
+    float32 on the port's corpus and writes a checkpoint; the trained
+    generator, without its training-only members, loads into a serving
+    HierVocoder whose forward runs."""
     tdir, _ = corpus
-    cfg = _small_config(tmp_path / "cfg.json", tdir)
+    cfg = _small_config(tmp_path / "cfg.json", tdir, dtype="fp32")
     logs = str(tmp_path / "logs")
     state = tcli.main(["-c", cfg, "-m", "run", "--logs_dir", logs,
                        "--device", "cpu"])
     assert state.step == 2
+    assert state.gen.dtype is None
     recs = _scalars(os.path.join(logs, "run"))
     assert set(recs) == {1, 2}
     for r in recs.values():
@@ -257,9 +260,35 @@ def test_train_vocoder_cli_then_serve(corpus, tmp_path):
     assert wav.shape == (1, 320 * t, 1) and torch.isfinite(wav).all()
 
 
-def test_train_vocoder_bf16_raises(corpus, tmp_path):
+def test_train_vocoder_cli_trains_bf16_by_default(corpus, tmp_path):
+    """With no train.dtype the CLI computes in bf16, as the JAX CLI: 2
+    steps, a checkpoint, then 2 steps resumed from it, every loss finite;
+    the models compute in bf16 while the parameters (and so the
+    checkpoint) stay float32."""
     tdir, _ = corpus
-    cfg = _small_config(tmp_path / "cfg.json", tdir, dtype="bf16")
-    with pytest.raises(NotImplementedError, match="bf16"):
+    logs = str(tmp_path / "logs")
+    for epochs, steps in ((1, 2), (2, 4)):
+        cfg = _small_config(tmp_path / f"cfg{epochs}.json", tdir, epochs=epochs)
+        assert "dtype" not in json.load(open(cfg))["train"]
+        state = tcli.main(["-c", cfg, "-m", "run", "--logs_dir", logs,
+                           "--device", "cpu"])
+        assert state.step == steps
+        assert ckpt.latest_step(os.path.join(logs, "run", "ckpt")) == steps
+    assert state.gen.dtype == torch.bfloat16
+    assert state.disc.discriminators[0].convs[0].dtype == torch.bfloat16
+    assert all(p.dtype == torch.float32 for p in state.gen.parameters())
+    recs = _scalars(os.path.join(logs, "run"))
+    assert set(recs) == {1, 2, 3, 4}
+    for r in recs.values():
+        assert all(np.isfinite(v) for k, v in r.items() if k.startswith("loss/"))
+    saved = ckpt.restore_raw(os.path.join(logs, "run", "ckpt"))
+    assert all(v.dtype == torch.float32 for v in saved["gen"].values()
+               if v.is_floating_point())
+
+
+def test_train_vocoder_unknown_dtype_raises(corpus, tmp_path):
+    tdir, _ = corpus
+    cfg = _small_config(tmp_path / "cfg.json", tdir, dtype="fp16")
+    with pytest.raises(ValueError, match="fp16"):
         tcli.main(["-c", cfg, "-m", "run", "--logs_dir", str(tmp_path / "logs"),
                    "--device", "cpu"])

@@ -49,8 +49,10 @@ def corpus(tmp_path_factory):
 
 
 def test_train_vocoder_cli_logs_eval(corpus, tmp_path):
-    """train.eval_interval 2: eval/mel_l1 at step 2, finite, with its PNG."""
-    cfg = _small_config(tmp_path / "cfg.json", corpus, eval_interval=2)
+    """train.eval_interval 2: eval/mel_l1 at step 2, finite, with its PNG
+    (float32 compute)."""
+    cfg = _small_config(tmp_path / "cfg.json", corpus, eval_interval=2,
+                        dtype="fp32")
     logs = str(tmp_path / "logs")
     state = tcli.main(["-c", cfg, "-m", "run", "--logs_dir", logs,
                        "--device", "cpu"])
