@@ -20,7 +20,8 @@ Phases, in order; any failure exits non-zero:
      request, beside a cuDNN conv1d of the same conv (the conv alone), and
      their sum per request; the PLM decode kernel at full width (d 276, 4
      layers, 1024 bins) at T = 500, 1 and 37, its codes held by the
-     teacher-forced check; its bf16 weight / cache configuration at T = 500
+     teacher-forced check, and a bf16 latent through models/plm.decode (one
+     launch, the codes of its float32 cast); its bf16 weight / cache configuration at T = 500
      (ms, teacher-forced gap against the bf16 plain twin, token agreement
      with float32, 10 repeats identical), and the per-row greedy decode of
      a batch of 4 in float32 and bf16 (one launch per row); the three
@@ -113,25 +114,26 @@ Phases, in order; any failure exits non-zero:
      launch shapes join the `new_shape` lines;
  11. MegaTTS2 training at the published widths and depths
      (configs/config.json: batch 8, lr 1e-4, c_commit 100; TTVModel and
-     the MultiResSpecDiscriminator, ProsodyLM 4 layers, d 276): `train_s2`,
-     cli/train_s2.main in-process on 24 of phase 10's utterances (one length
-     bucket: 3 batches of 8), k-means on the first batch, 3 steps, a
-     checkpoint, 3 resumed; each step's ms (CUDA events), audio-s per s,
-     peak memory, launches; one step profiled by group (cuDNN / cuBLAS,
-     LSTM, elementwise, optimizer) with the idle share; one step of a
-     synthetic 10 s batch (B = 8, 512 frames, 128 phones); one step at
+     the MultiResSpecDiscriminator, ProsodyLM 4 layers, d 276) at the CLIs'
+     default, bf16 compute with float32 parameters (the config sets no
+     train.dtype, as the JAX CLIs): `train_s2`, cli/train_s2.main in-process
+     on 24 of phase 10's utterances (one length bucket: 3 batches of 8),
+     k-means on the first batch, 3 steps, a checkpoint, 3 resumed; then
+     train.dtype "fp32" on 8 of them, 1 step and 1 resumed. For each run:
+     each step's ms (CUDA events), audio-s per s, peak memory, launches;
+     one B = 8 step profiled by group (cuDNN / cuBLAS, LSTM, elementwise,
+     optimizer) with the idle share; the synthetic 10 s batch (B = 8, 512
+     frames, 128 phones), its steps timed and one profiled. One step at
      B = 2, 64 frames card against CPU from the same weights, coin and
-     dropout masks (drawn on the CPU): each metric within 1e-4 relative,
-     G and D gradients within 1e-3 relative L2, the RVQ statistics and the
-     spectral norm's u / v within 1e-5 of their largest. `train_s1`,
-     cli/train_s1.main from that run's checkpoint: 3 steps + 3 resumed,
-     step ms, tokens (frames) per s, peak memory, a profiled step, the
-     card-vs-CPU step. `serve_trained`: the s1 run's PLM takes one more
-     step after its decode weights were packed, then serves with the
-     frozen s2 TTV, the serving vocoder and SpeechSR-48k one 10 s `tts`
-     request (exact=True): all four kernels must launch, the decode's
-     teacher-forced gap within 1e-4 x max|logit|, its codes equal to a
-     fresh build's loaded with the same state_dict;
+     dropout masks (drawn on the CPU), in float32 (each metric within 1e-4
+     relative, G and D gradients within 1e-3 relative L2, the RVQ
+     statistics and the spectral norm's u / v within 1e-5 of their largest)
+     and in bf16 (each side's distance from its own float32 step, the
+     card's within EXACT_RATIO x the CPU's, a gradient's also at least the
+     CPU's / EXACT_RATIO). `train_s1`, cli/train_s1.main
+     from the bf16 s2 run's checkpoint: 3 steps + 3 resumed in bf16, 1 + 1
+     in "fp32", step ms, tokens (frames) per s, peak memory, a profiled
+     step of each, the card-vs-CPU steps in both dtypes;
  12. SpeechSR training: cli/train_sr.main in-process at its defaults (48
      kHz, B = 16, seg_in 3200, ch 32, the 6-resolution + 5-period bank) on
      phase 10's corpus, 3 steps, a checkpoint, 3 resumed, the eval hook at
@@ -144,7 +146,18 @@ Phases, in order; any failure exits non-zero:
      relative L2); the triple's forward and backward at its SR training
      launch shapes (`train_shape`); `serve_trained_sr`, the trained
      generator in a serving SpeechSR on a 10 s input (one triple launch,
-     within 1e-4 x max of the plain stage);
+     within 1e-4 x max of the plain stage). Then `serve_trained`: the s1
+     run's in-memory PLM takes one more step after its decode weights were
+     packed (they must be packed anew); infer/from_training builds the
+     pipeline of phase 11's bf16 s2 and s1 runs, phase 10's bf16 vocoder
+     run and this SpeechSR-48k run, whose state_dicts must equal the runs'
+     checkpoints, and serves one 10 s `tts` request (exact=True) at 48 kHz:
+     all four kernels must launch, the decode's teacher-forced gap within
+     1e-4 x max|logit|, the trained PLM loaded with its checkpoint decodes
+     the same codes; then the same pipeline at dtype=bfloat16 serves the
+     request once more (the vocoder kernels' bf16 configuration, and one
+     float32 plm_decode launch on the bf16 latent, its gap against the
+     float32 twin; its launch shapes join the `new_shape` lines);
  13. MP-SENet denoiser training: cli/train_denoiser.main at its defaults
      (B = 8, 2 s, dense_channel 64, 4 TS blocks, remat, attn_chunk 64), 3
      steps, a checkpoint, 3 resumed, the eval hook at steps 3 and 6: step
@@ -154,10 +167,25 @@ Phases, in order; any failure exits non-zero:
      gradients 1e-3 relative L2, running statistics 1e-5 x max); remat on
      against off on the card (loss and running statistics within 1e-6);
      `serve_trained_dn`, the trained model in a serving MPNet denoising the
-     3 s prompt through TTSPipeline.denoise at B = 1.
+     3 s prompt through TTSPipeline.denoise at B = 1;
+ 14. `cli_serving`: reference-layout checkpoints of seeded weights at the
+     published widths (TTV, PLM and a vocoder training build as {"model":
+     sd}, SpeechSR-48k under `dec.`, the denoiser as {"generator": sd}, the
+     mms-300m wav2vec2 in HF names with the `wav2vec2.` prefix), and the
+     inference CLIs' main() in-process on the card: infer_tts on texts of
+     5 / 7 / 10 s with the 3 s prompt at 48 kHz with --denoise_ratio 0.8, at 16 kHz with --batch 2 and at 48 kHz with --stream; infer_sr;
+     infer_vc of a 5 s source; extract_features on 8 of phase 10's
+     utterances. Every wav equals, as int16, the in-process call of
+     build_pipeline_from_reference_ckpts's pipeline, the launches equal the
+     API calls' (and the main path's per-request counts), the sidecars the
+     port's feature calls; ms per line and per call; cuDNN deterministic
+     throughout (its default algorithms give two calls of one request
+     waveforms up to 2e-7 apart, which can flip an int16 step).
 Then the run's seconds, and one JSON line with every kernel's numbers (launches: the f32 rows
 from the tts requests of phase 5, or one float32 training step of phase 10
 where that count is larger, and the serve_trained request's beside them;
+the decode's float32 row also with its launches on the bf16-served
+request and in the 48 kHz infer_tts run;
 the decode's bf16 row from its batch decode of phase 3; the three _bf16
 rows from one bf16_forward vocoder call, with their launches per bf16
 training step beside it; the triple's row also with its launches per SR
@@ -165,7 +193,8 @@ training step and its SR training shapes), the card's name and power limit
 from phase 1 printed first, and last the device line.
 
 Float32 (TF32 off) but for the bf16 decode configuration, the bf16 kernel
-lines, bf16_forward and the bf16 vocoder training of phase 10.
+lines, bf16_forward, the bf16 training runs of phases 10-11 and the bf16
+serve_trained request.
 Without CUDA it exits non-zero before printing any result.
 """
 from __future__ import annotations
@@ -996,7 +1025,32 @@ def plm_phase(torch, dev):
         if not ok:
             fail(f"plm_decode T={t}: teacher-forced gap {gap} > {TF_MARGIN} x {scale}")
         lines.append(line)
+    plm_bf16_latent_gate(torch, model, tc)
     return lines
+
+
+def plm_bf16_latent_gate(torch, model, tc):
+    """models/plm.decode of a bf16 latent (a bf16 TTV's) launches the
+    kernel once, on the latent taken to float32, as the JAX kernel takes it:
+    one plm_decode launch, the codes of the float32 cast's decode."""
+    from megatts2_hierspeechpp_torch.models.plm import decode
+    from megatts2_hierspeechpp_torch.ops import cuda_lib
+
+    low = tc.bfloat16()
+    with torch.inference_mode():
+        want = decode(model, low.float())
+        torch.cuda.synchronize()
+        cuda_lib.reset_launches()
+        got = decode(model, low)
+        torch.cuda.synchronize()
+    counts = dict(cuda_lib.LAUNCHES)
+    same = bool(torch.equal(got, want))
+    print(json.dumps({"phase": "plm_bf16_latent", "T": tc.shape[1],
+                      "calls": counts, "codes_equal_float32_cast": same}),
+          flush=True)
+    if counts["plm_decode"] != 1 or sum(counts.values()) != 1 or not same:
+        fail(f"plm_decode of a bf16 latent: launches {counts}, codes equal "
+             f"the float32 cast's {same}")
 
 
 def plm_bf16_phase(torch, dev):
@@ -2876,8 +2930,9 @@ def train_vocoder_phase(torch, dev, shapes, tmp):
     each profiled on the same batch; one step card against CPU in each
     dtype; every kernel's backward at its training shapes of both runs.
     Returns (launches of a bf16 step, launches of a float32 step, the
-    train_shape rows, the corpus directory); the runs' checkpoints are
-    deleted."""
+    train_shape rows, the corpus directory, the bf16 run's directory with
+    its latest checkpoint, which serve_trained serves); the other
+    checkpoints are deleted."""
     import os
     import shutil
 
@@ -2886,6 +2941,7 @@ def train_vocoder_phase(torch, dev, shapes, tmp):
     from megatts2_hierspeechpp_torch.data.dataset import (
         DatasetConfig, DistributedBucketSampler, SidecarDataset)
     from megatts2_hierspeechpp_torch.ops import cuda_lib
+    from megatts2_hierspeechpp_torch.train import checkpoints as ckpt_lib
     from megatts2_hierspeechpp_torch.utils.config import load_hparams
 
     hps = load_hparams(TRAIN_CONFIG)
@@ -2920,7 +2976,15 @@ def train_vocoder_phase(torch, dev, shapes, tmp):
                       label="train_vocoder bf16 B=32")
         del state
         torch.cuda.empty_cache()
-        shutil.rmtree(logs)   # 3 checkpoints of 1.7 GB
+        # the run with its latest checkpoint (1.7 GB) for serve_trained
+        voc_run = os.path.join(tmp, "voc_run")
+        shutil.move(os.path.join(logs, "run"), voc_run)
+        ckpts = os.path.join(voc_run, "ckpt")
+        latest = ckpt_lib.latest_step(ckpts)
+        for name in os.listdir(ckpts):
+            if name != f"step_{latest:08d}":
+                os.remove(os.path.join(ckpts, name))
+        shutil.rmtree(logs)
 
         sub = s_subset(corpus, os.path.join(tmp, "corpus32"),
                        TRAIN_FP32_UTTERANCES, cli.BOUNDARIES)
@@ -2944,7 +3008,7 @@ def train_vocoder_phase(torch, dev, shapes, tmp):
     torch.cuda.empty_cache()
     rows = train_backward_phase(torch, dev, calls.seen)
     cuda_lib.reset_launches()
-    return recs[0]["launches"], recs32[0]["launches"], rows, corpus
+    return recs[0]["launches"], recs32[0]["launches"], rows, corpus, voc_run
 
 
 # ---- phase 11: s2 / s1 training (cli/train_s2, cli/train_s1) and the
@@ -2953,6 +3017,7 @@ def train_vocoder_phase(torch, dev, shapes, tmp):
 S_CONFIG = "configs/config.json"  # published: batch 8, lr 1e-4, betas (0.8, 0.99),
                                   # eps 1e-9, c_commit 100; TTV / PLM at full depth
 S_UTTERANCES = 24       # phase 10's utterances of one length bucket: 3 batches of 8
+S_FP32_UTTERANCES = 8   # the "fp32" runs: one batch of 8 an epoch
 S_CPU_FRAMES = 64       # card vs CPU steps: 2 utterances cut to 64 frames
 S_LOSS_TOL = 1e-4       # card vs CPU, each metric, relative
 S_GRAD_TOL = 1e-3       # card vs CPU, relative L2 of all G (all D) gradients
@@ -3022,16 +3087,16 @@ def run_cli(cli_mod, step_mod, torch, argv_runs, keys=("mel", "mel_lengths")):
     return state, [r for s in steps for r in s.records], secs
 
 
-def check_run(label, recs, scalars, state, loss_keys, must=()):
-    """Steps 1-6 (3, then 3 resumed), every logged loss finite; each kernel
-    of `must` launched in every step, or with none given, no kernel of the
-    serving path launched by a training step."""
+def check_run(label, recs, scalars, state, loss_keys, must=(), n=6):
+    """Steps 1-n (n / 2, then n / 2 resumed), every logged loss finite; each
+    kernel of `must` launched in every step, or with none given, no kernel
+    of the serving path launched by a training step."""
     steps = [r["step"] for r in recs]
-    if steps != [1, 2, 3, 4, 5, 6] or state.step != 6:
-        fail(f"{label}: steps {steps}, final {state.step}, expected 1-6 "
-             "(3, then 3 resumed from the checkpoint)")
+    if steps != list(range(1, n + 1)) or state.step != n:
+        fail(f"{label}: steps {steps}, final {state.step}, expected 1-{n} "
+             f"({n // 2}, then {n // 2} resumed from the checkpoint)")
     logged = [s["step"] for s in scalars if any(k in s for k in loss_keys)]
-    if logged != [1, 2, 3, 4, 5, 6]:
+    if logged != list(range(1, n + 1)):
         fail(f"{label}: logged steps {logged}")
     for s in scalars:
         bad = {k: v for k, v in s.items() if not math.isfinite(v)}
@@ -3187,11 +3252,94 @@ def rate_line(recs, hop_s: float = 320 / 16000):
                 [r["frames"] / (r["ms"] / 1e3) for r in after]))}
 
 
+def s_configs(tmp, hps, sub, prefix, **train):
+    """The (1 epoch, 2 epochs) configs of a run on the filelist dir `sub`:
+    logged every step, checkpoints and the eval hook every 3 steps unless
+    `train` says otherwise."""
+    import os
+
+    opts = dict(log_interval=1, save_interval=3, eval_interval=3,
+                eval_plots=False)
+    opts.update(train)
+    return tuple(train_config(os.path.join(tmp, f"{prefix}{e}.json"), hps, sub,
+                              epochs=e, **opts) for e in (1, 2))
+
+
+def synthetic_steps(torch, dev, step, state, label):
+    """The synthetic 10 s batch: 1 warm-up and 3 CUDA-event-timed steps, one
+    more profiled: ms, audio-s per s, peak memory, idle share, launches."""
+    synth = synthetic_s2_batch(torch, dev, np.random.default_rng(17))
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for i in range(4):
+        _, ms = event_ms(torch, lambda: step(state, synth,
+                                             torch.Generator().manual_seed(30 + i)))
+        times.append(ms)
+    peak = torch.cuda.max_memory_allocated()
+    b, t = S2_SYNTH[:2]
+    med = float(np.median(times[1:]))
+    prof = step_profile(torch, f"{label} synthetic B={b} T={t}", lambda: step(
+        state, synth, torch.Generator().manual_seed(40)))
+    return {"B": b, "T": t, "phones": S2_SYNTH[2], "step_ms": times,
+            "step_ms_median": med,
+            "audio_s_per_s": b * t * 320 / 16000 / (med / 1e3),
+            "peak_memory_mb": peak / 2 ** 20,
+            "device_idle_share": prof["device_idle_share"],
+            "device_kernel_launches": prof["kernel_launches"],
+            "groups_ms": prof["groups_ms"]}
+
+
+def card_vs_cpu_bf16(torch, dev, label, build, run, batch):
+    """One step in bf16 compute and one in float32 from the same weights,
+    batch and draws, on the card and on the CPU: build(device, dtype name)
+    -> state; run as card_vs_cpu's. Each side's bf16 step is judged by its
+    distance from its own float32 step (metrics: the largest relative
+    difference; gradients: relative L2), the card's within EXACT_RATIO x
+    the CPU's: two bf16 paths that round in other places cannot meet float32
+    tolerances against each other. A gradient's distance must also be at
+    least the CPU's / EXACT_RATIO, so that a module the card left in
+    float32 shows (a metric, one scalar, has no lower bound)."""
+    dist, ms = {}, {}
+    for side, d in (("card", dev), ("cpu", torch.device("cpu"))):
+        res = {}
+        for name in ("fp32", "bf16"):
+            state = build(d, name)
+            tb = {k: torch.from_numpy(v).to(d) for k, v in batch.items()}
+            t0 = time.perf_counter()
+            m, grads, _ = run(state, tb, d)
+            m = {k: float(v) for k, v in m.items()}  # waits for the device
+            ms[f"{side}_{name}"] = 1e3 * (time.perf_counter() - t0)
+            res[name] = (m, {k: v.detach().cpu() for k, v in grads.items()})
+            del state
+        (m32, g32), (m16, g16) = res["fp32"], res["bf16"]
+        if not all(math.isfinite(v) for v in m16.values()):
+            fail(f"{label} bf16 on the {side}: non-finite metrics {m16}")
+        dist[side] = {"metrics": max(abs(m16[k] - v) / max(abs(v), 1e-30)
+                                     for k, v in m32.items()),
+                      **{k: ((g16[k] - g).norm() / g.norm()).item()
+                         for k, g in g32.items()}}
+    line = {"phase": "train_card_vs_cpu", "path": label, "dtype": "bf16",
+            "B": 2, "frames": S_CPU_FRAMES, "ms": ms,
+            "distance_from_own_fp32": dist,
+            "tolerance": f"card <= {EXACT_RATIO:g} x cpu; gradients: card >= "
+                         f"cpu / {EXACT_RATIO:g}"}
+    print(json.dumps(line), flush=True)
+    bad = {k: (dist["card"][k], v) for k, v in dist["cpu"].items()
+           if not dist["card"][k] <= EXACT_RATIO * v
+           or (k != "metrics" and not dist["card"][k] >= v / EXACT_RATIO)}
+    if bad:
+        fail(f"{label} bf16 card vs CPU: card's distance from float32 outside "
+             f"[cpu / {EXACT_RATIO}, {EXACT_RATIO} x cpu] {bad}")
+
+
 def train_s2_phase(torch, dev, tmp, corpus):
-    """cli/train_s2 at full width on S_UTTERANCES utterances: 3 steps, a
-    checkpoint, 3 resumed; a profiled step; the synthetic 10 s step; the
-    card-vs-CPU gate. Returns (the run's directory, the two configs, the
-    first batch)."""
+    """cli/train_s2 at full width on S_UTTERANCES utterances at the CLI's
+    default compute (bf16: the config sets no train.dtype, as the JAX CLI):
+    3 steps, a checkpoint, 3 resumed; then train.dtype "fp32" on
+    S_FP32_UTTERANCES (one batch an epoch): 1 step, a checkpoint, 1 resumed.
+    For each run a profiled step of the same B = 8 batch and the synthetic
+    10 s step; the card-vs-CPU gates in float32 (today's) and in bf16.
+    Returns (the bf16 run's directory, its two configs, the first batch)."""
     import os
 
     from megatts2_hierspeechpp_torch.cli import train_s2 as cli
@@ -3200,74 +3348,65 @@ def train_s2_phase(torch, dev, tmp, corpus):
     from megatts2_hierspeechpp_torch.train import s2
     from megatts2_hierspeechpp_torch.utils.config import load_hparams
 
-    sub = s_subset(corpus, os.path.join(tmp, "s2corpus"))
     hps = load_hparams(S_CONFIG)
+    if "dtype" in hps.train:
+        fail(f"{S_CONFIG} sets train.dtype: the CLIs' default is not exercised")
     logs = os.path.join(tmp, "slogs")
-    common = dict(log_interval=1, save_interval=3, eval_interval=3,
-                  eval_plots=False)
-    cfg1 = train_config(os.path.join(tmp, "epoch1.json"), hps, sub, epochs=1,
-                        **common)
-    cfg2 = train_config(os.path.join(tmp, "epoch2.json"), hps, sub, epochs=2,
-                        **common)
-    torch.cuda.reset_peak_memory_stats()
-    state, recs, secs = run_cli(cli, s2, torch, [
-        ["-c", cfg1, "-m", "s2", "--logs_dir", logs],
-        ["-c", cfg2, "-m", "s2", "--logs_dir", logs]])
-    peak = torch.cuda.max_memory_allocated()
-    with open(os.path.join(logs, "s2", "scalars.jsonl")) as f:
-        scalars = [json.loads(line) for line in f]
-    for r in recs:
-        print(json.dumps(dict(r, phase="train_s2_step")), flush=True)
-    check_run("train_s2", recs, scalars, state, ("loss/g/total",))
-    evals = [s for s in scalars if "eval/w2v_l1" in s]
-    if [s["step"] for s in evals] != [3, 6]:
-        fail(f"train_s2: eval at steps {[s['step'] for s in evals]}, expected 3, 6")
-
-    # one step of the CLI's first batch, profiled
-    hps2 = load_hparams(cfg2)
+    sub = s_subset(corpus, os.path.join(tmp, "s2corpus"))
+    cfg1, cfg2 = s_configs(tmp, hps, sub, "s2_")
+    sub8 = s_subset(corpus, os.path.join(tmp, "s2corpus8"), S_FP32_UTTERANCES)
+    fcfgs = s_configs(tmp, hps, sub8, "s2f_", dtype="fp32", save_interval=1,
+                      eval_interval=1)
+    hps2, hpsf = load_hparams(cfg2), load_hparams(fcfgs[1])
     ds = cli.SidecarDataset(hps2.data.training_files, cli.DatasetConfig())
     sampler = cli.DistributedBucketSampler(ds.lengths(), hps2.train.batch_size,
                                            list(cli.BOUNDARIES), seed=hps2.train.seed)
     first = collate([ds[i] for i in sampler.epoch_batches(0)[0]], pad_multiple=64)
     step = s2.TrainStep(c_mel=hps2.train.c_mel, c_commit=hps2.train.c_commit)
     tb = {k: torch.from_numpy(v).to(dev) for k, v in first.items()}
-    prof = step_profile(torch, "train_s2 B=8", lambda: step(
-        state, tb, torch.Generator().manual_seed(5)))
 
-    # the synthetic 10 s batch: 1 warm-up, 3 timed
-    synth = synthetic_s2_batch(torch, dev, np.random.default_rng(17))
-    torch.cuda.reset_peak_memory_stats()
-    times = []
-    for i in range(4):
-        _, ms = event_ms(torch, lambda: step(state, synth,
-                                             torch.Generator().manual_seed(30 + i)))
-        times.append(ms)
-    synth_peak = torch.cuda.max_memory_allocated()
-    b, t = S2_SYNTH[:2]
-    synth_ms = float(np.median(times[1:]))
-    synth_prof = step_profile(torch, f"train_s2 synthetic B={b} T={t}", lambda: step(
-        state, synth, torch.Generator().manual_seed(40)))
-    line = {"phase": "train_s2", "config": S_CONFIG, "utterances": S_UTTERANCES,
-            "steps": [r["step"] for r in recs], "runs_s": secs,
-            **rate_line(recs), "peak_memory_mb": peak / 2 ** 20,
-            "our_kernel_launches_per_step": recs[0]["launches"],
-            "device_kernel_launches_per_step": prof["kernel_launches"],
-            "device_idle_share": prof["device_idle_share"],
-            "synthetic": {"B": b, "T": t, "phones": S2_SYNTH[2],
-                          "step_ms": times, "step_ms_median": synth_ms,
-                          "audio_s_per_s": b * t * 320 / 16000 / (synth_ms / 1e3),
-                          "peak_memory_mb": synth_peak / 2 ** 20,
-                          "device_idle_share": synth_prof["device_idle_share"],
-                          "device_kernel_launches": synth_prof["kernel_launches"]},
-            "losses_last": {k: v for k, v in scalars[-2].items()
-                            if k.startswith("loss/")},
-            "eval_last": evals[-1]}
-    print(json.dumps(line), flush=True)
-    del state, synth, tb
-    torch.cuda.empty_cache()
+    for label, dtype, cfgs, n in (("train_s2", "bf16", (cfg1, cfg2), 6),
+                                  ("train_s2 fp32", "fp32", fcfgs, 2)):
+        run = "s2" if dtype == "bf16" else "s2f"
+        torch.cuda.reset_peak_memory_stats()
+        state, recs, secs = run_cli(cli, s2, torch, [
+            ["-c", c, "-m", run, "--logs_dir", logs] for c in cfgs])
+        peak = torch.cuda.max_memory_allocated()
+        with open(os.path.join(logs, run, "scalars.jsonl")) as f:
+            scalars = [json.loads(line) for line in f]
+        for r in recs:
+            print(json.dumps(dict(r, phase="train_s2_step", dtype=dtype)), flush=True)
+        check_run(label, recs, scalars, state, ("loss/g/total",), n=n)
+        want = (torch.bfloat16 if dtype == "bf16" else None)
+        if state.ttv.dtype != want or state.disc.discriminators[0].out.dtype != want:
+            fail(f"{label}: the models compute in {state.ttv.dtype}, not {dtype}")
+        evals = [s for s in scalars if "eval/w2v_l1" in s]
+        want_evals = [3, 6] if n == 6 else [1, 2]
+        if [s["step"] for s in evals] != want_evals:
+            fail(f"{label}: eval at steps {[s['step'] for s in evals]}, "
+                 f"expected {want_evals}")
+        prof = step_profile(torch, f"{label} B=8", lambda: step(
+            state, tb, torch.Generator().manual_seed(5)))
+        synth = synthetic_steps(torch, dev, step, state, label)
+        line = {"phase": "train_s2", "dtype": dtype, "run": label,
+                "config": S_CONFIG, "B": recs[0]["B"],
+                "steps": [r["step"] for r in recs], "runs_s": secs,
+                **rate_line(recs), "peak_memory_mb": peak / 2 ** 20,
+                "our_kernel_launches_per_step": recs[0]["launches"],
+                "device_kernel_launches_per_step": prof["kernel_launches"],
+                "device_kernel_ms": prof["device_kernel_ms"],
+                "device_idle_share": prof["device_idle_share"],
+                "groups_ms": prof["groups_ms"], "synthetic": synth,
+                "losses_last": {k: v for k, v in scalars[-2].items()
+                                if k.startswith("loss/")},
+                "eval_last": evals[-1]}
+        print(json.dumps(line), flush=True)
+        del state
+        torch.cuda.empty_cache()
+    del tb
 
     # card vs CPU: the same weights, batch, coin and dropout masks (drawn on
-    # the CPU and moved)
+    # the CPU and moved); float32 at today's tolerances, then bf16
     batch = cut_batch(first, S_CPU_FRAMES)
 
     def run(st, tb, d):
@@ -3282,14 +3421,19 @@ def train_s2_phase(torch, dev, tmp, corpus):
                    "D": flat_grads(torch, st.opt_d.params)}, {**vq, **uv}
 
     card_vs_cpu(torch, dev, "train_s2", lambda d: cli.build_state(
-        hps2, d, hps2.train.seed, 1000), run, batch)
-    return os.path.join(logs, "s2"), (cfg1, cfg2), first
+        hpsf, d, hpsf.train.seed, 1000), run, batch)
+    hps_of = {"fp32": hpsf, "bf16": hps2}
+    card_vs_cpu_bf16(torch, dev, "train_s2", lambda d, name: cli.build_state(
+        hps_of[name], d, hps2.train.seed, 1000), run, batch)
+    return os.path.join(logs, "s2"), (cfg1, cfg2, *fcfgs), first
 
 
 def train_s1_phase(torch, dev, tmp, s2_dir, cfgs, first):
-    """cli/train_s1 from train_s2's checkpoint: 3 steps + 3 resumed; the
-    card-vs-CPU gate. Returns (the last run's state, the first batch on the
-    card)."""
+    """cli/train_s1 from train_s2's bf16 checkpoint at the CLI's default
+    (bf16: the frozen TTV and the PLM): 3 steps + 3 resumed; then "fp32", 1
+    step + 1 resumed; a profiled step of each; the card-vs-CPU gates in
+    float32 and in bf16. Returns (the bf16 run's last state, the first batch
+    on the card, the bf16 run's directory)."""
     import os
 
     from megatts2_hierspeechpp_torch.cli import train_s1 as cli
@@ -3299,36 +3443,53 @@ def train_s1_phase(torch, dev, tmp, s2_dir, cfgs, first):
 
     logs = os.path.join(tmp, "slogs")
     ckpt = os.path.join(s2_dir, "ckpt")
-    cfg1, cfg = cfgs
-    torch.cuda.reset_peak_memory_stats()
-    state, recs, secs = run_cli(cli, s1, torch, [
-        ["-c", cfg1, "-m", "s1", "--logs_dir", logs, "--s2_ckpt", ckpt],
-        ["-c", cfg, "-m", "s1", "--logs_dir", logs, "--s2_ckpt", ckpt]])
-    peak = torch.cuda.max_memory_allocated()
-    with open(os.path.join(logs, "s1", "scalars.jsonl")) as f:
-        scalars = [json.loads(line) for line in f]
-    for r in recs:
-        print(json.dumps(dict(r, phase="train_s1_step")), flush=True)
-    check_run("train_s1", recs, scalars, state, ("loss/plm",))
-    rates = rate_line(recs)
+    cfg1, cfg, fcfg1, fcfg = cfgs
     tb = {k: torch.from_numpy(v).to(dev) for k, v in first.items()}
-    prof = step_profile(torch, "train_s1 B=8", lambda: s1.TrainStep()(
-        state, tb, torch.Generator().manual_seed(6)))
-    line = {"phase": "train_s1", "config": S_CONFIG, "steps": [r["step"] for r in recs],
-            "runs_s": secs, "step_ms": rates["step_ms"],
-            "step_ms_median_after_first": rates["step_ms_median_after_first"],
-            "tokens_per_s": rates["frames_per_s"],
-            "peak_memory_mb": peak / 2 ** 20,
-            "our_kernel_launches_per_step": recs[0]["launches"],
-            "device_kernel_launches_per_step": prof["kernel_launches"],
-            "device_idle_share": prof["device_idle_share"],
-            "metrics_last": {k: v for k, v in scalars[-2].items()
-                             if k.startswith(("loss/", "acc/"))}}
-    print(json.dumps(line), flush=True)
+    out = None
+    for label, dtype, run_cfgs, n in (("train_s1", "bf16", (cfg1, cfg), 6),
+                                      ("train_s1 fp32", "fp32", (fcfg1, fcfg), 2)):
+        run = "s1" if dtype == "bf16" else "s1f"
+        torch.cuda.reset_peak_memory_stats()
+        state, recs, secs = run_cli(cli, s1, torch, [
+            ["-c", c, "-m", run, "--logs_dir", logs, "--s2_ckpt", ckpt]
+            for c in run_cfgs])
+        peak = torch.cuda.max_memory_allocated()
+        with open(os.path.join(logs, run, "scalars.jsonl")) as f:
+            scalars = [json.loads(line) for line in f]
+        for r in recs:
+            print(json.dumps(dict(r, phase="train_s1_step", dtype=dtype)), flush=True)
+        check_run(label, recs, scalars, state, ("loss/plm",), n=n)
+        want = torch.bfloat16 if dtype == "bf16" else None
+        if state.plm.predict_layer.dtype != want or state.ttv.dtype != want:
+            fail(f"{label}: the models compute in {state.plm.predict_layer.dtype}")
+        rates = rate_line(recs)
+        prof = step_profile(torch, f"{label} B=8", lambda: s1.TrainStep()(
+            state, tb, torch.Generator().manual_seed(6)))
+        line = {"phase": "train_s1", "dtype": dtype, "run": label,
+                "config": S_CONFIG, "steps": [r["step"] for r in recs],
+                "runs_s": secs, "step_ms": rates["step_ms"],
+                "step_ms_median_after_first": rates["step_ms_median_after_first"],
+                "tokens_per_s": rates["frames_per_s"],
+                "audio_s_per_s": rates["audio_s_per_s"],
+                "peak_memory_mb": peak / 2 ** 20,
+                "our_kernel_launches_per_step": recs[0]["launches"],
+                "device_kernel_launches_per_step": prof["kernel_launches"],
+                "device_kernel_ms": prof["device_kernel_ms"],
+                "device_idle_share": prof["device_idle_share"],
+                "groups_ms": prof["groups_ms"],
+                "metrics_last": {k: v for k, v in scalars[-2].items()
+                                 if k.startswith(("loss/", "acc/"))}}
+        print(json.dumps(line), flush=True)
+        if dtype == "bf16":
+            out = state
+        else:
+            del state
+            torch.cuda.empty_cache()
 
-    hps = load_hparams(cfg)
+    hps_of = {"fp32": load_hparams(fcfg), "bf16": load_hparams(cfg)}
 
-    def build(d):
+    def build(d, name="fp32"):
+        hps = hps_of[name]
         return cli.build_state(hps, d, cli.load_s2_vars(ckpt, hps, d))
 
     def run(st, tb, d):
@@ -3336,22 +3497,40 @@ def train_s1_phase(torch, dev, tmp, s2_dir, cfgs, first):
             torch.Generator().manual_seed(8)))
         return m, {"PLM": flat_grads(torch, st.opt.params)}, {}
 
-    card_vs_cpu(torch, dev, "train_s1", build, run, cut_batch(first, S_CPU_FRAMES))
-    return state, tb
+    batch = cut_batch(first, S_CPU_FRAMES)
+    card_vs_cpu(torch, dev, "train_s1", build, run, batch)
+    card_vs_cpu_bf16(torch, dev, "train_s1", build, run, batch)
+    return out, tb, os.path.join(logs, "s1")
 
 
-def serve_trained_phase(torch, dev, shapes, audio, state, batch):
-    """The trained models served: the s1 run's PLM takes one more step
-    after its decode weights were packed (an optimizer's in-place update),
-    then it and the frozen s2 TTV serve a 10 s tts request with the serving
-    vocoder and SpeechSR-48k. Gates: all four kernels launch; the decode's
-    teacher-forced gap against the plain twin; its codes equal those of a
-    fresh build loaded with the same state_dict and packed anew."""
-    from megatts2_hierspeechpp_torch.models.plm import (
-        ProsodyLM, decode, teacher_forced_gap)
+def state_dicts_equal(got: dict, want: dict) -> bool:
+    return got.keys() == want.keys() and all(
+        bool((got[k].cpu() == want[k].cpu()).all()) for k in want)
+
+
+def serve_trained_phase(torch, dev, shapes, audio, state, batch, runs):
+    """The trained models served through infer/from_training: the pipeline
+    of the four run directories `runs` (phase 11's bf16 s2 and s1 runs,
+    phase 10's bf16 vocoder run, phase 12's SpeechSR-48k run) serves the 10
+    s tts request (exact=True) at 48 kHz, first at float32 compute, then
+    once more at dtype=bfloat16. Gates: every model's state_dict equals its
+    run's latest checkpoint; all four kernels launch (in bf16 the vocoder
+    kernels' bf16 configuration and still one float32 plm_decode); the
+    decode's teacher-forced gap against the float32 plain twin; the s1
+    run's in-memory PLM, packed, then stepped once more (an optimizer's
+    in-place update: its decode weights must be packed anew), then loaded
+    with the checkpoint, decodes the pipeline's codes."""
+    import os
+
+    from megatts2_hierspeechpp_torch.infer.from_training import (
+        build_pipeline_from_train_dirs)
+    from megatts2_hierspeechpp_torch.models.plm import decode, teacher_forced_gap
+    from megatts2_hierspeechpp_torch.models.vocoder import serving_state_dict
     from megatts2_hierspeechpp_torch.ops import cuda_lib
+    from megatts2_hierspeechpp_torch.train import checkpoints as ckpt_lib
     from megatts2_hierspeechpp_torch.train import s1
 
+    s2_dir, s1_dir, voc_dir, sr_dir = runs
     plm = state.plm
     stale = plm.packed()
     stale_wqkv = stale.wqkv.clone()
@@ -3359,41 +3538,72 @@ def serve_trained_phase(torch, dev, shapes, audio, state, batch):
     plm.eval()
     repacked = plm.packed() is not stale
     moved = not torch.equal(plm.packed().wqkv, stale_wqkv)
-    pipe = build_pipeline(torch, dev)
-    pipe.ttv, pipe.plm = state.ttv, plm
-    prompt = pipe.prepare_prompt(audio)
-    (f, text, ls, n) = tts_requests(pipe, prompt)[-1]
-    pipe.tts(text, prompt=prompt, length_scale=ls, output_sr=48000, exact=True)
-    t0 = time.perf_counter()
-    (out, ac, _), counts = run_path(torch, cuda_lib, shapes, "serve_trained", lambda: pipe.tts(
-        text, prompt=prompt, length_scale=ls, output_sr=48000, exact=True,
-        return_intermediates=True))
-    ms = 1e3 * (time.perf_counter() - t0)
-    gap, scale = teacher_forced_gap(plm, ac.x_frame, ac.codes)
-    fresh = ProsodyLM(n_layers=len(plm.plm.layers), seed=99, device=dev)
-    fresh.load_state_dict(plm.state_dict())
-    fresh_codes = decode(fresh, ac.x_frame)
-    same = bool(torch.equal(fresh_codes.cpu(), ac.codes.cpu()))
-    line = {"phase": "serve_trained", "frames": ac.frames, "target_frames": f,
-            "length_scale": ls, "ms": ms, "samples": int(out.shape[0]),
-            "audio_s_per_s": (out.shape[0] / 48000) / (ms / 1e3), "calls": counts,
-            "repacked_after_step": repacked, "weights_moved": moved,
-            "tf_gap": gap, "max_abs_logit": scale,
-            "tolerance": f"{TF_MARGIN:g} x max|logit|",
-            "codes_equal_fresh_pack": same}
-    print(json.dumps(line), flush=True)
-    if not (repacked and moved):
-        fail(f"serve_trained: the decode weights were not packed anew after "
-             f"an optimizer step (repacked {repacked}, moved {moved})")
-    if min(counts[k] for k in PATH_KERNELS) < 1:
-        fail(f"serve_trained: a kernel was not launched: {counts}")
-    if out.shape != (960 * ac.frames,) or not np.isfinite(out).all():
-        fail(f"serve_trained: output {out.shape}, finite {np.isfinite(out).all()}")
-    if not gap <= TF_MARGIN * scale:
-        fail(f"serve_trained: teacher-forced gap {gap} > {TF_MARGIN} x {scale}")
-    if not same:
-        fail("serve_trained: codes differ from a freshly packed PLM's")
-    return counts
+
+    raw = {d: ckpt_lib.restore_raw(os.path.join(d, "ckpt")) for d in runs}
+    want = {"ttv": raw[s2_dir]["ttv"], "plm": raw[s1_dir]["plm"],
+            "vocoder": serving_state_dict(raw[voc_dir]["gen"]),
+            "speechsr": raw[sr_dir]["gen"]}
+    lines = {}
+    for label, dtype in (("serve_trained", None),
+                         ("serve_trained bf16", torch.bfloat16)):
+        t0 = time.perf_counter()
+        pipe = build_pipeline_from_train_dirs(s2_dir, s1_dir, voc_dir,
+                                              speechsr=sr_dir, dtype=dtype,
+                                              device=dev)
+        build_s = time.perf_counter() - t0
+        unequal = [k for k, sd in want.items()
+                   if not state_dicts_equal(getattr(pipe, k).state_dict(), sd)]
+        if unequal:
+            fail(f"{label}: state_dicts differ from the runs' checkpoints: {unequal}")
+        prompt = pipe.prepare_prompt(audio)
+        if dtype is None:
+            (f, text, ls, n) = tts_requests(pipe, prompt)[-1]
+            f32_plm = pipe.plm
+
+        def request():
+            return pipe.tts(text, prompt=prompt, length_scale=ls, output_sr=48000,
+                            exact=True, return_intermediates=True)
+
+        request()   # warm-up
+        t0 = time.perf_counter()
+        (out, ac, _), counts = run_path(torch, cuda_lib, shapes, label, request)
+        ms = 1e3 * (time.perf_counter() - t0)
+        gap, scale = teacher_forced_gap(f32_plm, ac.x_frame.float(), ac.codes)
+        line = {"phase": label, "runs": list(runs), "build_s": build_s,
+                "frames": ac.frames, "target_frames": f, "length_scale": ls,
+                "ms": ms, "samples": int(out.shape[0]),
+                "audio_s_per_s": (out.shape[0] / 48000) / (ms / 1e3),
+                "calls": counts, "latent_dtype": str(ac.x_frame.dtype),
+                "tf_gap": gap, "max_abs_logit": scale,
+                "tolerance": f"{TF_MARGIN:g} x max|logit|",
+                "state_dicts_equal_checkpoints": True}
+        kernels = (PATH_KERNELS if dtype is None
+                   else BF16_KERNELS + ("plm_decode",))
+        if dtype is None:
+            plm.load_state_dict(raw[s1_dir]["plm"])
+            same = bool(torch.equal(decode(plm, ac.x_frame).cpu(), ac.codes.cpu()))
+            line.update(repacked_after_step=repacked, weights_moved=moved,
+                        codes_equal_trained_plm_loaded=same)
+        print(json.dumps(line), flush=True)
+        lines[label] = line
+        if min(counts[k] for k in kernels) < 1 or counts["plm_decode"] != 1:
+            fail(f"{label}: a kernel was not launched ({kernels}): {counts}")
+        if out.shape != (960 * ac.frames,) or not np.isfinite(out).all():
+            fail(f"{label}: output {out.shape}, finite {np.isfinite(out).all()}")
+        if not gap <= TF_MARGIN * scale:
+            fail(f"{label}: teacher-forced gap {gap} > {TF_MARGIN} x {scale}")
+        if dtype is None and not (repacked and moved):
+            fail(f"serve_trained: the decode weights were not packed anew after "
+                 f"an optimizer step (repacked {repacked}, moved {moved})")
+        if dtype is None and not same:
+            fail("serve_trained: the trained PLM loaded with its checkpoint "
+                 "decodes other codes than the pipeline's")
+        if dtype is not None and ac.x_frame.dtype != torch.bfloat16:
+            fail(f"{label}: the latent is {ac.x_frame.dtype}, not bf16")
+        del pipe
+        torch.cuda.empty_cache()
+    return (lines["serve_trained"]["calls"],
+            lines["serve_trained bf16"]["calls"])
 
 
 # ---- phase 12: SpeechSR training (cli/train_sr) and the trained model served ----
@@ -3411,7 +3621,8 @@ def train_sr_phase(torch, dev, tmp, corpus, shapes):
     checkpoint, 3 resumed (amp_triple launched in every step); one step at
     24 kHz; a profiled step; the card-vs-CPU gate; the triple's forward and
     backward at its training launch shapes; the trained generator served.
-    Returns (amp_triple launches per step, the train_shape rows)."""
+    Returns (amp_triple launches per step, the train_shape rows, the 48 kHz
+    run's directory)."""
     import os
 
     from megatts2_hierspeechpp_torch.cli import train_sr as cli
@@ -3491,7 +3702,7 @@ def train_sr_phase(torch, dev, tmp, corpus, shapes):
     del state
     torch.cuda.empty_cache()
     cuda_lib.reset_launches()
-    return recs[0]["launches"]["amp_triple"], rows
+    return recs[0]["launches"]["amp_triple"], rows, os.path.join(logs, "sr")
 
 
 def sr_d_grads_float64(torch, state, batch):
@@ -3690,6 +3901,236 @@ def train_denoiser_phase(torch, dev, tmp, corpus, shapes, audio):
     cuda_lib.reset_launches()
 
 
+# ---- cli_serving: the inference CLIs on reference-layout checkpoints ----
+
+CLI_SEEDS = {"ttv": 2345, "plm": 3456, "voc": 1234, "sr": 4321, "den": 5678,
+             "w2v": 4567}
+CLI_FEATURE_WAVS = 8    # extract_features: utterances of phase 10's corpus
+
+
+def reference_files(torch, d):
+    """Reference-layout checkpoints of seeded port modules at the published
+    widths, built on the CPU: the TTV, the PLM and the vocoder (a training
+    build, its training-only members included) as {"model": sd}, SpeechSR-48k
+    under `dec.`, the denoiser as {"generator": sd}, and the mms-300m
+    wav2vec2 in HF Wav2Vec2ForPreTraining names with the `wav2vec2.` prefix
+    and weight_g / weight_v."""
+    import os
+
+    from megatts2_hierspeechpp_torch.data import text as frontend
+    from megatts2_hierspeechpp_torch.models.denoiser import MPNet
+    from megatts2_hierspeechpp_torch.models.plm import ProsodyLM
+    from megatts2_hierspeechpp_torch.models.speechsr import SpeechSR
+    from megatts2_hierspeechpp_torch.models.ttv import TTVModel
+    from megatts2_hierspeechpp_torch.models.vocoder import HierVocoder
+    from megatts2_hierspeechpp_torch.models.wav2vec2 import Wav2Vec2
+
+    sd = {
+        "ttv": {"model": TTVModel(n_vocab=frontend.N_VOCAB, n_tone=frontend.N_TONE,
+                                  n_language=frontend.N_LANGUAGE,
+                                  seed=CLI_SEEDS["ttv"], device="cpu").state_dict()},
+        "plm": {"model": ProsodyLM(seed=CLI_SEEDS["plm"], device="cpu").state_dict()},
+        "voc": {"model": HierVocoder(seed=CLI_SEEDS["voc"], device="cpu",
+                                     train=True).state_dict()},
+        "sr": {"model": {f"dec.{k}": v for k, v in SpeechSR(
+            32, 3, 1, seed=CLI_SEEDS["sr"], device="cpu").state_dict().items()}},
+        "den": {"generator": MPNet(seed=CLI_SEEDS["den"], device="cpu").state_dict()},
+        "w2v": {f"wav2vec2.{k}": v for k, v in Wav2Vec2(
+            seed=CLI_SEEDS["w2v"], device="cpu").state_dict().items()},
+    }
+    paths = {}
+    for name, obj in sd.items():
+        paths[name] = os.path.join(d, f"{name}.pth")
+        torch.save(obj, paths[name])
+    return paths
+
+
+def cli_call(torch, cuda_lib, shapes, label, fn):
+    """(fn(), its launch counts, its ms on the host clock)."""
+    t0 = time.perf_counter()
+    out, counts = run_path(torch, cuda_lib, shapes, label, fn)
+    return out, counts, 1e3 * (time.perf_counter() - t0)
+
+
+def check_wav(label, path, sr, want):
+    """The int16 wav at `path` against the float waveform `want`."""
+    from scipy.io import wavfile
+
+    from megatts2_hierspeechpp_torch.cli.infer_tts import to_int16
+
+    got_sr, got = wavfile.read(path)
+    ref = to_int16(want)
+    if got_sr != sr or got.shape != ref.shape or not np.array_equal(got, ref):
+        diff = (int(np.abs(got.astype(np.int32) - ref).max())
+                if got.shape == ref.shape else None)
+        fail(f"{label}: {path} ({got_sr} Hz, {got.shape}) differs from the "
+             f"API call ({sr} Hz, {ref.shape}; max int16 diff {diff})")
+    return len(got) / sr
+
+
+def cli_serving_phase(torch, dev, tmp, corpus, shapes, audio):
+    """The four inference CLIs in-process on the card, on reference-layout
+    checkpoints of seeded weights at the published widths (reference_files):
+    infer_tts on a 3-line text file (the tts phase's 5 and 10 s texts and a
+    7 s one, at the 5 s text's length_scale) with the 3 s prompt, at 48 kHz with
+    --denoise_ratio 0.8, at 16 kHz with --batch 2, and at 48 kHz with
+    --stream; infer_sr on the prompt; infer_vc of a 5 s source to the
+    prompt's voice; extract_features on CLI_FEATURE_WAVS of phase 10's
+    utterances with the w2v file. Gates: every written wav equals, as int16,
+    the in-process TTSPipeline call (build_pipeline_from_reference_ckpts) of
+    the same inputs; each run's kernel launches equal the API calls' and,
+    for tts, vc and SpeechSR, the per-request counts of the main path; the
+    sidecars equal extract_features.features of the port's own Wav2Vec2.
+    Records ms per line and per call on the host clock. Runs with cuDNN
+    restricted to deterministic algorithms: under its defaults two calls of
+    one request give waveforms up to 2e-7 apart, which can flip an int16
+    step. Returns the launch counts of the 48 kHz denoise infer_tts run."""
+    with deterministic_cudnn(torch):
+        return _cli_serving(torch, dev, tmp, corpus, shapes, audio)
+
+
+def _cli_serving(torch, dev, tmp, corpus, shapes, audio):
+    import glob
+    import os
+    import shutil
+
+    from scipy.io import wavfile
+
+    from megatts2_hierspeechpp_torch.cli import extract_features as cli_feats
+    from megatts2_hierspeechpp_torch.cli import infer_sr as cli_sr
+    from megatts2_hierspeechpp_torch.cli import infer_tts as cli_tts
+    from megatts2_hierspeechpp_torch.cli import infer_vc as cli_vc
+    from megatts2_hierspeechpp_torch.infer.pipeline import (
+        build_pipeline_from_reference_ckpts, load_wav2vec2)
+    from megatts2_hierspeechpp_torch.ops import cuda_lib
+
+    d = os.path.join(tmp, "cli")
+    os.makedirs(d)
+    t0 = time.perf_counter()
+    f = reference_files(torch, d)
+    files_s = time.perf_counter() - t0
+    prompt_path = os.path.join(d, "prompt.wav")
+    wavfile.write(prompt_path, 16000, cli_tts.to_int16(audio))
+    src = speech_like(VC_SECONDS[0], 120.0, 21)
+    src_path = os.path.join(d, "source.wav")
+    wavfile.write(src_path, 16000, cli_tts.to_int16(src))
+    ref = build_pipeline_from_reference_ckpts(
+        f["ttv"], f["plm"], f["voc"], speechsr_ckpt=f["sr"],
+        denoiser_ckpt=f["den"], device=dev)
+    prompt = cli_tts.load_wav_16k(prompt_path)
+    feats = ref.prepare_prompt(prompt)
+    reqs = tts_requests(ref, feats)
+    ls = reqs[1][2]
+    # 5, 7 and 10 s of speech: the 400- and 600-frame buckets, whose launch
+    # shapes the tts phase's bucketed requests already gave (new_shape)
+    lines = [reqs[1][1], tts_text(np.random.default_rng(12), 7.0), reqs[2][1]]
+    txt = os.path.join(d, "texts.txt")
+    with open(txt, "w", encoding="utf-8") as fh:
+        fh.write("\n".join(lines) + "\n")
+    base = ["--input_txt", txt, "--input_prompt", prompt_path, "--ckpt_ttv",
+            f["ttv"], "--ckpt_plm", f["plm"], "--ckpt_voc", f["voc"],
+            "--ckpt_sr", f["sr"], "--ckpt_denoiser", f["den"],
+            "--length_scale", repr(ls)]
+    kw = dict(length_scale=ls)
+    ref.tts(lines[0], prompt=feats, output_sr=48000, **kw)   # warm-up
+
+    runs = {
+        "infer_tts 48k denoise": (
+            ["--output_sr", "48000", "--denoise_ratio", "0.8"], 48000,
+            lambda p: [ref.tts(t, prompt=p, output_sr=48000, denoise_ratio=0.8,
+                               **kw) for t in lines], 0.8),
+        "infer_tts 16k batch 2": (
+            ["--batch", "2"], 16000,
+            lambda p: (ref.tts_batch(lines[:2], prompt=p, **kw)
+                       + ref.tts_batch(lines[2:], prompt=p, **kw)), 0.0),
+        "infer_tts 48k stream": (
+            ["--output_sr", "48000", "--stream"], 48000,
+            lambda p: [np.concatenate(list(ref.tts_stream(
+                t, prompt=p, output_sr=48000, **kw))) for t in lines], 0.0),
+    }
+    results = {}
+    for label, (extra, sr, api, ratio) in runs.items():
+        out_dir = os.path.join(d, label.replace(" ", "_"))
+        recs, counts, ms = cli_call(torch, cuda_lib, shapes, label, lambda: cli_tts.main(
+            base + extra + ["--output_dir", out_dir]))
+        p = ref.prepare_prompt(prompt, ratio)
+        wants, api_counts, api_ms = cli_call(torch, cuda_lib, shapes,
+                                             f"{label} api", lambda: api(p))
+        secs = [check_wav(label, r["path"], sr, w) for r, w in zip(recs, wants)]
+        if len(recs) != len(lines):
+            fail(f"{label}: {len(recs)} wavs for {len(lines)} lines")
+        if counts != api_counts:
+            fail(f"{label}: launches {counts}, the API calls' {api_counts}")
+        results[label] = counts
+        print(json.dumps({
+            "phase": "cli_serving", "cli": label, "ms": ms, "api_ms": api_ms,
+            "line_ms": [r["ms"] for r in recs], "audio_s": secs,
+            "calls": counts, "wavs_equal_api": True}), flush=True)
+    per_line = {k: v * len(lines) for k, v in TTS_CALLS.items()}
+    if results["infer_tts 48k denoise"] != per_line:
+        fail(f"infer_tts 48k: launches {results['infer_tts 48k denoise']}, "
+             f"expected {per_line} ({len(lines)} x the tts counts)")
+    want_batch = dict(per_line, amp_triple=4 * 2)   # two calls, no SpeechSR
+    want_batch.update({k: 2 * v for k, v in EXPECTED_CALLS.items()
+                       if k in ("aa_snakebeta", "ampblock")})
+    if results["infer_tts 16k batch 2"] != want_batch:
+        fail(f"infer_tts --batch 2: launches {results['infer_tts 16k batch 2']}, "
+             f"expected {want_batch}")
+
+    # infer_sr and infer_vc
+    out_dir = os.path.join(d, "sr")
+    path, counts, ms = cli_call(torch, cuda_lib, shapes, "infer_sr", lambda: cli_sr.main(
+        ["--input_speech", prompt_path, "--ckpt", f["sr"], "--output_dir", out_dir]))
+    want = cli_sr.super_resolve(ref.speechsr, prompt)
+    secs = check_wav("infer_sr", path, 48000, want)
+    sr_calls = dict({k: 0 for k in EXPECTED_CALLS}, amp_triple=1)
+    if counts != sr_calls:
+        fail(f"infer_sr: launches {counts}, expected {sr_calls}")
+    print(json.dumps({"phase": "cli_serving", "cli": "infer_sr", "ms": ms,
+                      "audio_s": secs, "calls": counts, "wavs_equal_api": True}),
+          flush=True)
+    w2v = load_wav2vec2(f["w2v"], dev)
+    path, counts, ms = cli_call(torch, cuda_lib, shapes, "infer_vc", lambda: cli_vc.main(
+        ["--source_speech", src_path, "--target_speech", prompt_path,
+         "--ckpt_voc", f["voc"], "--ckpt_w2v", f["w2v"], "--output_dir",
+         os.path.join(d, "vc")]))
+    want, api_counts, api_ms = cli_call(torch, cuda_lib, shapes, "infer_vc api",
+                                        lambda: ref.vc(cli_tts.load_wav_16k(src_path),
+                                                       prompt, w2v))
+    secs = check_wav("infer_vc", path, 16000, want)
+    vc_calls = dict(EXPECTED_CALLS, amp_triple=EXPECTED_CALLS["amp_triple"] - 1)
+    if counts != api_counts or counts != vc_calls:
+        fail(f"infer_vc: launches {counts}, the API call's {api_counts}, "
+             f"expected {vc_calls}")
+    print(json.dumps({"phase": "cli_serving", "cli": "infer_vc", "ms": ms,
+                      "api_ms": api_ms, "audio_s": secs, "calls": counts,
+                      "wavs_equal_api": True}), flush=True)
+
+    # extract_features on utterances of phase 10's corpus (the wavs alone)
+    fdir = os.path.join(d, "feats")
+    os.makedirs(fdir)
+    for p in sorted(glob.glob(os.path.join(corpus, "*.wav")))[:CLI_FEATURE_WAVS]:
+        shutil.copy(p, fdir)
+    done, counts, ms = cli_call(torch, cuda_lib, shapes, "extract_features",
+                                lambda: cli_feats.main(["--wav_dir", fdir,
+                                                        "--w2v_ckpt", f["w2v"]]))
+    if len(done) != CLI_FEATURE_WAVS:
+        fail(f"extract_features: {len(done)} of {CLI_FEATURE_WAVS} wavs")
+    for p in done:
+        audio_p = wavfile.read(p)[1].astype(np.float32) / 32768.0
+        for name, arr in cli_feats.features(audio_p, dev, w2v).items():
+            got = np.load(p[:-4] + f".{name}.npy")
+            if got.shape != arr.shape or not np.array_equal(got, arr):
+                fail(f"extract_features: {p} .{name} differs from the API call")
+    print(json.dumps({"phase": "cli_serving", "cli": "extract_features",
+                      "wavs": len(done), "ms": ms, "ms_per_wav": ms / len(done),
+                      "sidecars_equal_api": True, "reference_files_s": files_s}),
+          flush=True)
+    del ref, w2v
+    torch.cuda.empty_cache()
+    return results["infer_tts 48k denoise"]
+
+
 def main() -> int:
     import torch
 
@@ -3756,20 +4197,26 @@ def main() -> int:
     voc_bf16_calls = bf16_forward_phase(torch, dev, shapes)
     clock("bf16_forward")
     with tempfile.TemporaryDirectory() as tmp:
-        train_bf16, train_launches, _, corpus = train_vocoder_phase(
+        train_bf16, train_launches, _, corpus, voc_run = train_vocoder_phase(
             torch, dev, shapes, tmp)
         clock("train_vocoder")
         s2_dir, cfgs, first = train_s2_phase(torch, dev, tmp, corpus)
-        s1_state, batch = train_s1_phase(torch, dev, tmp, s2_dir, cfgs, first)
-        serve_launches = serve_trained_phase(torch, dev, shapes, audio,
-                                             s1_state, batch)
+        s1_state, batch, s1_dir = train_s1_phase(torch, dev, tmp, s2_dir, cfgs,
+                                                 first)
+        clock("train_s1")
+        sr_launches, sr_rows, sr_dir = train_sr_phase(torch, dev, tmp, corpus,
+                                                      shapes)
+        clock("train_sr")
+        serve_launches, serve16_launches = serve_trained_phase(
+            torch, dev, shapes, audio, s1_state, batch,
+            (s2_dir, s1_dir, voc_run, sr_dir))
         del s1_state, batch
         torch.cuda.empty_cache()
         clock("serve_trained")
-        sr_launches, sr_rows = train_sr_phase(torch, dev, tmp, corpus, shapes)
-        clock("train_sr")
         train_denoiser_phase(torch, dev, tmp, corpus, shapes, audio)
         clock("train_denoiser")
+        cli_launches = cli_serving_phase(torch, dev, tmp, corpus, shapes, audio)
+        clock("cli_serving")
     torch.cuda.empty_cache()
     new_shapes_phase(torch, dev, shapes)
 
@@ -3805,6 +4252,9 @@ def main() -> int:
                            launches_from="train_vocoder fp32, one B=32 step, phase 10")
         if key in serve_launches:
             out[-1]["launches_serve_trained"] = serve_launches[key]
+        if key == "plm_decode":
+            out[-1]["launches_serve_trained_bf16"] = serve16_launches[key]
+            out[-1]["launches_cli_serving"] = cli_launches[key]
         if key == "amp_triple":
             out[-1]["launches_train_sr"] = sr_launches
             out[-1]["train_sr"] = [

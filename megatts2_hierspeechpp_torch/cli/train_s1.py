@@ -10,8 +10,11 @@ One card.
 As the JAX CLI: the s2 sampler and collate (pad_multiple 64), AdamW with
 the per-epoch decay at steps_per_epoch 1000, the loop, checkpoints and
 resume, the s1 eval hook every train.eval_interval steps; the crop rng
-seeded per epoch as cli/train_s2.py. Config keys as cli/train_s2.py; model.plm_layers, where present, cuts the PLM's depth
-(default 4). Float32 (train.dtype "bf16" raises).
+seeded per epoch as cli/train_s2.py. Config keys as cli/train_s2.py;
+model.plm_layers, where present, cuts the PLM's depth (default 4).
+train.dtype as cli/train_s2.py ("bf16" by default): the frozen TTV and the
+PLM both compute in it (JAX cli/train_s1.py:87-90), the PLM's parameters
+and optimizer state stay float32.
 
 Usage: python -m megatts2_hierspeechpp_torch.cli.train_s1 \
     -c configs/config.json -m <run> --s2_ckpt logs/<s2 run>/ckpt
@@ -29,8 +32,6 @@ from megatts2_hierspeechpp_torch.cli._evalsetup import make_eval_batch
 from megatts2_hierspeechpp_torch.cli.train_s2 import (
     BOUNDARIES,
     adamw_kwargs,
-    build_ttv,
-    check_dtype,
     epoch_batches,
     to_device,
 )
@@ -42,12 +43,16 @@ from megatts2_hierspeechpp_torch.data.dataset import (
 )
 from megatts2_hierspeechpp_torch.device import resolve_device
 from megatts2_hierspeechpp_torch.models.plm import ProsodyLM
-from megatts2_hierspeechpp_torch.models.ttv import TTVModel
+from megatts2_hierspeechpp_torch.models.ttv import TTVModel, build_ttv
 from megatts2_hierspeechpp_torch.train import checkpoints as ckpt_lib
 from megatts2_hierspeechpp_torch.train import s1
 from megatts2_hierspeechpp_torch.train.evalhooks import make_s1_eval_fn
 from megatts2_hierspeechpp_torch.train.loop import run_training
-from megatts2_hierspeechpp_torch.utils.config import load_hparams, save_hparams
+from megatts2_hierspeechpp_torch.utils.config import (
+    compute_dtype,
+    load_hparams,
+    save_hparams,
+)
 
 log = logging.getLogger("megatts2")
 
@@ -67,19 +72,21 @@ def s2_state_dict(s2_ckpt: str) -> dict:
 
 
 def load_s2_vars(s2_ckpt: str, hps, device) -> TTVModel:
-    """The frozen s2 model: a serving build of the config's TTV with the
-    checkpoint's weights and codebooks."""
-    ttv = build_ttv(hps, "cpu", hps.train.seed, train=False)
+    """The frozen s2 model: a serving build of the config's TTV, computing
+    in its dtype, with the checkpoint's weights and codebooks."""
+    ttv = build_ttv(hps, "cpu", hps.train.seed, train=False,
+                    dtype=compute_dtype(hps))
     ttv.load_state_dict(s2_state_dict(s2_ckpt), strict=True)
     return ttv.to(device)
 
 
 def build_state(hps, device, ttv: TTVModel) -> s1.S1TrainState:
     """A step-0 state: a training build of the PLM (seeded train.seed) and
-    its AdamW, beside the frozen `ttv`."""
-    check_dtype(hps)
+    its AdamW, beside the frozen `ttv`; the PLM computes in the config's
+    dtype."""
     plm = ProsodyLM(n_layers=hps.model.get("plm_layers", 4),
-                    seed=hps.train.seed, device=device, train=True)
+                    seed=hps.train.seed, device=device, train=True,
+                    dtype=compute_dtype(hps))
     return s1.create_state(plm, ttv, **adamw_kwargs(hps, STEPS_PER_EPOCH))
 
 
@@ -94,7 +101,7 @@ def main(argv=None):
     args = p.parse_args(argv)
 
     hps = load_hparams(args.config)
-    check_dtype(hps)
+    compute_dtype(hps)
     dev = resolve_device(args.device)
     model_dir = os.path.join(args.logs_dir, args.model)
     os.makedirs(model_dir, exist_ok=True)

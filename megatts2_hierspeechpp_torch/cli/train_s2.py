@@ -24,11 +24,14 @@ Kept from the JAX CLI, quirk included: the learning rate decays once per
 batches (JAX cli/train_s2.py:79), while a resumed run's start epoch counts
 batches.
 
-Differences from the JAX CLI: training computes in float32 (train.dtype
-"fp32"; "bf16", the JAX default, raises); the dataset's MRTE-crop rng is
-seeded again at each epoch from (train.seed, epoch), so a run resumed at an
-epoch boundary sees the batches a straight run would (the JAX CLI's rng
-runs on from wherever the restart left it).
+Compute dtype as the JAX CLI's (JAX cli/train_s2.py:67-71): train.dtype
+"bf16" (the default) runs the TTV and the discriminator in bf16 compute
+with float32 parameters, "fp32" in float32; any other value raises.
+
+Difference from the JAX CLI: the dataset's MRTE-crop rng is seeded again at
+each epoch from (train.seed, epoch), so a run resumed at an epoch boundary
+sees the batches a straight run would (the JAX CLI's rng runs on from
+wherever the restart left it).
 
 Usage: python -m megatts2_hierspeechpp_torch.cli.train_s2 \
     -c configs/config.json -m <run> [--logs_dir logs] [--device cuda]
@@ -44,7 +47,6 @@ import numpy as np
 import torch
 
 from megatts2_hierspeechpp_torch.cli._evalsetup import make_eval_batch
-from megatts2_hierspeechpp_torch.data import text as text_frontend
 from megatts2_hierspeechpp_torch.data.dataset import (
     DatasetConfig,
     DistributedBucketSampler,
@@ -55,40 +57,21 @@ from megatts2_hierspeechpp_torch.device import resolve_device
 from megatts2_hierspeechpp_torch.models.discriminators import (
     MultiResSpecDiscriminator,
 )
-from megatts2_hierspeechpp_torch.models.ttv import TTVModel
+from megatts2_hierspeechpp_torch.models.ttv import TTVModel, build_ttv
 from megatts2_hierspeechpp_torch.ops.kmeans import init_rvq_state
 from megatts2_hierspeechpp_torch.train import checkpoints as ckpt_lib
 from megatts2_hierspeechpp_torch.train import s2
 from megatts2_hierspeechpp_torch.train.evalhooks import make_s2_eval_fn
 from megatts2_hierspeechpp_torch.train.loop import run_training
-from megatts2_hierspeechpp_torch.utils.config import load_hparams, save_hparams
+from megatts2_hierspeechpp_torch.utils.config import (
+    compute_dtype,
+    load_hparams,
+    save_hparams,
+)
 
 log = logging.getLogger("megatts2")
 
 BOUNDARIES = (32, 300, 400, 500, 600, 700, 800, 900, 1000)  # w2v frames
-DEPTH_KEYS = ("text_layers", "mel_enc_layers", "w2v_enc_layers",
-              "w2v_dec_layers")
-
-
-def check_dtype(hps) -> None:
-    dtype = hps.train.get("dtype", "fp32")
-    if dtype == "bf16":
-        raise NotImplementedError(
-            'train.dtype "bf16": bf16 training compute is not in the port '
-            'yet (ROADMAP.md section 1, "bf16 training compute"); use "fp32"')
-    if dtype != "fp32":
-        raise ValueError(f"unknown train.dtype {dtype!r}")
-
-
-def build_ttv(hps, device, seed: int, train: bool) -> TTVModel:
-    """The TTVModel of a config: the published widths, the depths of its
-    model.* keys where present."""
-    depth = {k: hps.model[k] for k in DEPTH_KEYS if k in hps.model}
-    return TTVModel(n_vocab=text_frontend.N_VOCAB, n_tone=text_frontend.N_TONE,
-                    n_language=text_frontend.N_LANGUAGE, seed=seed,
-                    device=device, train=train, **depth)
-
-
 def adamw_kwargs(hps, steps_per_epoch: int) -> dict:
     tr = hps.train
     return dict(lr=tr.learning_rate, betas=tuple(tr.betas), eps=tr.eps,
@@ -97,10 +80,11 @@ def adamw_kwargs(hps, steps_per_epoch: int) -> dict:
 
 def build_state(hps, device, seed: int, steps_per_epoch: int) -> s2.S2TrainState:
     """A step-0 state: a training build of the TTV (seeded `seed`), the
-    MRSD (`seed + 1`) and their AdamWs."""
-    check_dtype(hps)
-    ttv = build_ttv(hps, device, seed, train=True)
-    disc = MultiResSpecDiscriminator(seed=seed + 1, device=device)
+    MRSD (`seed + 1`), both computing in the config's dtype, and their
+    AdamWs."""
+    dtype = compute_dtype(hps)
+    ttv = build_ttv(hps, device, seed, train=True, dtype=dtype)
+    disc = MultiResSpecDiscriminator(seed=seed + 1, device=device, dtype=dtype)
     return s2.create_state(ttv, disc, **adamw_kwargs(hps, steps_per_epoch))
 
 
@@ -145,7 +129,7 @@ def main(argv=None):
     args = p.parse_args(argv)
 
     hps = load_hparams(args.config)
-    check_dtype(hps)
+    compute_dtype(hps)
     dev = resolve_device(args.device)
     model_dir = os.path.join(args.logs_dir, args.model)
     os.makedirs(model_dir, exist_ok=True)

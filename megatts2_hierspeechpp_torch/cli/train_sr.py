@@ -37,7 +37,7 @@ from megatts2_hierspeechpp_torch.models.discriminators import (
     VOCODER_RESOLUTIONS,
     MultiPeriodDiscriminator,
 )
-from megatts2_hierspeechpp_torch.models.speechsr import SpeechSR
+from megatts2_hierspeechpp_torch.models.speechsr import SpeechSR, rate_for
 from megatts2_hierspeechpp_torch.train import checkpoints as ckpt_lib
 from megatts2_hierspeechpp_torch.train import speechsr as srt
 from megatts2_hierspeechpp_torch.train.evalhooks import make_sr_eval_fn
@@ -120,17 +120,12 @@ def eval_batch(lo_wavs, hi_wavs, seg_in: int, num: int, den: int, seed: int):
     return {"lo": lo, "hi": hi}
 
 
-def rate_of(out_sr: int):
-    """(num, den) of the 16 kHz -> out_sr resampling."""
-    return (3, 1) if out_sr == 48000 else (3, 2)
-
-
 def build_state(out_sr: int, ch: int, lr: float, lr_decay: float,
                 steps_per_epoch: int, device, seed: int) -> srt.SRTrainState:
     """A step-0 state: a training build of SpeechSR (seeded `seed`), the
     target rate's discriminator bank (`seed + 1`; the 48 kHz recipe adds a
     4096-point resolution) and their AdamWs."""
-    num, den = rate_of(out_sr)
+    num, den = rate_for(out_sr)
     gen = SpeechSR(ch, num, den, seed=seed, device=device, train=True)
     disc = MultiPeriodDiscriminator(
         SPEECHSR48_RESOLUTIONS if out_sr == 48000 else VOCODER_RESOLUTIONS,
@@ -166,7 +161,7 @@ def main(argv=None):
     p.add_argument("--device", default="cuda")
     args = p.parse_args(argv)
 
-    num, den = rate_of(args.out_sr)
+    num, den = rate_for(args.out_sr)
     dev = resolve_device(args.device)
     model_dir = os.path.join(args.logs_dir, args.model)
     os.makedirs(model_dir, exist_ok=True)

@@ -48,13 +48,17 @@ from megatts2_hierspeechpp_torch.models.discriminators import (
     VOCODER_RESOLUTIONS,
     MultiPeriodDiscriminator,
 )
-from megatts2_hierspeechpp_torch.models.vocoder import HierVocoder
+from megatts2_hierspeechpp_torch.models.vocoder import HierVocoder, vocoder_kwargs
 from megatts2_hierspeechpp_torch.ops.stft import linear_spectrogram
 from megatts2_hierspeechpp_torch.train import checkpoints as ckpt_lib
 from megatts2_hierspeechpp_torch.train import vocoder as vt
 from megatts2_hierspeechpp_torch.train.evalhooks import make_vocoder_eval_fn
 from megatts2_hierspeechpp_torch.train.loop import run_training
-from megatts2_hierspeechpp_torch.utils.config import load_hparams, save_hparams
+from megatts2_hierspeechpp_torch.utils.config import (
+    compute_dtype,
+    load_hparams,
+    save_hparams,
+)
 
 BOUNDARIES = (32, 300, 500, 700, 900)   # w2v frames of the length buckets
 STEPS_PER_EPOCH = 1000                  # of the lr decay, as the JAX CLI
@@ -95,27 +99,14 @@ def vocoder_batch(ds: SidecarDataset, idxs, hop: int = 320,
     return batch
 
 
-COMPUTE_DTYPES = {"bf16": torch.bfloat16, "fp32": None}   # train.dtype
-
-
 def build_state(hps, device, seed: int) -> vt.VocTrainState:
     """A step-0 train state from a config: a training build of the vocoder
     (seeded `seed`), the discriminator (`seed + 1`) and their AdamWs, both
     models computing in train.dtype ("bf16" when absent, as the JAX CLI)."""
     m, tr = hps.model, hps.train
-    name = tr.get("dtype", "bf16")
-    if name not in COMPUTE_DTYPES:
-        raise ValueError(f"unknown train.dtype {name!r}")
-    dtype = COMPUTE_DTYPES[name]
-    gen = HierVocoder(
-        inter_channels=m.inter_channels, hidden_channels=m.hidden_channels,
-        upsample_rates=tuple(m.upsample_rates),
-        upsample_initial_channel=m.upsample_initial_channel,
-        upsample_kernel_sizes=tuple(m.upsample_kernel_sizes),
-        posterior_wn_layers=m.get("posterior_wn_layers", 16),
-        n_flows=m.get("n_flows", 4), flow_layers=m.get("flow_layers", 3),
-        spec_channels=m.spec_channels, filter_channels=m.filter_channels,
-        seed=seed, device=device, train=True, dtype=dtype)
+    dtype = compute_dtype(hps)
+    gen = HierVocoder(**vocoder_kwargs(hps), seed=seed, device=device,
+                      train=True, dtype=dtype)
     disc = MultiPeriodDiscriminator(
         tuple(map(tuple, m.get("mpd_resolutions", VOCODER_RESOLUTIONS))),
         tuple(m.get("mpd_periods", PERIODS)), seed=seed + 1, device=device,

@@ -400,6 +400,21 @@ def plm_noncausal_from_jax(params: dict) -> dict:
 # ---------- vc front-end (Wav2Vec2) and the denoiser (MPNet) ----------
 
 
+def fuse_pos_conv(g: np.ndarray, v: np.ndarray) -> np.ndarray:
+    """The positional conv's weight norm (torch weight_norm dim=2): w = g *
+    v / |v|, the norm over (Cout, Cin / groups), as JAX convert_wav2vec2
+    fuses it."""
+    norm = np.sqrt((v ** 2).sum(axis=(0, 1), keepdims=True))
+    return g * v / norm
+
+
+def pos_conv_weight_norm(out, p, w):
+    """A fused (Cout, Cin / groups, K) positional-conv weight as the port's
+    weight norm: v = w, g = |w| over (Cout, Cin / groups)."""
+    out[f"{p}.weight_v"] = _t(w)
+    out[f"{p}.weight_g"] = _t(np.sqrt((w ** 2).sum(axis=(0, 1), keepdims=True)))
+
+
 def wav2vec2_from_jax(params: dict) -> dict:
     """JAX Wav2Vec2 params -> port state_dict (HF Wav2Vec2Model names)."""
     out = {}
@@ -414,8 +429,7 @@ def wav2vec2_from_jax(params: dict) -> dict:
     w = np.transpose(np.asarray(params["pos_conv"]["kernel"], np.float32),
                      (2, 1, 0))
     p = "encoder.pos_conv_embed.conv"
-    out[f"{p}.weight_v"] = _t(w)
-    out[f"{p}.weight_g"] = _t(np.sqrt((w ** 2).sum(axis=(0, 1), keepdims=True)))
+    pos_conv_weight_norm(out, p, w)
     out[f"{p}.bias"] = _t(params["pos_conv"]["bias"])
     for i in range(_count(params, "layer")):
         tree, p = params[f"layer_{i}"], f"encoder.layers.{i}"

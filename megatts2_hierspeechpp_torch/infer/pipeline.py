@@ -29,13 +29,19 @@ statistics, vocoded in the target's style.
 The vocoder's style is interpolated between the prompt (or target) and its
 MP-SENet-denoised copy by `denoise_ratio`: the [orig; denoised] mel pair.
 With no denoiser attached, the pair is [orig; orig], as in the JAX
-pipeline. The stages run under torch.inference_mode; `tts`, `tts_batch`
-and `tts_stream` enter it per stage, so a generator's caller is never left
-inside it.
+pipeline. A vocoder or SpeechSR of bf16 compute hands back a bf16 waveform,
+taken to float32 before its peak normalisation. The stages run under
+torch.inference_mode; `tts`, `tts_batch` and `tts_stream` enter it per
+stage, so a generator's caller is never left inside it.
+
+Loading: `build_pipeline_from_reference_ckpts` from the reference's torch
+checkpoints (`load_reference`: the port's modules carry the reference's
+names), `infer/from_training.py` from the port's own training runs.
 """
 from __future__ import annotations
 
 import math
+import re
 from dataclasses import dataclass, field
 from typing import Optional, Sequence
 
@@ -43,14 +49,18 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from megatts2_hierspeechpp_torch import convert
 from megatts2_hierspeechpp_torch.data import text as text_frontend
 from megatts2_hierspeechpp_torch.device import resolve_device
 from megatts2_hierspeechpp_torch.models import plm as plm_lib
 from megatts2_hierspeechpp_torch.models.denoiser import MPNet
 from megatts2_hierspeechpp_torch.models.plm import ProsodyLM
-from megatts2_hierspeechpp_torch.models.speechsr import SpeechSR
+from megatts2_hierspeechpp_torch.models.speechsr import SpeechSR, rate_for
 from megatts2_hierspeechpp_torch.models.ttv import TTVModel
-from megatts2_hierspeechpp_torch.models.vocoder import HierVocoder
+from megatts2_hierspeechpp_torch.models.vocoder import (
+    HierVocoder,
+    serving_state_dict,
+)
 from megatts2_hierspeechpp_torch.models.wav2vec2 import Wav2Vec2
 from megatts2_hierspeechpp_torch.ops.f0 import yin_f0
 from megatts2_hierspeechpp_torch.ops.stft import (
@@ -350,7 +360,7 @@ class TTSPipeline:
         wav = self._vocode(prompt, ac, noise_scale_vc, seed, denoise_ratio,
                            output_sr)
         raw = wav[0, :int(320 * frames * ratio)]
-        out = _peak_normalise(raw.cpu().numpy())
+        out = _peak_normalise(raw.float().cpu().numpy())
         if return_intermediates:
             return out, ac.cut(0, frames), raw
         return out
@@ -403,7 +413,7 @@ class TTSPipeline:
                             seed)
         style = (list(prompts) if prompts is not None else prompt)
         wav = self._vocode(style, ac, kw.get("noise_scale_vc", 0.333), seed,
-                           denoise_ratio, output_sr).cpu().numpy()
+                           denoise_ratio, output_sr).float().cpu().numpy()
         return [_peak_normalise(wav[i, :int(320 * int(frames[i]) * ratio)])
                 for i in range(b)]
 
@@ -542,7 +552,7 @@ class TTSPipeline:
         else:  # last
             wav = self.vocoder.decode_latent(
                 z[:, start - h:], e[:, 4 * (start - h):], g)[:, 320 * h:]
-        return wav[0, :, 0].cpu().numpy()
+        return wav[0, :, 0].float().cpu().numpy()
 
     @torch.inference_mode()
     def _sr_piece(self, mid: np.ndarray, left, right) -> np.ndarray:
@@ -552,7 +562,7 @@ class TTSPipeline:
         x = np.concatenate([p for p in (left, mid, right) if p is not None])
         y = self.speechsr(torch.from_numpy(x).to(self.device)[None, :, None])
         start = 0 if left is None else len(left) * num // den
-        return y[0, start:start + len(mid) * num // den, 0].cpu().numpy()
+        return y[0, start:start + len(mid) * num // den, 0].float().cpu().numpy()
 
     @torch.inference_mode()
     def render(self, prompt: PromptFeatures, w2v, frame_mask, lf0,
@@ -629,7 +639,7 @@ class TTSPipeline:
             torch.Generator().manual_seed(seed), denoise_ratio)
         if ratio != 1.0:
             wav = self.speechsr(wav)
-        out = _peak_normalise(wav[0, :, 0].cpu().numpy())
+        out = _peak_normalise(wav[0, :, 0].float().cpu().numpy())
         if return_intermediates:
             return out, dict(w2v=w2v, lf0=lf0, t_frames=t_frames)
         return out
@@ -642,9 +652,127 @@ class TTSPipeline:
         waveform at output_sr."""
         return _peak_normalise(self.render(
             prompt, w2v, frame_mask, lf0, noise_scale, seed, denoise_ratio,
-            output_sr).cpu().numpy())
+            output_sr).float().cpu().numpy())
 
 
 def _peak_normalise(wav: np.ndarray) -> np.ndarray:
     peak = np.abs(wav).max()
     return (wav / max(peak, 1e-8) * 0.999).astype(np.float32)
+
+
+# ---------- reference checkpoints ----------
+
+
+def load_torch_checkpoint(path: str) -> dict:
+    """A reference .pth checkpoint's model state_dict on the CPU: its
+    "model" entry, or the file's dict itself (JAX infer/pipeline.py:58)."""
+    ckpt = torch.load(path, map_location="cpu", weights_only=True)
+    return dict(ckpt.get("model", ckpt))
+
+
+_LSTM_BIAS_HH = re.compile(r"(.*)\.bias_hh_(l\d+(?:_reverse)?)")
+
+
+def load_reference(module: torch.nn.Module, state_dict: dict):
+    """Load a reference-named state_dict into `module` and return it.
+
+    Every key of the module must be in it (missing keys raise); keys the
+    module lacks are dropped, as the JAX converters read only their
+    modules' keys. Each LSTM's two biases become one, bias_ih + bias_hh
+    with bias_hh 0, as the JAX converters fold them (the port trains
+    bias_ih alone, nn/lstm.py)."""
+    own = module.state_dict()
+    missing = sorted(set(own) - set(state_dict))
+    if missing:
+        raise KeyError(f"{type(module).__name__}: the checkpoint lacks "
+                       f"{len(missing)} keys, e.g. {missing[:4]}")
+    sd = {k: state_dict[k] for k in own}
+    for k in own:
+        m = _LSTM_BIAS_HH.fullmatch(k)
+        if m:
+            ih = f"{m.group(1)}.bias_ih_{m.group(2)}"
+            sd[ih] = sd[ih].float() + sd[k].float()
+            sd[k] = torch.zeros_like(sd[ih])
+    module.load_state_dict(sd, strict=True)
+    return module
+
+
+def load_speechsr(path: str, output_sr: int = 48000, dtype=None,
+                  device: str | torch.device = "cuda") -> SpeechSR:
+    """A serving SpeechSR from a reference checkpoint: the Generator's
+    `dec.`-prefixed keys (JAX convert_speechsr(sd, "dec")); its width is the
+    checkpoint's."""
+    sd = {k[len("dec."):]: v for k, v in load_torch_checkpoint(path).items()
+          if k.startswith("dec.")}
+    return speechsr_from_state_dict(sd, output_sr, dtype, device)
+
+
+def speechsr_from_state_dict(sd: dict, output_sr: int = 48000, dtype=None,
+                             device: str | torch.device = "cuda") -> SpeechSR:
+    """A serving SpeechSR of a state_dict in the port's names (a reference
+    Generator's `dec.` keys, or a cli/train_sr run's "gen"); its width is
+    the state_dict's."""
+    sr = SpeechSR(int(sd["conv_pre.weight_v"].shape[0]), *rate_for(output_sr),
+                  device="cpu", dtype=dtype)
+    return load_reference(sr, sd).to(resolve_device(device))
+
+
+def load_denoiser(path: str, device: str | torch.device = "cuda") -> MPNet:
+    """The MP-SENet denoiser of a reference checkpoint: its "generator"
+    entry, else its "model" entry, else the file's dict."""
+    ckpt = torch.load(path, map_location="cpu", weights_only=True)
+    sd = ckpt.get("generator", ckpt.get("model", ckpt))
+    return load_reference(MPNet(device="cpu"), sd).to(resolve_device(device))
+
+
+def wav2vec2_state_dict(sd: dict) -> dict:
+    """An HF Wav2Vec2ForPreTraining (or Wav2Vec2Model) state_dict in the
+    port's names: the optional `wav2vec2.` prefix stripped, and the
+    positional conv's weight norm (weight_g / weight_v, or the
+    parametrizations' original0 / original1) fused and stored as g = |w|,
+    v = w, as JAX convert_wav2vec2 and convert.wav2vec2_from_jax carry it.
+    The layers past the port's and the pre-training heads are left for
+    load_reference to drop."""
+    pfx = "wav2vec2." if any(k.startswith("wav2vec2.") for k in sd) else ""
+    sd = {k[len(pfx):]: v for k, v in sd.items() if k.startswith(pfx)}
+    base = "encoder.pos_conv_embed.conv"
+    names = ((f"{base}.weight_g", f"{base}.weight_v")
+             if f"{base}.weight_g" in sd else
+             (f"{base}.parametrizations.weight.original0",
+              f"{base}.parametrizations.weight.original1"))
+    g, v = (sd.pop(n).detach().float().numpy() for n in names)
+    convert.pos_conv_weight_norm(sd, base, convert.fuse_pos_conv(g, v))
+    return sd
+
+
+def load_wav2vec2(path: str, device: str | torch.device = "cuda") -> Wav2Vec2:
+    """The 7-layer Wav2Vec2 (vc and the .hw2v sidecars) from an HF mms-300m
+    state_dict file (wav2vec2_state_dict)."""
+    sd = torch.load(path, map_location="cpu", weights_only=True)
+    return load_reference(Wav2Vec2(device="cpu"),
+                          wav2vec2_state_dict(sd)).to(resolve_device(device))
+
+
+def build_pipeline_from_reference_ckpts(
+        ttv_ckpt: str, plm_ckpt: str, vocoder_ckpt: str,
+        speechsr_ckpt: Optional[str] = None,
+        denoiser_ckpt: Optional[str] = None, speechsr_rate: int = 48000,
+        device: str | torch.device = "cuda") -> TTSPipeline:
+    """A TTSPipeline from the reference's torch checkpoints at the
+    published widths (JAX infer/pipeline.py:848): the TTV, the PLM and the
+    vocoder (its training-only members dropped, serving_state_dict), and
+    optionally SpeechSR (`speechsr_rate` 24000 or 48000) and the denoiser.
+    Float32, on `device`."""
+    dev = resolve_device(device)
+    ttv = load_reference(
+        TTVModel(n_vocab=text_frontend.N_VOCAB, n_tone=text_frontend.N_TONE,
+                 n_language=text_frontend.N_LANGUAGE, device="cpu"),
+        load_torch_checkpoint(ttv_ckpt))
+    plm = load_reference(ProsodyLM(device="cpu"), load_torch_checkpoint(plm_ckpt))
+    voc = load_reference(HierVocoder(device="cpu"),
+                         serving_state_dict(load_torch_checkpoint(vocoder_ckpt)))
+    sr = (load_speechsr(speechsr_ckpt, speechsr_rate, device=dev)
+          if speechsr_ckpt else None)
+    den = load_denoiser(denoiser_ckpt, dev) if denoiser_ckpt else None
+    return TTSPipeline(voc.to(dev), sr, dev, ttv=ttv.to(dev), plm=plm.to(dev),
+                       denoiser=den)

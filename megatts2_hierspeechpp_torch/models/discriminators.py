@@ -20,9 +20,11 @@ second on it average-pooled by 2 along T; the first is spectral-normalised
 (nn/conv.SNConv2d), the second weight-normalised. Its names are the
 reference's (`discriminators.{0,1}.discriminators.{0-3}`, `.out`).
 
-`dtype` on the vocoder's discriminators is the compute dtype of their convs
-(the JAX field): the STFT stays float32, a bf16 D takes bf16 conv operands
-and returns bf16 logits and feature maps; the losses read them in float32.
+`dtype` on the discriminators is the compute dtype of their convs (the JAX
+field): the STFT stays float32, a bf16 D takes bf16 conv operands and
+returns bf16 logits and feature maps; the losses read them in float32. The
+MRSD's spectral norm runs its power iteration on the float32 weight, and
+only its conv computes in `dtype` (JAX discriminators.py:28-72).
 """
 from __future__ import annotations
 
@@ -158,14 +160,14 @@ class SpecDiscriminator(nn.Module):
     specs = (((3, 9), (1, 1), (1, 4)), ((3, 9), (1, 2), (1, 4)),
              ((3, 9), (1, 2), (1, 4)), ((3, 3), (1, 1), (1, 1)))
 
-    def __init__(self, use_spectral_norm: bool = False):
+    def __init__(self, use_spectral_norm: bool = False, dtype=None):
         super().__init__()
         self.spectral = use_spectral_norm
         conv = SNConv2d if use_spectral_norm else WNConv2d
         self.discriminators = nn.ModuleList(
-            conv(1 if i == 0 else 32, 32, k, s, p)
+            conv(1 if i == 0 else 32, 32, k, s, p, dtype=dtype)
             for i, (k, s, p) in enumerate(self.specs))
-        self.out = conv(32, 1, (3, 3), (1, 1), (1, 1))
+        self.out = conv(32, 1, (3, 3), (1, 1), (1, 1), dtype=dtype)
 
     def forward(self, y, update_u: bool = False):
         """-> (logits (B, N), feature maps). `update_u` (spectral norm only)
@@ -197,11 +199,12 @@ class MultiResSpecDiscriminator(nn.Module):
 
     pools = (None, 2)
 
-    def __init__(self, seed: int = 0, device: str | torch.device = "cuda"):
+    def __init__(self, seed: int = 0, device: str | torch.device = "cuda",
+                 dtype=None):
         super().__init__()
         dev = resolve_device(device)
         self.discriminators = nn.ModuleList(
-            SpecDiscriminator(use_spectral_norm=(i == 0))
+            SpecDiscriminator(use_spectral_norm=(i == 0), dtype=dtype)
             for i in range(len(self.pools)))
         init_weights(self, seed)
         self.to(dev)

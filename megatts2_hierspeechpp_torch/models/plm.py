@@ -15,13 +15,20 @@ valid positions, its per-frame log value, top-10 accuracy);
 `ProsodyLMNonCausal` is the reference's variant A (the VITS encoder over
 the same input, no causal mask), kept for its checkpoints.
 
-`decode` dispatches as the JAX `decode` does: a greedy float32 latent goes
-to the kernel wrapper (`ops/plm_decode.py`), which launches the hand-written
-kernel on a CUDA tensor and takes its plain version on a CPU one; a batch
+`decode` dispatches as the JAX `decode` does: a greedy latent (taken to
+float32, as the JAX kernel takes a bf16 one) goes to the kernel wrapper
+(`ops/plm_decode.py`), which launches the hand-written kernel on a CUDA
+tensor and takes its plain version on a CPU one; a batch
 of B rows is B such calls, one per row (greedy causal decode is independent
 per row, as the JAX B > 1 scan computes it); top-k sampling takes the plain
 KV-cached loop over the whole batch. Weights and KV cache are float32 unless
 the caller asks for bf16 (ops/plm_decode.py says why that is the default).
+
+`dtype` (None: float32) is the JAX modules' compute dtype of the training
+forwards: the projections, the attention products and the softmax take it
+(the mask cast to it, as the JAX mask is weakly typed), while the input
+concatenation, the residual stream, the LayerNorms and the loss stay
+float32; the decode's packed weights stay float32 whatever it is.
 """
 from __future__ import annotations
 
@@ -34,7 +41,7 @@ from torch import nn
 
 from megatts2_hierspeechpp_torch.device import resolve_device
 from megatts2_hierspeechpp_torch.nn.attention import Encoder
-from megatts2_hierspeechpp_torch.nn.basic import Dropout
+from megatts2_hierspeechpp_torch.nn.basic import Dropout, Linear
 from megatts2_hierspeechpp_torch.nn.init import init_weights
 from megatts2_hierspeechpp_torch.ops.plm_decode import (
     PLMWeights,
@@ -50,14 +57,15 @@ P_DROPOUT = 0.1
 
 
 class PLMAttention(nn.Module):
-    def __init__(self, dim: int, n_heads: int):
+    def __init__(self, dim: int, n_heads: int, dtype=None):
         super().__init__()
         self.n_heads = n_heads
-        self.w_q = nn.Linear(dim, dim)
-        self.w_k = nn.Linear(dim, dim)
-        self.w_v = nn.Linear(dim, dim)
+        self.w_q = Linear(dim, dim, dtype=dtype)
+        self.w_k = Linear(dim, dim, dtype=dtype)
+        self.w_v = Linear(dim, dim, dtype=dtype)
         self.drop = Dropout(P_DROPOUT)
-        self.out_proj = nn.Sequential(nn.Linear(dim, dim), Dropout(P_DROPOUT))
+        self.out_proj = nn.Sequential(Linear(dim, dim, dtype=dtype),
+                                      Dropout(P_DROPOUT))
 
     def forward(self, x, bias):
         b, t, d = x.shape
@@ -65,7 +73,9 @@ class PLMAttention(nn.Module):
         hd = d // h
         q, k, v = (m(x).view(b, t, h, hd).transpose(1, 2)
                    for m in (self.w_q, self.w_k, self.w_v))
-        scores = torch.matmul(q, k.transpose(-1, -2)) / math.sqrt(hd) + bias
+        # the JAX mask is a weakly typed array: it takes the scores' dtype
+        scores = (torch.matmul(q, k.transpose(-1, -2)) / math.sqrt(hd)
+                  + bias.to(q.dtype))
         att = torch.matmul(self.drop(torch.softmax(scores, dim=-1)), v)
         return self.out_proj(att.transpose(1, 2).reshape(b, t, d))
 
@@ -73,13 +83,14 @@ class PLMAttention(nn.Module):
 class PLMLayer(nn.Module):
     """Pre-norm transformer layer (reference transformer_mega.py)."""
 
-    def __init__(self, dim: int, ff_dim: int, n_heads: int):
+    def __init__(self, dim: int, ff_dim: int, n_heads: int, dtype=None):
         super().__init__()
         self.norm1 = nn.LayerNorm(dim)
-        self.attn = PLMAttention(dim, n_heads)
+        self.attn = PLMAttention(dim, n_heads, dtype)
         self.norm2 = nn.LayerNorm(dim)
-        self.ff = nn.Sequential(nn.Linear(dim, ff_dim), nn.ReLU(),
-                                Dropout(P_DROPOUT), nn.Linear(ff_dim, dim))
+        self.ff = nn.Sequential(Linear(dim, ff_dim, dtype=dtype), nn.ReLU(),
+                                Dropout(P_DROPOUT),
+                                Linear(ff_dim, dim, dtype=dtype))
 
     def forward(self, x, bias):
         x = x + self.attn(self.norm1(x), bias)
@@ -105,7 +116,8 @@ def _embed_inputs(model, tc_latent, p_codes):
     go = torch.full((b, 1), model.go_id, dtype=torch.long,
                     device=p_codes.device)
     inputs = torch.cat([go, p_codes[:, :-1].long()], dim=1)
-    x = torch.cat([tc_latent, model.pc_embedding(inputs)], dim=-1)
+    emb = model.pc_embedding(inputs)
+    x = torch.cat([tc_latent.to(emb.dtype), emb], dim=-1)
     return x + model.pos_emb.alpha * sine_positions(t, x.shape[-1], x.device)
 
 
@@ -132,15 +144,17 @@ class ProsodyLM(nn.Module):
 
     def __init__(self, n_layers: int = 4, n_heads: int = 4, vq_dim: int = 20,
                  tc_latent_dim: int = 256, vq_bins: int = 1024, seed: int = 0,
-                 device: str | torch.device = "cuda", train: bool = False):
+                 device: str | torch.device = "cuda", train: bool = False,
+                 dtype=None):
         super().__init__()
         dev = resolve_device(device)
         self.n_heads, self.vq_bins = n_heads, vq_bins
         d = vq_dim + tc_latent_dim
         self.pc_embedding = nn.Embedding(vq_bins + 2, vq_dim)
         self.pos_emb = _PosEmb()
-        self.plm = _Layers(PLMLayer(d, 4 * d, n_heads) for _ in range(n_layers))
-        self.predict_layer = nn.Linear(d, vq_bins, bias=False)
+        self.plm = _Layers(PLMLayer(d, 4 * d, n_heads, dtype)
+                           for _ in range(n_layers))
+        self.predict_layer = Linear(d, vq_bins, bias=False, dtype=dtype)
         self._packed: Optional[tuple] = None
         init_weights(self, seed)
         if not train:
@@ -242,15 +256,17 @@ class ProsodyLMNonCausal(nn.Module):
 
     def __init__(self, n_layers: int = 4, n_heads: int = 4, vq_dim: int = 20,
                  tc_latent_dim: int = 256, vq_bins: int = 1024, seed: int = 0,
-                 device: str | torch.device = "cuda", train: bool = False):
+                 device: str | torch.device = "cuda", train: bool = False,
+                 dtype=None):
         super().__init__()
         dev = resolve_device(device)
         self.vq_bins = vq_bins
         d = vq_dim + tc_latent_dim
         self.pc_embedding = nn.Embedding(vq_bins + 2, vq_dim)
         self.pos_emb = _PosEmb()
-        self.plm = Encoder(d, 4 * d, n_heads, n_layers, 9, p_dropout=P_DROPOUT)
-        self.predict_layer = nn.Linear(d, vq_bins, bias=False)
+        self.plm = Encoder(d, 4 * d, n_heads, n_layers, 9, p_dropout=P_DROPOUT,
+                           dtype=dtype)
+        self.predict_layer = Linear(d, vq_bins, bias=False, dtype=dtype)
         init_weights(self, seed)
         if not train:
             self.eval().requires_grad_(False)
@@ -295,9 +311,12 @@ def decode(model: ProsodyLM, tc_latent: torch.Tensor, top_k: int = 0,
            cache_dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """tc_latent (B, T, 256) -> codes (B, T) int32: greedy when top_k == 0
     (one kernel call per row), else top-k sampling from `generator` (a
-    torch.Generator on tc_latent's device)."""
+    torch.Generator on tc_latent's device). A latent of a lower float
+    dtype (a bf16 TTV's) is taken to float32 first, as the JAX kernel
+    takes it (ops/pallas_plm_decode.py:310)."""
     w = model.packed()
-    if top_k == 0 and tc_latent.dtype == torch.float32:
+    tc_latent = tc_latent.float()
+    if top_k == 0:
         return torch.cat([
             plm_decode_greedy(w, tc_latent[i:i + 1], model.go_id,
                               weight_dtype, cache_dtype)

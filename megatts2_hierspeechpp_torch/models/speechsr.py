@@ -54,6 +54,13 @@ def interp_linear(x, out_len: int):
     return torch.stack(phases, dim=2).reshape(b, out_len, c)
 
 
+def rate_for(output_sr: int) -> tuple[int, int]:
+    """(rate_num, rate_den) of the 16 kHz -> output_sr model: 48 or 24 kHz."""
+    if output_sr not in (24000, 48000):
+        raise ValueError(f"SpeechSR outputs 24 or 48 kHz, not {output_sr}")
+    return (3, 1) if output_sr == 48000 else (3, 2)
+
+
 class SpeechSR(nn.Module):
     """rate_num / rate_den = 3/1 for 48 kHz, 3/2 for 24 kHz. Built on the
     CPU with seeded weights, then moved to `device` ("cuda" by default;

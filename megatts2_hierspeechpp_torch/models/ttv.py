@@ -34,6 +34,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from megatts2_hierspeechpp_torch.data import text as text_frontend
 from megatts2_hierspeechpp_torch.device import resolve_device
 from megatts2_hierspeechpp_torch.nn.attention import Encoder, MultiHeadAttention
 from megatts2_hierspeechpp_torch.nn.basic import Embed, leaky_relu
@@ -56,21 +57,24 @@ class TextEncoder(nn.Module):
 
     def __init__(self, n_vocab: int, n_tone: int, n_language: int,
                  hidden_channels: int = 256, filter_channels: int = 1024,
-                 n_heads: int = 4, n_layers: int = 3, kernel_size: int = 9):
+                 n_heads: int = 4, n_layers: int = 3, kernel_size: int = 9,
+                 dtype=None):
         super().__init__()
         h = hidden_channels
-        self.scale = math.sqrt(h)
+        self.scale, self.dtype = math.sqrt(h), dtype
         self.emb = Embed(n_vocab, h)
         self.emb_tone = Embed(n_tone, h)
         self.emb_language = Embed(n_language, h)
         self.encoder = Encoder(h, filter_channels, n_heads, n_layers, kernel_size,
-                               p_dropout=self.p_dropout)
+                               p_dropout=self.p_dropout, dtype=dtype)
         self.encoder2 = Encoder(h, filter_channels, n_heads, 1, kernel_size,
-                                p_dropout=self.p_dropout)
+                                p_dropout=self.p_dropout, dtype=dtype)
 
     def forward(self, x_ids, tone, language, x_mask):
         x = (self.emb(x_ids) * self.scale + self.emb_tone(tone) * self.scale
              + self.emb_language(language) * self.scale)
+        if self.dtype is not None:
+            x = x.to(self.dtype)
         x = self.encoder(x * x_mask, x_mask)
         return self.encoder2(x * x_mask, x_mask)
 
@@ -80,11 +84,12 @@ class MelEncoder(nn.Module):
 
     def __init__(self, out_channels: int = 256, hidden_channels: int = 80,
                  filter_channels: int = 320, n_heads: int = 4,
-                 n_layers: int = 2, kernel_size: int = 9):
+                 n_layers: int = 2, kernel_size: int = 9, dtype=None):
         super().__init__()
         self.encoder = Encoder(hidden_channels, filter_channels, n_heads,
-                               n_layers, kernel_size, p_dropout=self.p_dropout)
-        self.proj = Conv1d(hidden_channels, out_channels, 1)
+                               n_layers, kernel_size, p_dropout=self.p_dropout,
+                               dtype=dtype)
+        self.proj = Conv1d(hidden_channels, out_channels, 1, dtype=dtype)
 
     def forward(self, mel, mel_mask):
         return self.proj(self.encoder(mel * mel_mask, mel_mask)) * mel_mask
@@ -95,14 +100,14 @@ class W2VEncoder(nn.Module):
 
     def __init__(self, hidden_channels: int = 256, filter_channels: int = 1024,
                  n_heads: int = 4, n_layers: int = 3, kernel_size: int = 9,
-                 gin_channels: int = 256):
+                 gin_channels: int = 256, dtype=None):
         super().__init__()
         h = hidden_channels
-        self.cond = Conv1d(gin_channels, h, 1)
+        self.cond = Conv1d(gin_channels, h, 1, dtype=dtype)
         self.encoder = Encoder(h, filter_channels, n_heads, n_layers, kernel_size,
-                               p_dropout=self.p_dropout)
+                               p_dropout=self.p_dropout, dtype=dtype)
         self.encoder2 = Encoder(h, filter_channels, n_heads, 1, kernel_size,
-                                p_dropout=self.p_dropout)
+                                p_dropout=self.p_dropout, dtype=dtype)
 
     def forward(self, x, x_mask, g):
         x = x + self.cond(g)[:, None, :]
@@ -116,12 +121,12 @@ class W2VDecoder(nn.Module):
     def __init__(self, in_channels: int = 256, hidden_channels: int = 512,
                  kernel_size: int = 5, dilation_rate: int = 1,
                  n_layers: int = 8, output_size: int = 1024,
-                 gin_channels: int = 256):
+                 gin_channels: int = 256, dtype=None):
         super().__init__()
-        self.pre = Conv1d(in_channels, hidden_channels, 1)
+        self.pre = Conv1d(in_channels, hidden_channels, 1, dtype=dtype)
         self.enc = WN(hidden_channels, kernel_size, dilation_rate, n_layers,
-                      gin_channels, self.p_dropout)
-        self.proj = Conv1d(hidden_channels, output_size, 1)
+                      gin_channels, self.p_dropout, dtype)
+        self.proj = Conv1d(hidden_channels, output_size, 1, dtype=dtype)
 
     def forward(self, x, x_mask, g):
         y = self.pre(x * x_mask) * x_mask
@@ -135,19 +140,21 @@ class PitchPredictor(nn.Module):
     resblock_kernels = (3, 5, 7)
 
     def __init__(self, initial_channel: int = 1024,
-                 upsample_initial_channel: int = 256, gin_channels: int = 256):
+                 upsample_initial_channel: int = 256, gin_channels: int = 256,
+                 dtype=None):
         super().__init__()
         uic = upsample_initial_channel
-        self.conv_pre = Conv1d(initial_channel, uic, 7, padding=3)
-        self.cond = Conv1d(gin_channels, uic, 1)
+        self.conv_pre = Conv1d(initial_channel, uic, 7, padding=3, dtype=dtype)
+        self.cond = Conv1d(gin_channels, uic, 1, dtype=dtype)
         self.ups = nn.ModuleList()
         self.resblocks = nn.ModuleList()
         for i in range(2):
             ch = uic // 2 ** (i + 1)
-            self.ups.append(WNConvTranspose1d(2 * ch, ch, 4, stride=2, padding=1))
+            self.ups.append(WNConvTranspose1d(2 * ch, ch, 4, stride=2, padding=1,
+                                              dtype=dtype))
             for rk in self.resblock_kernels:
-                self.resblocks.append(ResBlock1(ch, rk, (1, 3, 5)))
-        self.conv_post = Conv1d(ch, 1, 7, padding=3, bias=False)
+                self.resblocks.append(ResBlock1(ch, rk, (1, 3, 5), dtype))
+        self.conv_post = Conv1d(ch, 1, 7, padding=3, bias=False, dtype=dtype)
 
     def forward(self, x, g):
         """x: (B, T, 1024); g: (B, Gin) -> (B, 4T, 1)."""
@@ -161,10 +168,12 @@ class PitchPredictor(nn.Module):
 
 
 class PLMConv(nn.Module):
-    def __init__(self, hidden_channels: int = 20):
+    def __init__(self, hidden_channels: int = 20, dtype=None):
         super().__init__()
-        self.conv1 = Conv1d(hidden_channels, hidden_channels, 5, padding=2)
-        self.conv2 = Conv1d(hidden_channels, hidden_channels, 5, padding=2)
+        self.conv1 = Conv1d(hidden_channels, hidden_channels, 5, padding=2,
+                            dtype=dtype)
+        self.conv2 = Conv1d(hidden_channels, hidden_channels, 5, padding=2,
+                            dtype=dtype)
 
     def forward(self, x, mask):
         x = self.conv1(x * mask)
@@ -191,7 +200,17 @@ class TTVModel(nn.Module):
     (the default) is frozen in eval() mode; `train=True` leaves the
     parameters trainable (but the LSTMs' bias_hh, nn/lstm.py) and the
     module in train() mode (the same members and the same seeded weights:
-    the TTV has no training-only member)."""
+    the TTV has no training-only member).
+
+    `dtype` (None: float32) is the JAX TTVModel's compute dtype, handed to
+    every member but the quantizer: the convs, projections and attention
+    products take their operands in it, the parameters stay float32, and
+    the LSTMs, LayerNorm statistics, RVQ and Gaussian upsampling stay
+    float32. Between modules the tensors take the dtype the JAX dataflow
+    promotes them to: a bf16 result times a float32 mask is float32, so
+    the encoders' outputs, w2v_pred and the log-f0 are float32, while the
+    latent x_frame (the PLM's input) and the pitch predictor's stack are
+    bf16."""
 
     def __init__(self, n_vocab: int = 200, n_tone: int = 10,
                  n_language: int = 3, inter_channels: int = 256,
@@ -200,30 +219,31 @@ class TTVModel(nn.Module):
                  text_layers: int = 3, mel_enc_layers: int = 2,
                  w2v_enc_layers: int = 3, w2v_dec_layers: int = 8,
                  seed: int = 0, device: str | torch.device = "cuda",
-                 train: bool = False):
+                 train: bool = False, dtype=None):
         super().__init__()
         dev = resolve_device(device)
         ic = inter_channels
-        self.prosody_size, self.stride = prosody_size, stride
+        self.prosody_size, self.stride, self.dtype = prosody_size, stride, dtype
         self.enc_p = TextEncoder(n_vocab, n_tone, n_language, ic, 4 * ic, 4,
-                                 text_layers, 9)
-        self.mel_encoder = MelEncoder(256, 80, 320, 4, mel_enc_layers, 9)
-        self.mha = MultiHeadAttention(ic, ic, 4, p_dropout=0.2)
-        self.cond_g = Conv1d(gin_channels, ic, 1)
+                                 text_layers, 9, dtype)
+        self.mel_encoder = MelEncoder(256, 80, 320, 4, mel_enc_layers, 9, dtype)
+        self.mha = MultiHeadAttention(ic, ic, 4, p_dropout=0.2, dtype=dtype)
+        self.cond_g = Conv1d(gin_channels, ic, 1, dtype=dtype)
         self.w2v_encoder = W2VEncoder(ic, 4 * ic, 4, w2v_enc_layers, 9,
-                                      gin_channels)
+                                      gin_channels, dtype)
         self.w2v_decoder = W2VDecoder(ic, 2 * ic, 5, 1, w2v_dec_layers, 1024,
-                                      256)
-        self.emb_g = StyleEncoder(80, 256, 256)
-        self.duration_predictor = DurationPredictor(ic, 256, gin_channels)
+                                      256, dtype)
+        self.emb_g = StyleEncoder(80, 256, 256, dtype)
+        self.duration_predictor = DurationPredictor(ic, 256, gin_channels, dtype)
         # attribute name as in the reference checkpoint
-        self.RangePredictor = RangePredictor(ic, 256)
-        self.dur_downsample = Conv1d(ic, hidden_channels, 1, stride=2)
-        self.pp = PitchPredictor(1024, 256, gin_channels)
-        self.plm_conv1 = PLMConv(prosody_size)
-        self.plm_conv2 = PLMConv(prosody_size)
+        self.RangePredictor = RangePredictor(ic, 256, dtype)
+        self.dur_downsample = Conv1d(ic, hidden_channels, 1, stride=2,
+                                     dtype=dtype)
+        self.pp = PitchPredictor(1024, 256, gin_channels, dtype)
+        self.plm_conv1 = PLMConv(prosody_size, dtype)
+        self.plm_conv2 = PLMConv(prosody_size, dtype)
         self.quantizer = ResidualVectorQuantizer(prosody_size, 1, vq_bins)
-        self.ssl_proj = Conv1d(prosody_size, ic, 1)
+        self.ssl_proj = Conv1d(prosody_size, ic, 1, dtype=dtype)
         init_weights(self, seed)
         if not train:
             self.eval().requires_grad_(False)
@@ -408,3 +428,16 @@ class TTVModel(nn.Module):
         no-PLM path's prosody."""
         codes = self._prosody_codes(mel, mel_lengths)
         return upsample_codes(codes[0], self.stride, mel.shape[1]).int()
+
+
+DEPTH_KEYS = ("text_layers", "mel_enc_layers", "w2v_enc_layers",
+              "w2v_dec_layers")
+
+
+def build_ttv(hps, device, seed: int, train: bool, dtype=None) -> TTVModel:
+    """The TTVModel of a config: the published widths, the depths of its
+    model.* keys where present, compute in `dtype`."""
+    depth = {k: hps.model[k] for k in DEPTH_KEYS if k in hps.model}
+    return TTVModel(n_vocab=text_frontend.N_VOCAB, n_tone=text_frontend.N_TONE,
+                    n_language=text_frontend.N_LANGUAGE, seed=seed,
+                    device=device, train=train, dtype=dtype, **depth)

@@ -506,3 +506,16 @@ class HierVocoder(nn.Module):
         (B, 4 T_seg, 1))."""
         e, e_ = self.sn(z, g)
         return self.dec(z, e, g=g), e_
+
+
+def vocoder_kwargs(hps) -> dict:
+    """The HierVocoder widths and depths of a config's model keys."""
+    m = hps.model
+    return dict(
+        inter_channels=m.inter_channels, hidden_channels=m.hidden_channels,
+        upsample_rates=tuple(m.upsample_rates),
+        upsample_initial_channel=m.upsample_initial_channel,
+        upsample_kernel_sizes=tuple(m.upsample_kernel_sizes),
+        posterior_wn_layers=m.get("posterior_wn_layers", 16),
+        n_flows=m.get("n_flows", 4), flow_layers=m.get("flow_layers", 3),
+        spec_channels=m.spec_channels, filter_channels=m.filter_channels)

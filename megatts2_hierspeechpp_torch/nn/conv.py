@@ -182,13 +182,16 @@ class SNConv2d(nn.Module):
     `update_u` sigma reads the stored u and v as constants. This is not
     torch.nn.utils.spectral_norm, which iterates on every training-mode
     forward and always holds u and v constant: the s2 trainer updates u and
-    v on the D step's real pass only (models/discriminators.py)."""
+    v on the D step's real pass only (models/discriminators.py). The power
+    iteration and sigma are float32 whatever `dtype`, the conv's compute
+    dtype, is."""
 
     def __init__(self, in_channels: int, out_channels: int,
                  kernel_size: tuple[int, int], stride=(1, 1), padding=(0, 0),
-                 dilation=(1, 1)):
+                 dilation=(1, 1), dtype=None):
         super().__init__()
         self.stride, self.padding, self.dilation = stride, padding, dilation
+        self.dtype = dtype
         self.weight_orig = nn.Parameter(
             torch.empty(out_channels, in_channels, *kernel_size))
         self.bias = nn.Parameter(torch.zeros(out_channels))
@@ -217,4 +220,4 @@ class SNConv2d(nn.Module):
 
     def forward(self, x, update_u: bool = False):
         return conv2d_op(x, self.weight(update_u), self.bias, self.stride,
-                         self.padding, self.dilation)
+                         self.padding, self.dilation, self.dtype)

@@ -9,6 +9,11 @@ Counterpart of `megatts2_hierspeechpp_tpu/nn/duration.py`:
     batched matmul.
 Parameter names are the reference checkpoint's (`duration_predictor.{cond,
 lstms,norm_2,proj}`, `RangePredictor.{lstm,proj.linear_layer}`).
+
+`dtype` (None: float32) is the compute dtype of the projections (`cond`,
+`proj`), as the JAX modules' Dense: the LSTMs and the LayerNorm run in
+float32 (nn/lstm.py), the softplus on the bf16 projection, and the masks
+take the result back to float32, as the JAX dataflow promotes it.
 """
 from __future__ import annotations
 
@@ -19,7 +24,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from megatts2_hierspeechpp_torch.nn.basic import AffineLayerNorm, Dropout
+from megatts2_hierspeechpp_torch.nn.basic import AffineLayerNorm, Dropout, Linear
 from megatts2_hierspeechpp_torch.nn.conv import Conv1d
 from megatts2_hierspeechpp_torch.nn.lstm import BiLSTM, StackedBiLSTM
 
@@ -28,14 +33,14 @@ MASK_SCORE = -1e15
 
 class DurationPredictor(nn.Module):
     def __init__(self, in_channels: int = 256, filter_channels: int = 256,
-                 gin_channels: int = 256):
+                 gin_channels: int = 256, dtype=None):
         super().__init__()
         self.drop = Dropout(0.5)   # the JAX DurationPredictor's p
-        self.cond = Conv1d(gin_channels, in_channels, 1)
+        self.cond = Conv1d(gin_channels, in_channels, 1, dtype=dtype)
         self.lstms = StackedBiLSTM(in_channels, filter_channels, 2,
                                    length_aware=False)
         self.norm_2 = AffineLayerNorm(2 * filter_channels)
-        self.proj = Conv1d(2 * filter_channels, 1, 1)
+        self.proj = Conv1d(2 * filter_channels, 1, 1, dtype=dtype)
 
     def forward(self, x, x_mask, g=None):
         """x: (B, N, C); x_mask: (B, N, 1); g: (B, Gin) -> (B, N, 1)."""
@@ -46,19 +51,20 @@ class DurationPredictor(nn.Module):
 
 
 class _LinearNorm(nn.Module):
-    def __init__(self, in_dim: int, out_dim: int):
+    def __init__(self, in_dim: int, out_dim: int, dtype=None):
         super().__init__()
-        self.linear_layer = nn.Linear(in_dim, out_dim)
+        self.linear_layer = Linear(in_dim, out_dim, dtype=dtype)
 
     def forward(self, x):
         return self.linear_layer(x)
 
 
 class RangePredictor(nn.Module):
-    def __init__(self, in_channels: int = 256, out_channel: int = 256):
+    def __init__(self, in_channels: int = 256, out_channel: int = 256,
+                 dtype=None):
         super().__init__()
         self.lstm = BiLSTM(in_channels + 1, out_channel, length_aware=True)
-        self.proj = _LinearNorm(2 * out_channel, 1)
+        self.proj = _LinearNorm(2 * out_channel, 1, dtype)
 
     def forward(self, x, durations, lengths: Optional[torch.Tensor] = None):
         """x: (B, N, C); durations: (B, N) -> ranges (B, N)."""

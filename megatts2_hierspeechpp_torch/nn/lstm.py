@@ -17,6 +17,12 @@ The JAX LSTM has one bias per gate, the port bias_ih = b and bias_hh = 0
 (convert.py). bias_hh is left out of training (requires_grad False), so a
 training build learns the one bias JAX learns: training both would move
 their sum twice per step.
+
+The LSTMs compute in float32 under a bf16 model as well: the JAX scan's
+input projection promotes against its float32 weights, and every JAX
+caller hands it float32 (the duration predictor's `x * x_mask`, the range
+predictor's concatenation, both against float32 masks and durations), so
+its carry is float32. A lower-precision input is taken to float32 here.
 """
 from __future__ import annotations
 
@@ -40,6 +46,7 @@ class StackedBiLSTM(nn.LSTM):
     def forward(self, x, lengths: Optional[torch.Tensor] = None):
         """x: (B, T, In); lengths: (B,) true lengths (used when
         length_aware) -> (B, T, 2H)."""
+        x = x.float()
         t = x.shape[1]
         if not self.length_aware or lengths is None:
             return super().forward(x)[0]

@@ -11,6 +11,9 @@ Training (`ResidualVectorQuantizer(x, train=True)`) updates the buffers in
 place, all in float32: one-hot counts and embedding sums of the batch, EMA
 decay 0.99, Laplace smoothing 1e-5, embed = embed_avg / smoothed counts;
 the output is straight-through, and the commit loss mean((sg(q) - x)^2).
+Under a lower compute dtype the distances, the statistics and the commit
+loss's mean stay float32, and the quantized output takes x's dtype (JAX
+quantize.py:64-79, :110, :139-143).
 The k-means initialisation is ops/kmeans.py.
 
 Dead-code expiry draws nothing here. In the JAX package (quantize.py:88-108)
@@ -78,11 +81,11 @@ class VectorQuantization(nn.Module):
         straight-through and the commit loss is mean((sg(q) - x)^2)."""
         cb = self._codebook
         codes = cb.encode(x)
-        quantized = cb.decode(codes)
+        quantized = cb.decode(codes).to(x.dtype)
         if not train:
-            return quantized.to(x.dtype), codes, x.new_zeros((), dtype=torch.float32)
+            return quantized, codes, x.new_zeros((), dtype=torch.float32)
         cb.ema_update(x, codes)
-        commit = (quantized - x).float().square().mean()
+        commit = (quantized - x).square().float().mean()
         return x + (quantized - x).detach(), codes, commit
 
 

@@ -9,7 +9,9 @@ takes one cross-entropy step (summed NLL, go token 1024) with AdamW.
 The dropout masks come from a generator on the batch's device seeded by one
 draw from the loop's per-step CPU generator (`TrainStep.draw`);
 `TrainStep.with_draws` takes a MaskSource from outside (the tests feed the
-JAX step's masks). Float32.
+JAX step's masks). The frozen TTV and the PLM compute in their own `dtype`
+(bf16 from cli/train_s1 by default): the TTV hands the PLM a bf16 latent,
+the loss is float32, the parameters and AdamW moments float32.
 """
 from __future__ import annotations
 

@@ -21,7 +21,11 @@ the dropout masks' generator on the batch's device. `TrainStep.with_draws`
 runs a step on draws given from outside: the tests feed it the JAX step's
 coin and masks, the card-vs-CPU gate a CPU mask generator on both sides.
 
-Float32, as the vocoder trainer; the JAX CLI's bf16 default is not ported.
+The models compute in their own `dtype` (cli/train_s2 builds them in
+bf16 by default, as the JAX CLI): w2v_pred and the losses come out float32
+(the masks promote them, the losses read the D's bf16 logits in float32),
+the RVQ statistics update in float32, and the parameters, their gradients
+and the AdamW moments stay float32.
 """
 from __future__ import annotations
 

@@ -10,6 +10,22 @@ import json
 import os
 from typing import Any, Mapping
 
+import torch
+
+# train.dtype of the training CLIs, as the JAX CLIs map it
+COMPUTE_DTYPES = {"bf16": torch.bfloat16, "fp32": None}
+
+
+def compute_dtype(hps):
+    """A config's train.dtype ("bf16" when unset, as the JAX CLIs) as a
+    module compute dtype: torch.bfloat16, or None for float32. Any other
+    value raises ValueError."""
+    name = hps.train.get("dtype", "bf16")
+    if name not in COMPUTE_DTYPES:
+        raise ValueError(f"unknown train.dtype {name!r}; use one of "
+                         f"{sorted(COMPUTE_DTYPES)}")
+    return COMPUTE_DTYPES[name]
+
 
 class HParams(dict):
     """Recursive attribute-access dict (reference utils.HParams)."""
