@@ -180,7 +180,45 @@ Phases, in order; any failure exits non-zero:
      API calls' (and the main path's per-request counts), the sidecars the
      port's feature calls; ms per line and per call; cuDNN deterministic
      throughout (its default algorithms give two calls of one request
-     waveforms up to 2e-7 apart, which can flip an int16 step).
+     waveforms up to 2e-7 apart, which can flip an int16 step);
+ 15. `ar_prep`: the AR data front end on phase 10's corpus: prepare_text on
+     a 4 / 5-column filelist the phase writes (the corpus's 3-column lines
+     beside it are skipped), its --bert_ckpt branch with a seeded
+     BertForMaskedLM at chinese-roberta-wwm-ext-large's widths where
+     `transformers` is installed (on the card, its sidecars within 1e-4 x
+     max of a --device cpu run), else its ImportError; prepare_hubert on
+     six 2-10 s wavs at 16 / 32 / 64 kHz with seeded chinese-hubert-base
+     weights (an HF-named .bin, `hubert.` prefix, --n_heads 12): ms per
+     wav, the 5-wav32k files within 1 LSB of the CPU's, one wav's features
+     card against CPU (1e-3 x max);
+     prepare_semantic on eight .hmel.npy sidecars with cli_serving's TTV
+     .pth, each code the CPU's or a near tie (two nearest codewords within
+     1e-5 relative);
+ 16. `ar_decode`: t2s_decode of the CLI's Text2Semantic (seeded, full width)
+     on the tts phase's 10 s text as phoneme ids, BERT ~ N(0, 1), a
+     75-token prompt, max_new 250, greedy and top_k 3 from seeded host
+     Gumbel draws: ms per step, tokens/s, prefill, launches per step,
+     device ms and idle share, peak memory; every token within TF_MARGIN of
+     a full-prefix recompute on the card and on the CPU; B = 4 rows against
+     their own B = 1 decodes;
+ 17. `train_ar`: cli/train_ar.main at its defaults on 64 utterances of the
+     corpus's joined tables, 8 micro-steps (2 updates), a checkpoint, 8
+     resumed, the eval hook at 8 and 16: micro-step ms, tokens/s, peak
+     memory, one micro-step profiled; `train_ar_synthetic`, the longest
+     bucket a real corpus admits (B = 8, 54 s = 1350 tokens padded to 1408,
+     400 phones padded to 448); one micro-step at B = 2 card against CPU
+     (metrics 1e-4 relative, gradients 1e-3 relative L2) and the
+     ScaledAdam update of each side's own gradients within 1e-3 relative
+     L2 over the elements whose gradient stands above 2 x its tensor's
+     card-CPU difference (the rest reported: their count and their share
+     of the difference);
+ 18. `gpt_stack`: GPTProsody at its defaults, forward and backward at B = 8
+     (3 s prompt mel, 100 text, 300 mel tokens) and card against CPU at
+     B = 2; gpt_generate of 300 tokens at top_k 50 from seeded draws (gap
+     against a recompute on the card and the CPU); DiscreteVAE on a 10 s
+     mel: encode / decode card against CPU (near ties allowed), one
+     training forward with its EMA step within 1e-4. Phases 15-18 launch
+     none of the port's kernels (checked).
 Then the run's seconds, and one JSON line with every kernel's numbers (launches: the f32 rows
 from the tts requests of phase 5, or one float32 training step of phase 10
 where that count is larger, and the serve_trained request's beside them;
@@ -4131,6 +4169,763 @@ def _cli_serving(torch, dev, tmp, corpus, shapes, audio):
     return results["infer_tts 48k denoise"]
 
 
+# ---- the AR stack (ar_prep, ar_decode, train_ar) and the GPT prosody stack
+# (gpt_stack): plain PyTorch, float32, no kernel of the port ----
+
+AR_WAVS = ((16000, 2.0), (32000, 4.0), (64000, 6.0), (16000, 8.0),
+           (32000, 10.0), (64000, 3.0))    # prepare_hubert's wavs: rate, seconds
+AR_HUBERT_SEED = 6789
+AR_HUBERT_TOL = 1e-3    # card vs CPU Hubert features, x max|CPU|
+AR_BERT = dict(vocab_size=21128, hidden_size=1024, num_hidden_layers=24,
+               num_attention_heads=16, intermediate_size=4096,
+               max_position_embeddings=512)   # chinese-roberta-wwm-ext-large
+AR_BERT_TOL = 1e-4      # card vs CPU 3-bert sidecars, x max|CPU|
+AR_MELS = 8             # prepare_semantic's .hmel.npy sidecars
+TIE_REL = 1e-5          # a code may differ from the CPU's where its two nearest
+                        # codewords are this close (relative) on the CPU
+AR_SEED = 1234          # the CLI's seed: the decode's seeded weights
+AR_PROMPT, AR_MAX_NEW = 75, 250     # 3 s and 10 s of 25 Hz tokens
+AR_PROFILE_STEPS = 50   # the profiled decode (on an H100 host, the profiler's
+                        # post-processing of 250 steps' 52 k launches took
+                        # most of a minute)
+AR_ROWS = 4
+AR_UTTERANCES = 64      # train_ar's tables: 8 batches of 8 an epoch
+AR_MICRO_STEPS = 16     # 8 (2 optimizer updates), a checkpoint, 8 resumed
+AR_SYNTH = (8, 400, 448, 1350, 1408)   # B, phones, padded, tokens (54 s), padded
+AR_CPU = (2, 32, 64)    # the card vs CPU micro-step: B, phones, tokens
+UPD_NOISE_K = 2.0       # update_check leaves out |g_cpu| < K x the tensor's
+                        # largest |g_card - g_cpu|: no sign there is settled
+GPT_SEED = 4242
+GPT_SHAPE = (8, 3.0, 100, 300)     # B, prompt seconds, text tokens, mel tokens
+GPT_MAX_NEW, GPT_TOP_K = 300, 50
+DVAE_SECONDS = 10.0
+DVAE_TOL = 1e-4         # card vs CPU DVAE outputs and EMA statistics, x max|CPU|
+
+
+def no_kernel_launched(label, cuda_lib):
+    """These stacks are plain PyTorch: a launch of the port's kernels
+    between cuda_lib.reset_launches() and here is a fault."""
+    if any(cuda_lib.LAUNCHES.values()):
+        fail(f"{label}: launched the port's kernels {dict(cuda_lib.LAUNCHES)}")
+
+
+def speech_at(sr: int, seconds: float, seed: int) -> np.ndarray:
+    """speech_like's voice at any rate, as int16 PCM."""
+    rng = np.random.default_rng(seed)
+    t = np.arange(int(seconds * sr)) / sr
+    f = (120.0 + 15 * seed) * (1.0 + 0.2 * np.sin(2 * np.pi * 0.4 * t))
+    phase = 2 * np.pi * np.cumsum(f) / sr
+    env = np.clip(1.5 * np.sin(2 * np.pi * 1.25 * t + 0.3), 0.0, 1.0)
+    y = env * sum(0.25 / h * np.sin(h * phase) for h in range(1, 7))
+    return ((y + 0.005 * rng.standard_normal(len(t))) * 32767).astype(np.int16)
+
+
+def nearest_two(torch, z, embed):
+    """Squared distances of z (N, D) to its two nearest codewords (N, 2)."""
+    d = (z.double()[:, None, :] - embed.double()[None]).square().sum(-1)
+    return d.topk(2, dim=-1, largest=False).values
+
+
+def code_check(torch, label, got, want, z, embed):
+    """Codes equal the CPU's but at near ties (nearest_two within TIE_REL):
+    (mismatches, of which near ties)."""
+    got, want = np.asarray(got).reshape(-1), np.asarray(want).reshape(-1)
+    bad = np.nonzero(got != want)[0]
+    if len(bad):
+        d = nearest_two(torch, z.reshape(-1, z.shape[-1])[torch.from_numpy(bad)],
+                        embed).numpy()
+        far = bad[(d[:, 1] - d[:, 0]) > TIE_REL * d[:, 1]]
+        if len(far):
+            fail(f"{label}: codes differ from the CPU's at {far.tolist()[:8]}, "
+                 "not near ties")
+    return len(bad)
+
+
+def ar_prep_phase(torch, dev, tmp, corpus, card):
+    """The AR data front end on the card: prepare_text on a 4 / 5-column
+    filelist of the corpus's lines (beside its 3-column trans.txt lines,
+    which it skips) without BERT, then with --bert_ckpt (bert_branch: on
+    the card against --device cpu; or the ImportError where `transformers`
+    is absent); prepare_hubert on AR_WAVS with seeded full-width
+    chinese-hubert-base weights as an HF-named .bin with the `hubert.`
+    prefix, --n_heads 12 (ms per wav after the model's load; the 5-wav32k files equal the CPU's resample
+    and mix within 1 LSB; the shortest wav's features card against CPU
+    within AR_HUBERT_TOL x max); prepare_semantic on AR_MELS of the
+    corpus's .hmel.npy sidecars with cli_serving's reference TTV .pth
+    (every code the CPU's, or a near tie, reported)."""
+    import glob
+    import importlib.util
+    import os
+    import shutil
+
+    from scipy.io import wavfile
+
+    from megatts2_hierspeechpp_torch.cli import prepare_hubert as cli_hub
+    from megatts2_hierspeechpp_torch.cli import prepare_semantic as cli_sem
+    from megatts2_hierspeechpp_torch.cli import prepare_text as cli_txt
+    from megatts2_hierspeechpp_torch.infer.pipeline import load_hubert
+    from megatts2_hierspeechpp_torch.models.wav2vec2 import Hubert
+    from megatts2_hierspeechpp_torch.ops import cuda_lib
+
+    cuda_lib.reset_launches()
+    d = os.path.join(tmp, "ar_prep")
+    os.makedirs(d)
+    with open(os.path.join(corpus, "trans.txt"), encoding="utf-8") as f:
+        trans = [ln.strip() for ln in f if ln.strip()]
+    lines = []
+    for i, ln in enumerate(trans):
+        wav, spk, phones = ln.split("|")
+        lines.append(f"{wav}|{spk}|zh|{phones}" + ("|中文" if i % 2 else ""))
+    filelist = os.path.join(d, "text_list.txt")
+    with open(filelist, "w", encoding="utf-8") as f:
+        f.write("\n".join(lines + trans[:4]) + "\n")
+    t0 = time.perf_counter()
+    table = cli_txt.main(["--filelist", filelist, "--opt_dir", d])
+    text_ms = 1e3 * (time.perf_counter() - t0)
+    with open(table, encoding="utf-8") as f:
+        n_rows = sum(1 for ln in f if ln.strip())
+    if n_rows != len(lines):
+        fail(f"prepare_text: {n_rows} rows for {len(lines)} 4/5-column lines")
+    if importlib.util.find_spec("transformers") is None:
+        try:
+            cli_txt.main(["--filelist", filelist, "--opt_dir", d,
+                          "--bert_ckpt", d])
+            fail("prepare_text --bert_ckpt ran without transformers")
+        except ImportError as e:
+            bert = f"transformers absent: ImportError: {e}"
+    else:
+        bert = bert_branch(torch, cli_txt, filelist, lines, d)
+
+    wav_dir = os.path.join(d, "wavs")
+    os.makedirs(wav_dir)
+    paths = []
+    for i, (sr, secs) in enumerate(AR_WAVS):
+        paths.append(os.path.join(wav_dir, f"w{i}_{sr // 1000}k.wav"))
+        wavfile.write(paths[-1], sr, speech_at(sr, secs, i))
+    hub_list = os.path.join(d, "hubert_list.txt")
+    with open(hub_list, "w") as f:
+        f.write("".join(f"{p}|spk|zh|x\n" for p in paths))
+    ckpt = os.path.join(d, "chinese-hubert-base.bin")
+    torch.save({f"hubert.{k}": v for k, v in Hubert(
+        seed=AR_HUBERT_SEED, device="cpu").state_dict().items()}, ckpt)
+    opt = os.path.join(d, "hubert_out")
+    load, load_ms = cli_hub.load_hubert, []
+
+    def timed_load(*a, **kw):   # the CLI's model build and load, timed apart
+        t = time.perf_counter()
+        out = load(*a, **kw)
+        torch.cuda.synchronize()
+        load_ms.append(1e3 * (time.perf_counter() - t))
+        return out
+
+    cli_hub.load_hubert = timed_load
+    try:
+        t0 = time.perf_counter()
+        done = cli_hub.main(["--filelist", hub_list, "--opt_dir", opt,
+                             "--ssl_ckpt", ckpt, "--n_heads", "12"])
+        torch.cuda.synchronize()
+        hub_ms = 1e3 * (time.perf_counter() - t0)
+    finally:
+        cli_hub.load_hubert = load
+    if len(done) != len(AR_WAVS):
+        fail(f"prepare_hubert: {len(done)} of {len(AR_WAVS)} wavs")
+    lsb = 0
+    for p in paths:
+        mix = cli_hub.normalize_mix(cli_hub.wav_32k(p, "cpu"))
+        want = np.clip(mix, -32768, 32767).astype(np.int16)
+        sr, got = wavfile.read(os.path.join(opt, "5-wav32k", os.path.basename(p)))
+        if sr != 32000 or got.shape != want.shape:
+            fail(f"prepare_hubert: {p} 5-wav32k {sr} Hz {got.shape}, CPU {want.shape}")
+        lsb = max(lsb, int(np.abs(got.astype(np.int32) - want).max()))
+    if lsb > 1:
+        fail(f"prepare_hubert: 5-wav32k differs from the CPU's by {lsb} LSB")
+    short = paths[0]
+    hub_cpu = load_hubert(cli_hub._load_state_dict(ckpt), 12, "cpu")
+    with torch.inference_mode():
+        want = hub_cpu(cli_hub.ssl_input(cli_hub.normalize_mix(
+            cli_hub.wav_32k(short, "cpu")), "cpu"))[0].numpy()
+    got = np.load(os.path.join(opt, "4-cnhubert", os.path.basename(short) + ".npy"))
+    feat_err = float(np.abs(got - want).max() / np.abs(want).max())
+    if got.shape != want.shape or not feat_err <= AR_HUBERT_TOL:
+        fail(f"prepare_hubert: features card vs CPU {feat_err} ({got.shape}, "
+             f"{want.shape})")
+    del hub_cpu
+
+    mel_dir = os.path.join(d, "mels")
+    os.makedirs(mel_dir)
+    for p in sorted(glob.glob(os.path.join(corpus, "*.hmel.npy")))[:AR_MELS]:
+        shutil.copy(p, mel_dir)
+    ttv_path = os.path.join(tmp, "cli", "ttv.pth")
+    tsv = os.path.join(d, "6-name2semantic.tsv")
+    t0 = time.perf_counter()
+    rows = cli_sem.main(["--mel_dir", mel_dir, "--s2_ckpt", ttv_path,
+                         "--tsv_out", tsv])
+    sem_ms = 1e3 * (time.perf_counter() - t0)
+    if len(rows) != AR_MELS:
+        fail(f"prepare_semantic: {len(rows)} of {AR_MELS} sidecars")
+    ttv_cpu = cli_sem.load_ttv(ttv_path, "cpu")
+    embed = ttv_cpu.quantizer.vq.layers[0]._codebook.embed
+    n_codes = mismatched = 0
+    for p in sorted(glob.glob(os.path.join(mel_dir, "*.hmel.npy"))):
+        mel = np.load(p).astype(np.float32)
+        mel = mel.T if mel.shape[0] == 80 else mel
+        want = cli_sem.codes_of(ttv_cpu, mel, "cpu")
+        t8 = len(want) * 8
+        with torch.inference_mode():
+            z = ttv_cpu.pre_vq_features(torch.from_numpy(mel[None, :t8]),
+                                        torch.tensor([t8], dtype=torch.int32))[0][0]
+        got = np.load(p.replace(".hmel.npy", ".semantic.npy"))
+        n_codes += len(want)
+        mismatched += code_check(torch, f"prepare_semantic {p}", got, want, z, embed)
+    del ttv_cpu
+    no_kernel_launched("ar_prep", cuda_lib)
+    line = {"phase": "ar_prep", "card": card,
+            "prepare_text": {"rows": n_rows, "skipped_3_column": 4, "ms": text_ms,
+                             "bert_branch": bert},
+            "prepare_hubert": {"wavs": [f"{sr} Hz {s:g} s" for sr, s in AR_WAVS],
+                               "ms": hub_ms, "load_ms": load_ms[0],
+                               "ms_per_wav": (hub_ms - load_ms[0]) / len(done),
+                               "wav32k_max_lsb_vs_cpu": lsb,
+                               "features_card_vs_cpu_over_max": feat_err,
+                               "tolerance": AR_HUBERT_TOL},
+            "prepare_semantic": {"sidecars": len(rows), "codes": n_codes,
+                                 "ms": sem_ms, "codes_differing_near_ties": mismatched,
+                                 "tie_rel": TIE_REL}}
+    print(json.dumps(line), flush=True)
+
+
+def bert_branch(torch, cli_txt, filelist, lines, d) -> dict:
+    """prepare_text --bert_ckpt (where `transformers` is installed) with a
+    seeded BertForMaskedLM at chinese-roberta-wwm-ext-large's widths
+    (AR_BERT), on the card (the CLI's default device) and with --device
+    cpu: a 3-bert sidecar of (phones, 1024) for every zh line with raw
+    text, the card's within AR_BERT_TOL x max|CPU| of the CPU's, the two
+    tables equal."""
+    import os
+
+    from transformers import BertConfig, BertForMaskedLM, BertTokenizer
+
+    bdir = os.path.join(d, "bert")
+    os.makedirs(bdir)
+    with open(os.path.join(bdir, "vocab.txt"), "w", encoding="utf-8") as f:
+        f.write("\n".join(["[PAD]", "[UNK]", "[CLS]", "[SEP]", "[MASK]", "中", "文"]))
+    BertTokenizer(os.path.join(bdir, "vocab.txt")).save_pretrained(bdir)
+    torch.manual_seed(0)
+    BertForMaskedLM(BertConfig(**AR_BERT)).eval().save_pretrained(bdir)
+    raw = [ln for ln in lines if len(ln.split("|")) > 4]
+    out = {}
+    for side in ("cuda", "cpu"):
+        opt = os.path.join(d, f"bert_{side}")
+        t0 = time.perf_counter()
+        table = cli_txt.main(["--filelist", filelist, "--opt_dir", opt,
+                              "--bert_ckpt", bdir]
+                             + (["--device", "cpu"] if side == "cpu" else []))
+        ms = 1e3 * (time.perf_counter() - t0)
+        with open(table, encoding="utf-8") as f:
+            rows = f.read()
+        files = sorted(os.listdir(os.path.join(opt, "3-bert")))
+        if len(files) != len(raw):
+            fail(f"prepare_text --bert_ckpt ({side}): {len(files)} sidecars for "
+                 f"{len(raw)} zh lines with raw text")
+        feats = {}
+        for row in rows.splitlines():
+            name, phones = row.split("\t")[:2]
+            p = os.path.join(opt, "3-bert", name + ".npy")
+            if os.path.exists(p):
+                feats[name] = np.load(p)
+                if feats[name].shape != (len(phones.split()), AR_BERT["hidden_size"]):
+                    fail(f"prepare_text --bert_ckpt ({side}): {p} {feats[name].shape}")
+        out[side] = (ms, rows, feats)
+    (card_ms, card_rows, card), (cpu_ms, cpu_rows, cpu) = out["cuda"], out["cpu"]
+    if card_rows != cpu_rows or card.keys() != cpu.keys():
+        fail("prepare_text --bert_ckpt: the card's table or sidecars are not the CPU's")
+    err = max(float(np.abs(card[k] - cpu[k]).max() / np.abs(cpu[k]).max())
+              for k in cpu)
+    if not err <= AR_BERT_TOL:
+        fail(f"prepare_text --bert_ckpt: sidecars card vs CPU {err} > {AR_BERT_TOL}")
+    return {"transformers": "present", "widths": AR_BERT, "sidecars": len(card),
+            "ms": card_ms, "cpu_ms": cpu_ms, "card_vs_cpu_over_max": err,
+            "tolerance": AR_BERT_TOL}
+
+
+def ar_text(frontend, clean, rng, seconds: float):
+    """Phoneme ids of a tts_text of `seconds` (tone digits, tags stripped as
+    prepare_text does)."""
+    return [frontend.SYMBOL_TO_ID[p] for p in clean(tts_text(rng, seconds))]
+
+
+def gumbel_draws(rng, steps: int, shape):
+    """Seeded Gumbel(0, 1) noise of each decode step, on the host."""
+    u = rng.uniform(np.finfo(np.float32).tiny, 1.0, (steps, *shape))
+    return list((-np.log(-np.log(u))).astype(np.float32))
+
+
+def steps_run(tokens, stop: int) -> int:
+    """Steps a one-row decode ran: to its first stop token, or all."""
+    hits = np.nonzero(np.asarray(tokens).reshape(-1) == stop)[0]
+    return int(hits[0]) + 1 if len(hits) else len(np.asarray(tokens).reshape(-1))
+
+
+def tf_gap(torch, logits, tokens, top_k: int = 1, draws=None) -> float:
+    """The teacher-forced gap of one row's decode, over max|logits|: for
+    each step the best score minus the chosen token's, the scores the
+    logits (greedy) or the top-k logits plus the step's noise (sampled). A
+    token outside the recompute's top-k (a float tie at its edge) scores
+    its logit plus the step's largest noise, and its distance from the
+    k-th logit counts too."""
+    lg = logits.detach().float().cpu()
+    tok = torch.as_tensor(np.asarray(tokens)).long()
+    chosen = lg.gather(-1, tok[:, None])[:, 0]
+    if draws is None:
+        gap = lg.amax(-1) - chosen
+    else:
+        noise = torch.from_numpy(np.stack(draws[:len(tok)])).reshape(len(tok), -1)
+        vals, idxs = lg.topk(top_k, dim=-1)
+        scores = vals + noise
+        hit = idxs == tok[:, None]
+        own = torch.where(hit, scores, -math.inf).amax(-1)
+        outside = torch.maximum(scores.amax(-1) - (chosen + noise.amax(-1)),
+                                vals[:, -1] - chosen)
+        gap = torch.where(hit.any(-1), scores.amax(-1) - own, outside)
+    return float(gap.max() / lg.abs().max())
+
+
+def ar_decode_phase(torch, dev, card):
+    """t2s_decode of the CLI's Text2Semantic (full width, seeded weights) on
+    the tts phase's 10 s Mandarin text as phoneme ids, BERT features N(0,
+    1), a 75-token prompt, max_new 250: greedy and top_k 3 with fed noise;
+    ms per step, tokens/s, the prefill, launches per step, device ms and
+    idle share (profiler), peak memory; each step's token against a
+    full-prefix recompute on the card and on the CPU within TF_MARGIN; B = 4
+    rows (four texts cut to one phoneme count, one prompt) against their
+    own B = 1 decodes."""
+    from megatts2_hierspeechpp_torch.ar import t2s
+    from megatts2_hierspeechpp_torch.cli.prepare_text import clean_phonemes
+    from megatts2_hierspeechpp_torch.data import text as frontend
+    from megatts2_hierspeechpp_torch.nn.decode import FedNoise
+    from megatts2_hierspeechpp_torch.ops import cuda_lib
+
+    cuda_lib.reset_launches()
+    build = dict(phoneme_vocab_size=frontend.N_VOCAB * 4, seed=AR_SEED)
+    model = t2s.Text2Semantic(**build, device=dev)
+    cpu_model = t2s.Text2Semantic(**build, device="cpu")
+    rng = np.random.default_rng(11)     # tts_requests' texts: the last is 10 s
+    ids = [ar_text(frontend, clean_phonemes, rng, f / 50)
+           for f in REQUEST_FRAMES][-1]
+    rng = np.random.default_rng(21)
+    x = torch.tensor([ids])
+    bert = torch.from_numpy(rng.standard_normal((1, len(ids), 1024)).astype(np.float32))
+    prompt = torch.from_numpy(rng.integers(0, 1024, (1, AR_PROMPT)))
+    draws = gumbel_draws(rng, AR_MAX_NEW, (1, 3))
+    on = [v.to(dev) for v in (x, bert, prompt)]
+
+    def run(max_new, top_k=1, noise=None, inputs=on):
+        return t2s.t2s_decode(model, *inputs, max_new=max_new, top_k=top_k,
+                              noise=noise)
+
+    run(8)
+    _, prefill_ms = event_ms(torch, lambda: run(1))
+    torch.cuda.reset_peak_memory_stats()
+    (g_tok, g_len), g_ms = event_ms(torch, lambda: run(AR_MAX_NEW))
+    (s_tok, s_len), s_ms = event_ms(torch, lambda: run(
+        AR_MAX_NEW, 3, FedNoise(draws)))
+    peak = torch.cuda.max_memory_allocated()
+    prof = step_profile(torch, f"ar_decode greedy, {AR_PROFILE_STEPS} steps",
+                        lambda: run(AR_PROFILE_STEPS))
+    eos = model.eos
+    out = {}
+    for name, tok, length, ms, top_k, dr in (
+            ("greedy", g_tok, g_len, g_ms, 1, None),
+            ("top_k 3", s_tok, s_len, s_ms, 3, draws)):
+        tok = tok.cpu().numpy()[0]
+        n = steps_run(tok, eos)
+        y = torch.cat([prompt, torch.from_numpy(tok[None, :n - 1])], dim=1)
+        rows = slice(AR_PROMPT - 1, AR_PROMPT - 1 + n)
+        with torch.inference_mode():
+            card_lg = model.prefix_logits(*on[:2], y.to(dev))[0, rows]
+            cpu_lg = cpu_model.prefix_logits(x, bert, y)[0, rows]
+        gaps = {"card_recompute": tf_gap(torch, card_lg, tok[:n], top_k, dr),
+                "cpu": tf_gap(torch, cpu_lg, tok[:n], top_k, dr)}
+        if not max(gaps.values()) <= TF_MARGIN:
+            fail(f"ar_decode {name}: teacher-forced gap {gaps} > {TF_MARGIN}")
+        out[name] = {"steps": n, "tokens_before_eos": int(length[0]), "ms": ms, "ms_per_step": ms / n, "tokens_per_s": n / (ms / 1e3),
+                     "tf_gap_over_max": gaps}
+    launches = prof["kernel_launches"] / AR_PROFILE_STEPS
+
+    rng = np.random.default_rng(31)
+    texts = [ar_text(frontend, clean_phonemes, rng, 10.0) for _ in range(AR_ROWS)]
+    n_ph = min(len(t) for t in texts)
+    xb = torch.tensor([t[:n_ph] for t in texts])
+    bb = torch.from_numpy(rng.standard_normal((AR_ROWS, n_ph, 1024)).astype(np.float32))
+    pb = prompt.repeat(AR_ROWS, 1)
+    inputs = [v.to(dev) for v in (xb, bb, pb)]
+    (b_tok, _), b_ms = event_ms(torch, lambda: run(AR_MAX_NEW, inputs=inputs))
+    equal, row_gaps = 0, []
+    for i in range(AR_ROWS):
+        one, _ = run(AR_MAX_NEW, inputs=[v[i:i + 1] for v in inputs])
+        row = b_tok[i].cpu().numpy()
+        if np.array_equal(row, one[0].cpu().numpy()):
+            equal += 1
+            continue
+        n = steps_run(row, eos)
+        y = torch.cat([pb[i:i + 1], torch.from_numpy(row[None, :n - 1])], dim=1)
+        with torch.inference_mode():
+            lg = model.prefix_logits(inputs[0][i:i + 1], inputs[1][i:i + 1],
+                                     y.to(dev))[0, AR_PROMPT - 1:AR_PROMPT - 1 + n]
+        row_gaps.append(tf_gap(torch, lg, row[:n]))
+        if not row_gaps[-1] <= TF_MARGIN:
+            fail(f"ar_decode B={AR_ROWS}: row {i} differs from its B=1 decode "
+                 f"with a teacher-forced gap {row_gaps[-1]}")
+    no_kernel_launched("ar_decode", cuda_lib)
+    line = {"phase": "ar_decode", "card": card, "phones": len(ids),
+            "prompt": AR_PROMPT, "max_new": AR_MAX_NEW, "prefill_ms": prefill_ms,
+            "prefill_note": "t2s_decode at max_new 1: the prefill and one draw",
+            **out, "launches_per_step": launches,
+            "profiled_steps": AR_PROFILE_STEPS,
+            "device_kernel_ms": prof["device_kernel_ms"],
+            "device_idle_share": prof["device_idle_share"],
+            "peak_memory_mb": peak / 2 ** 20,
+            f"B={AR_ROWS}": {"phones": n_ph, "ms": b_ms,
+                             "rows_equal_to_b1": equal, "other_rows_tf_gap": row_gaps},
+            "tolerance": TF_MARGIN}
+    print(json.dumps(line), flush=True)
+    del model, cpu_model
+    torch.cuda.empty_cache()
+
+
+def ar_tables(corpus, dst, n: int):
+    """The corpus's joined 2-name2text.txt / 6-name2semantic.tsv cut to the
+    first n items that Text2SemanticDataset keeps (one length bucket)."""
+    import os
+
+    from megatts2_hierspeechpp_torch.ar.dataset import Text2SemanticDataset
+    from megatts2_hierspeechpp_torch.data import text as frontend
+
+    src = [os.path.join(corpus, f) for f in ("2-name2text.txt", "6-name2semantic.tsv")]
+    ds = Text2SemanticDataset(*src, frontend.SYMBOL_TO_ID)
+    keep = {it["name"] for it in ds.items[:n]}
+    if len(keep) < n or max(ds.lengths()[:n]) > 200:
+        fail(f"train_ar corpus: {len(keep)} items kept, {n} wanted in (0, 200]")
+    os.makedirs(dst)
+    out = []
+    for path in src:
+        out.append(os.path.join(dst, os.path.basename(path)))
+        with open(path, encoding="utf-8") as f, open(out[-1], "w", encoding="utf-8") as g:
+            g.writelines(ln for ln in f if ln.split("\t")[0] in keep)
+    return out
+
+
+def ar_synth_batch(torch, dev, rng, b, nx, nx_pad, ny, ny_pad):
+    from megatts2_hierspeechpp_torch.data import text as frontend
+
+    i32 = np.int32
+    batch = {"x_ids": rng.integers(0, frontend.N_VOCAB, (b, nx_pad)).astype(i32),
+             "x_lens": np.full(b, nx, i32),
+             "y_ids": rng.integers(0, 1024, (b, ny_pad)).astype(i32),
+             "y_lens": np.full(b, ny, i32),
+             "bert_feature": rng.standard_normal((b, nx_pad, 1024)).astype(np.float32)}
+    return {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+
+
+def train_ar_phase(torch, dev, tmp, corpus, shapes, card):
+    """cli/train_ar.main at its defaults (B = 8, grad_accum 4, float32) on
+    AR_UTTERANCES of the corpus's joined tables: 8 micro-steps (2 updates),
+    a checkpoint, 8 resumed, the eval hook at the end of each (its interval
+    set to 8 for the run); micro-step ms, tokens/s, peak memory, one
+    micro-step profiled; the 54 s micro-step (AR_SYNTH); one micro-step
+    card against CPU (ar_card_vs_cpu)."""
+    import os
+
+    from megatts2_hierspeechpp_torch.ar import trainer as ar_trainer
+    from megatts2_hierspeechpp_torch.ar.dataset import Text2SemanticDataset, collate
+    from megatts2_hierspeechpp_torch.cli import train_ar as cli
+    from megatts2_hierspeechpp_torch.data import text as frontend
+    from megatts2_hierspeechpp_torch.data.dataset import DistributedBucketSampler
+    from megatts2_hierspeechpp_torch.ops import cuda_lib
+
+    cuda_lib.reset_launches()
+    d = os.path.join(tmp, "train_ar")
+    ph, sem = ar_tables(corpus, os.path.join(d, "tables"), AR_UTTERANCES)
+    logs = os.path.join(d, "logs")
+    argv = ["--phoneme_path", ph, "--semantic_path", sem, "-m", "run",
+            "--logs_dir", logs, "--log_interval", "1"]
+    half = AR_MICRO_STEPS // 2
+    interval, cli.EVAL_INTERVAL = cli.EVAL_INTERVAL, half
+    try:
+        with EvalProbe(torch, cli, "make_ar_eval_fn", shapes, "train_ar eval") as probe:
+            torch.cuda.reset_peak_memory_stats()
+            state, recs, secs = run_cli(cli, ar_trainer, torch,
+                                        [argv + ["--epochs", "1"], argv + ["--epochs", "2"]],
+                                        keys=("y_ids", "y_lens"))
+            peak = torch.cuda.max_memory_allocated()
+    finally:
+        cli.EVAL_INTERVAL = interval
+    with open(os.path.join(logs, "run", "scalars.jsonl")) as f:
+        scalars = [json.loads(ln) for ln in f]
+    check_run("train_ar", recs, scalars, state, ("loss/t2s",), n=AR_MICRO_STEPS)
+    check_evals("train_ar", probe, scalars, ("t2s_loss", "t2s_acc_top10"),
+                (half, AR_MICRO_STEPS))
+    if state.opt.count != AR_MICRO_STEPS // 4 or state.accum_count != 0:
+        fail(f"train_ar: {state.opt.count} updates, accumulation count "
+             f"{state.accum_count} after {AR_MICRO_STEPS} micro-steps")
+    ds = Text2SemanticDataset(ph, sem, frontend.SYMBOL_TO_ID)
+    sampler = DistributedBucketSampler(ds.lengths(), 8, list(cli.BOUNDARIES), seed=1234)
+    batch = collate([ds[i] for i in sampler.epoch_batches(0)[0]], pad_multiple=64)
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+    step = ar_trainer.TrainStep(4)
+    prof = step_profile(torch, "train_ar micro-step B=8", lambda: step(
+        state, batch, torch.Generator().manual_seed(1)))
+    line = {"phase": "train_ar", "card": card, "micro_steps": AR_MICRO_STEPS,
+            "updates": state.opt.count, "runs_s": secs,
+            **rate_line(recs, 1 / 25), "peak_memory_mb": peak / 2 ** 20,
+            "batch_shapes": sorted({(r["B"], r["T"]) for r in recs}),
+            "eval_ms": [r["ms"] for r in probe.records],
+            "eval_scalars": [r["scalars"] for r in probe.records],
+            "device_idle_share": prof["device_idle_share"],
+            "device_kernel_launches": prof["kernel_launches"],
+            "groups_ms": prof["groups_ms"]}
+    line["tokens_per_s"] = line.pop("frames_per_s")
+    line["audio_s_per_s_note"] = "25 Hz semantic tokens"
+    print(json.dumps(line), flush=True)
+
+    b, nx, nx_pad, ny, ny_pad = AR_SYNTH
+    synth = ar_synth_batch(torch, dev, np.random.default_rng(5), *AR_SYNTH)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    times = [event_ms(torch, lambda: step(state, synth,
+                                          torch.Generator().manual_seed(2)))[1]
+             for _ in range(2)]
+    peak = torch.cuda.max_memory_allocated()
+    sprof = step_profile(torch, f"train_ar synthetic B={b} y={ny_pad} x={nx_pad}",
+                         lambda: step(state, synth, torch.Generator().manual_seed(3)))
+    print(json.dumps({"phase": "train_ar_synthetic", "card": card, "B": b,
+                      "phones": nx, "phones_padded": nx_pad, "tokens": ny,
+                      "tokens_padded": ny_pad, "seconds": ny / 25,
+                      "micro_step_ms": times,
+                      "tokens_per_s": b * ny / (times[-1] / 1e3),
+                      "peak_memory_mb": peak / 2 ** 20,
+                      "device_idle_share": sprof["device_idle_share"],
+                      "groups_ms": sprof["groups_ms"]}), flush=True)
+    del state, synth, batch
+    torch.cuda.empty_cache()
+
+    ar_card_vs_cpu(torch, dev)
+    no_kernel_launched("train_ar", cuda_lib)
+
+
+def ar_card_vs_cpu(torch, dev):
+    """One train_ar micro-step at AR_CPU and the ScaledAdam update of its
+    gradients, card against CPU from the same weights, each side from its
+    own gradients: the metrics and the gradients (whole) under
+    card_vs_cpu's gates, then the update (update_check)."""
+    from megatts2_hierspeechpp_torch.ar import trainer as ar_trainer
+    from megatts2_hierspeechpp_torch.ar.scaled_adam import ScaledAdam
+    from megatts2_hierspeechpp_torch.ar.t2s import Text2Semantic
+    from megatts2_hierspeechpp_torch.cli import train_ar as cli
+    from megatts2_hierspeechpp_torch.data import text as frontend
+
+    sides = {}
+
+    def build_ar(device):
+        model = Text2Semantic(phoneme_vocab_size=frontend.N_VOCAB * 4,
+                              seed=AR_SEED, device=device, train=True)
+        sched = cli.warmup_cosine_schedule(1e-4, 1e-2, 1e-4, 2000, 200000)
+        return ar_trainer.create_state(model, ScaledAdam(model.parameters(), lr=sched))
+
+    def run_ar(state, tb, device):
+        out = state.model(*(tb[k] for k in ar_trainer.BATCH_KEYS))
+        out["loss"].backward()
+        grads = [p.grad for p in state.opt.params]
+        upd = state.opt.updates(grads)
+        names = [n for n, p in state.model.named_parameters() if p.requires_grad]
+        sides[device.type] = [(n, g.detach().cpu(), u.cpu())
+                              for n, g, u in zip(names, grads, upd)]
+        return ({"loss/t2s": out["loss"].detach(), "acc/t2s": out["acc"]},
+                {"grads": flat_grads(torch, state.opt.params)}, {})
+
+    cb, cx, cy = AR_CPU
+    cpu_batch = {k: v.cpu().numpy() for k, v in ar_synth_batch(
+        torch, "cpu", np.random.default_rng(6), cb, cx, cx, cy, cy).items()}
+    card_vs_cpu(torch, dev, "train_ar micro-step", build_ar, run_ar, cpu_batch,
+                desc={"B": cb, "phones": cx, "tokens": cy})
+    update_check(torch, "train_ar ScaledAdam update", sides["cuda"], sides["cpu"])
+
+
+def update_check(torch, label, card, cpu):
+    """The first ScaledAdam update, card against CPU, each from its own
+    gradients: [(name, gradient, update)] per parameter. Adam's first step
+    is g / (|g| + eps), about sign(g) wherever |g| is well above eps, so an
+    element whose gradient lies within the two sides' rounding difference
+    can take opposite whole steps. Such elements are left out by a rule on
+    the gradients: in each tensor, |g_cpu| below UPD_NOISE_K x the tensor's
+    largest |g_card - g_cpu| (its measured noise floor), unless both sides'
+    gradient is exactly 0 (both updates are then 0). The rest is held to
+    S_GRAD_TOL relative L2. Reported: the update's relative L2 over all
+    elements and without the key third of each in_proj_bias (whose true
+    gradient is 0: a key bias shifts a softmax row by a constant), what the
+    left-out elements are and how much of the squared difference they
+    carry."""
+    gp, uc, up, drop, key, floors = [], [], [], [], [], []
+    for (name, g_card, u_card), (_, g_cpu, u_cpu) in zip(card, cpu):
+        floor = (g_card - g_cpu).abs().max()
+        floors.append(floor.item())
+        drop.append(((g_cpu.abs() < UPD_NOISE_K * floor)
+                     & ((g_card != 0) | (g_cpu != 0))).flatten())
+        k = torch.zeros(g_cpu.numel(), dtype=torch.bool)
+        if name.endswith("in_proj_bias"):
+            d = g_cpu.numel() // 3
+            k[d:2 * d] = True
+        key.append(k)
+        gp.append(g_cpu.flatten())
+        uc.append(u_card.flatten())
+        up.append(u_cpu.flatten())
+    gp, uc, up, drop, key = (torch.cat(x) for x in (gp, uc, up, drop, key))
+    sq = (uc - up).square()
+
+    def rel(m):
+        return (sq[m].sum() / up[m].square().sum()).sqrt().item()
+
+    line = {"phase": "train_card_vs_cpu", "path": label,
+            "update_rel_l2_all": rel(torch.ones_like(drop)),
+            "update_rel_l2_without_key_bias": rel(~key),
+            "update_rel_l2_kept": rel(~drop),
+            "elements": drop.numel(), "left_out": int(drop.sum()),
+            "left_out_in_key_bias": int((drop & key).sum()),
+            "key_bias_elements": int(key.sum()),
+            "left_out_share_of_sq_diff": (sq[drop].sum() / sq.sum()).item()
+            if sq.sum() > 0 else 0.0,
+            "left_out_max_abs_grad": gp[drop].abs().max().item() if drop.any() else 0.0,
+            "noise_floor_max": max(floors), "noise_k": UPD_NOISE_K,
+            "tolerance": S_GRAD_TOL}
+    print(json.dumps(line), flush=True)
+    if not line["update_rel_l2_kept"] <= S_GRAD_TOL:
+        fail(f"{label}: card vs CPU {line['update_rel_l2_kept']} > {S_GRAD_TOL} "
+             "over the elements above the gradients' noise floor")
+
+
+def mel_of(torch, seconds: float, seed: int) -> np.ndarray:
+    """(T, 80) log-mel of speech_like at 50 Hz."""
+    from megatts2_hierspeechpp_torch.ops.stft import mel_spectrogram_fixed
+
+    wav = torch.from_numpy(speech_like(seconds, 110.0 + 20 * seed, seed))
+    with torch.inference_mode():
+        return mel_spectrogram_fixed(wav[None])[0].numpy()
+
+
+def gpt_stack_phase(torch, dev, card):
+    """GPTProsody at its defaults: one training forward and backward at
+    B = 8 (3 s prompt mel, 100 text tokens, 300 mel tokens; ms, peak
+    memory), card against CPU at B = 2; gpt_generate with max_new 300,
+    top_k 50 from fed noise (ms per step, the teacher-forced gap against a
+    recompute on the card and on the CPU); DiscreteVAE at its defaults:
+    encode and decode of a 10 s mel (ms; codes card against CPU, near ties
+    allowed), one training forward with its EMA step, card against CPU
+    within DVAE_TOL."""
+    from megatts2_hierspeechpp_torch.nn.decode import FedNoise
+    from megatts2_hierspeechpp_torch.models import plm_gpt
+    from megatts2_hierspeechpp_torch.ops import cuda_lib
+
+    cuda_lib.reset_launches()
+    b, secs, nt, nm = GPT_SHAPE
+    rng = np.random.default_rng(7)
+    cond = np.stack([mel_of(torch, secs, i) for i in range(b)])
+    batch = {"cond_mel": cond,
+             "text_ids": rng.integers(0, 256, (b, nt)).astype(np.int32),
+             "mel_tokens": rng.integers(0, 1024, (b, nm)).astype(np.int32),
+             "mel_lens": rng.integers(nm // 2, nm + 1, b).astype(np.int32)}
+    model = plm_gpt.GPTProsody(seed=GPT_SEED, device=dev, train=True)
+    tb = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+
+    def fwd_bwd():
+        model.zero_grad(set_to_none=True)
+        out = model(*tb.values())
+        out["loss"].backward()
+        return out
+
+    fwd_bwd()
+    torch.cuda.reset_peak_memory_stats()
+    out, train_ms = event_ms(torch, fwd_bwd)
+    peak = torch.cuda.max_memory_allocated()
+    loss = out["loss"].item()
+    if not math.isfinite(loss):
+        fail(f"gpt_stack: loss {loss}")
+
+    def build_gpt(device):
+        return plm_gpt.GPTProsody(seed=GPT_SEED, device=device, train=True)
+
+    def run_gpt(m, t, device):
+        out = m(*(t[k] for k in ("cond_mel", "text_ids", "mel_tokens", "mel_lens")))
+        out["loss"].backward()
+        return ({"loss": out["loss"].detach()},
+                {"grads": flat_grads(torch, m.parameters())}, {})
+
+    card_vs_cpu(torch, dev, "gpt_prosody forward+backward", build_gpt, run_gpt,
+                {k: np.ascontiguousarray(v[:2]) for k, v in batch.items()},
+                desc={"B": 2, "prompt_frames": cond.shape[1], "text": nt, "mel": nm})
+
+    cpu_model = plm_gpt.GPTProsody(seed=GPT_SEED, device="cpu")
+    draws = gumbel_draws(rng, GPT_MAX_NEW, (1, GPT_TOP_K))
+    g_in = [tb["cond_mel"][:1], tb["text_ids"][:1]]
+    plm_gpt.gpt_generate(model, *g_in, max_new=8, top_k=GPT_TOP_K)
+    (tok, _), gen_ms = event_ms(torch, lambda: plm_gpt.gpt_generate(
+        model, *g_in, max_new=GPT_MAX_NEW, top_k=GPT_TOP_K, noise=FedNoise(draws)))
+    tok = tok.cpu().numpy()[0]
+    n = steps_run(tok, model.stop_mel)
+    mel_in = torch.from_numpy(np.concatenate([[model.start_mel], tok[:n - 1]])[None])
+    with torch.inference_mode():
+        card_lg = model.mel_logits(*g_in, mel_in.to(dev))[0]
+        cpu_lg = cpu_model.mel_logits(*(v.cpu() for v in g_in), mel_in)[0]
+    gaps = {"card_recompute": tf_gap(torch, card_lg, tok[:n], GPT_TOP_K, draws),
+            "cpu": tf_gap(torch, cpu_lg, tok[:n], GPT_TOP_K, draws)}
+    if not max(gaps.values()) <= TF_MARGIN:
+        fail(f"gpt_generate: teacher-forced gap {gaps} > {TF_MARGIN}")
+    del model, cpu_model, tb
+    torch.cuda.empty_cache()
+
+    mel = torch.from_numpy(mel_of(torch, DVAE_SECONDS, 9)[None])
+    dvae = plm_gpt.DiscreteVAE(seed=GPT_SEED, device=dev, train=True)
+    dvae_cpu = plm_gpt.DiscreteVAE(seed=GPT_SEED, device="cpu", train=True)
+    with torch.inference_mode():
+        dvae.encode(mel.to(dev))
+        codes, enc_ms = event_ms(torch, lambda: dvae.encode(mel.to(dev)))
+        want = dvae_cpu.encode(mel)
+        z = dvae_cpu._encode(mel)[0]
+        differ = code_check(torch, "dvae encode", codes.cpu(), want, z,
+                            dvae_cpu.codebook.embed)
+        recon, dec_ms = event_ms(torch, lambda: dvae.decode(want.to(dev)))
+        ref = dvae_cpu.decode(want)
+        dec_err = float((recon.cpu() - ref).abs().max() / ref.abs().max())
+    got = dvae(mel.to(dev), train=True)
+    ref = dvae_cpu(mel, train=True)
+    recon = ref["recon"].detach()
+    errs = {"recon": float((got["recon"].detach().cpu() - recon).abs().max()
+                           / recon.abs().max())}
+    for k in ("commit", "loss"):
+        errs[k] = abs(got[k].item() - ref[k].item()) / abs(ref[k].item())
+    errs["decode"] = dec_err
+    if not differ:   # a near-tie code moves the EMA statistics by a codeword
+        for k in ("cluster_size", "embed_avg", "embed"):
+            a, c = getattr(dvae.codebook, k).cpu(), getattr(dvae_cpu.codebook, k)
+            errs[k] = float((a - c).abs().max() / c.abs().max())
+    if not max(errs.values()) <= DVAE_TOL:
+        fail(f"dvae card vs CPU: {errs} ({differ} codes differ at near ties)")
+    no_kernel_launched("gpt_stack", cuda_lib)
+    line = {"phase": "gpt_stack", "card": card,
+            "train": {"B": b, "prompt_frames": cond.shape[1], "text": nt, "mel": nm,
+                      "fwd_bwd_ms": train_ms, "loss": loss,
+                      "peak_memory_mb": peak / 2 ** 20},
+            "generate": {"max_new": GPT_MAX_NEW, "top_k": GPT_TOP_K, "steps": n,
+                         "ms": gen_ms, "ms_per_step": gen_ms / n,
+                         "tf_gap_over_max": gaps, "tolerance": TF_MARGIN},
+            "dvae": {"frames": mel.shape[1], "codes": int(want.numel()),
+                     "encode_ms": enc_ms, "decode_ms": dec_ms,
+                     "codes_differing_near_ties": differ,
+                     "card_vs_cpu_over_max": errs, "tolerance": DVAE_TOL}}
+    print(json.dumps(line), flush=True)
+    del dvae, dvae_cpu
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     import torch
 
@@ -4217,6 +5012,15 @@ def main() -> int:
         clock("train_denoiser")
         cli_launches = cli_serving_phase(torch, dev, tmp, corpus, shapes, audio)
         clock("cli_serving")
+        card = smi.splitlines()[0]
+        ar_prep_phase(torch, dev, tmp, corpus, card)
+        clock("ar_prep")
+        ar_decode_phase(torch, dev, card)
+        clock("ar_decode")
+        train_ar_phase(torch, dev, tmp, corpus, shapes, card)
+        clock("train_ar")
+        gpt_stack_phase(torch, dev, card)
+        clock("gpt_stack")
     torch.cuda.empty_cache()
     new_shapes_phase(torch, dev, shapes)
 

@@ -33,7 +33,6 @@ from megatts2_hierspeechpp_torch.cli.train_s2 import (
     BOUNDARIES,
     adamw_kwargs,
     epoch_batches,
-    to_device,
 )
 from megatts2_hierspeechpp_torch.data.dataset import (
     DatasetConfig,
@@ -47,7 +46,7 @@ from megatts2_hierspeechpp_torch.models.ttv import TTVModel, build_ttv
 from megatts2_hierspeechpp_torch.train import checkpoints as ckpt_lib
 from megatts2_hierspeechpp_torch.train import s1
 from megatts2_hierspeechpp_torch.train.evalhooks import make_s1_eval_fn
-from megatts2_hierspeechpp_torch.train.loop import run_training
+from megatts2_hierspeechpp_torch.train.loop import run_training, to_device
 from megatts2_hierspeechpp_torch.utils.config import (
     compute_dtype,
     load_hparams,

@@ -62,7 +62,7 @@ from megatts2_hierspeechpp_torch.ops.kmeans import init_rvq_state
 from megatts2_hierspeechpp_torch.train import checkpoints as ckpt_lib
 from megatts2_hierspeechpp_torch.train import s2
 from megatts2_hierspeechpp_torch.train.evalhooks import make_s2_eval_fn
-from megatts2_hierspeechpp_torch.train.loop import run_training
+from megatts2_hierspeechpp_torch.train.loop import run_training, to_device
 from megatts2_hierspeechpp_torch.utils.config import (
     compute_dtype,
     load_hparams,
@@ -112,11 +112,6 @@ def epoch_batches(ds: SidecarDataset, sampler: DistributedBucketSampler,
             yield collate_fn([ds[i] for i in idx])
 
     return batches
-
-
-def to_device(dev):
-    return lambda batch: {k: torch.from_numpy(v).to(dev)
-                          for k, v in batch.items()}
 
 
 def main(argv=None):

@@ -6,11 +6,15 @@ MultiPeriodDiscriminator), `mrsd_from_jax({"params", "spectral"})` (the s2
 trainer's MultiResSpecDiscriminator), `speechsr_from_jax(params)`,
 `ttv_from_jax({"params", "vq"})`, `plm_from_jax(params)`,
 `plm_noncausal_from_jax(params)` (ProsodyLMNonCausal),
-`wav2vec2_from_jax(params)` and `denoiser_from_jax({"params",
-"batch_stats"})` take the flax variables of the JAX HierVocoder / SpeechSR /
-TTVModel / ProsodyLM / Wav2Vec2 / MPNet (nested dicts of arrays) and return
-`state_dict`s for the port's modules, whose names are the reference
-checkpoint's (HF Wav2Vec2Model's for Wav2Vec2). Depths (WN layers, flows,
+`wav2vec2_from_jax(params)`, `denoiser_from_jax({"params",
+"batch_stats"})`, `t2s_from_jax(params)` (Text2Semantic),
+`hubert_from_jax(params)`, `gpt_prosody_from_jax(params)` and
+`dvae_from_jax({"params", "vq"})` take the flax variables of the JAX
+HierVocoder / SpeechSR / TTVModel / ProsodyLM / Wav2Vec2 / MPNet /
+Text2Semantic / Hubert / GPTProsody / DiscreteVAE (nested dicts of arrays)
+and return `state_dict`s for the port's modules, whose names are the
+reference checkpoint's (HF Wav2Vec2Model's / HubertModel's for the SSL
+models; the JAX tree's for the GPT stack, which has no reference names). Depths (WN layers, flows,
 DiT blocks, upsample stages, resblocks, encoder and LSTM layers, PLM
 layers, w2v layers, TS conformer blocks) are read from the tree, so
 reduced test configurations convert too.
@@ -33,6 +37,8 @@ Layouts (inverse of megatts2_hierspeechpp_tpu/utils/torch_compat.py):
                                               weight_u, weight_v
   ConvTranspose2d (1, 3) up_kernel flipped (3, Cin, Cout)
                                            -> weight (Cin, Cout, 1, 3)
+  ConvTranspose1d kernel flipped (K, Cin, Cout)
+                                           -> weight (Cin, Cout, K)
   fused w2v pos_conv kernel (K, Cin/g, Cout)
                                            -> weight_v (Cout, Cin/g, K) = w,
                                               weight_g (1, 1, K) = ||w|| over Cout, Cin/g
@@ -516,4 +522,113 @@ def denoiser_from_jax(variables: dict) -> dict:
     _norm_act(out, "phase_decoder.phase_conv", 1, pd, "norm", "act")
     conv2d(out, "phase_decoder.phase_conv_r", pd["conv_r"])
     conv2d(out, "phase_decoder.phase_conv_i", pd["conv_i"])
+    return out
+
+
+# ---------- the AR stack (Text2Semantic) and its SSL front end (Hubert) ----------
+
+
+def t2s_from_jax(params: dict) -> dict:
+    """JAX Text2Semantic params -> port state_dict (the reference
+    Text2SemanticDecoder's names, the inverse of JAX convert_t2s)."""
+    ln = ("weight", "bias")
+    out = {}
+    linear(out, "bert_proj", params["bert_proj"])
+    for side in ("text", "audio"):
+        embedding(out, f"ar_{side}_embedding.word_embeddings",
+                  params[f"ar_{side}_embedding"])
+        out[f"ar_{side}_position.alpha"] = _t(params[f"{side}_pos_alpha"])
+    linear(out, "ar_predict_layer", params["ar_predict_layer"])
+    for i in range(_count(params, "layer")):
+        tree, p = params[f"layer_{i}"], f"h.layers.{i}"
+        out[f"{p}.self_attn.in_proj_weight"] = _t(tree["in_proj_weight"])
+        out[f"{p}.self_attn.in_proj_bias"] = _t(tree["in_proj_bias"])
+        linear(out, f"{p}.self_attn.out_proj", tree["out_proj"])
+        linear(out, f"{p}.linear1", tree["linear1"])
+        linear(out, f"{p}.linear2", tree["linear2"])
+        layer_norm(out, f"{p}.norm1", tree["norm1"], ln)
+        layer_norm(out, f"{p}.norm2", tree["norm2"], ln)
+    return out
+
+
+def hubert_from_jax(params: dict) -> dict:
+    """JAX Hubert params -> port state_dict (HF HubertModel names; the
+    fused positional conv as v = w, g = |w|)."""
+    ln = ("weight", "bias")
+    out = {}
+    fe = params["feature_extractor"]
+    for i in range(_count(fe, "conv")):
+        conv1d(out, f"feature_extractor.conv_layers.{i}.conv", fe[f"conv_{i}"])
+    layer_norm(out, "feature_extractor.conv_layers.0.layer_norm", fe["gn_0"], ln)
+    layer_norm(out, "feature_projection.layer_norm", params["fp_ln"], ln)
+    linear(out, "feature_projection.projection", params["fp_proj"])
+    w = np.transpose(np.asarray(params["pos_conv"]["kernel"], np.float32),
+                     (2, 1, 0))
+    p = "encoder.pos_conv_embed.conv"
+    pos_conv_weight_norm(out, p, w)
+    out[f"{p}.bias"] = _t(params["pos_conv"]["bias"])
+    layer_norm(out, "encoder.layer_norm", params["enc_ln"], ln)
+    for i in range(_count(params, "layer")):
+        tree, p = params[f"layer_{i}"], f"encoder.layers.{i}"
+        for name in ("q_proj", "k_proj", "v_proj", "out_proj"):
+            linear(out, f"{p}.attention.{name}", tree["attn"][name])
+        layer_norm(out, f"{p}.layer_norm", tree["attn_ln"], ln)
+        linear(out, f"{p}.feed_forward.intermediate_dense", tree["ff1"])
+        linear(out, f"{p}.feed_forward.output_dense", tree["ff2"])
+        layer_norm(out, f"{p}.final_layer_norm", tree["ffn_ln"], ln)
+    return out
+
+
+# ---------- the GPT prosody stack (GPTProsody, DiscreteVAE) ----------
+
+
+def conv_transpose1d(out, p, tree):
+    """A plain ConvTranspose1d: the flipped (K, Cin, Cout) kernel ->
+    weight (Cin, Cout, K)."""
+    out[_k(p, "weight")] = _t(np.transpose(np.asarray(tree["kernel"])[::-1],
+                                           (1, 2, 0)))
+    _bias(out, p, tree)
+
+
+def gpt_prosody_from_jax(params: dict) -> dict:
+    """JAX GPTProsody params -> the port's state_dict (names after the JAX
+    tree: h_{i} -> h.{i}, attn_{i} -> attn.{i}, scale -> weight)."""
+    ln = ("weight", "bias")
+    out = {}
+    ce = params["cond_encoder"]
+    conv1d(out, "cond_encoder.init", ce["init"])
+    for i in range(_count(ce, "attn")):
+        tree, p = ce[f"attn_{i}"], f"cond_encoder.attn.{i}"
+        layer_norm(out, f"{p}.norm", tree["norm"], ln)
+        conv1d(out, f"{p}.qkv", tree["qkv"])
+        conv1d(out, f"{p}.proj_out", tree["proj_out"])
+    embedding(out, "text_emb", params["text_emb"])
+    embedding(out, "mel_emb", params["mel_emb"])
+    out["text_pos"] = _t(params["text_pos"])
+    out["mel_pos"] = _t(params["mel_pos"])
+    for i in range(_count(params, "h")):
+        tree, p = params[f"h_{i}"], f"h.{i}"
+        for name in ("ln_1", "ln_2"):
+            layer_norm(out, f"{p}.{name}", tree[name], ln)
+        for name in ("c_attn", "c_proj", "mlp_fc", "mlp_proj"):
+            linear(out, f"{p}.{name}", tree[name])
+    layer_norm(out, "ln_f", params["ln_f"], ln)
+    linear(out, "mel_head", params["mel_head"])
+    return out
+
+
+def dvae_from_jax(variables: dict) -> dict:
+    """JAX DiscreteVAE variables {"params", "vq"} -> the port's state_dict
+    (enc_{i} -> enc.{i}, dec_{i} -> dec.{i}; the codebook's EMA buffers)."""
+    params, vq = variables["params"], variables["vq"]["codebook"]
+    out = {}
+    for i in range(_count(params, "enc")):
+        conv1d(out, f"enc.{i}", params[f"enc_{i}"])
+    for name in ("enc_out", "dec_in", "dec_out"):
+        conv1d(out, name, params[name])
+    for i in range(_count(params, "dec")):
+        conv_transpose1d(out, f"dec.{i}", params[f"dec_{i}"])
+    out["codebook.inited"] = _t(np.reshape(np.asarray(vq["inited"], np.float32), (1,)))
+    for name in ("cluster_size", "embed", "embed_avg"):
+        out[f"codebook.{name}"] = _t(vq[name])
     return out

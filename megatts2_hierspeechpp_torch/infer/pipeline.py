@@ -61,7 +61,7 @@ from megatts2_hierspeechpp_torch.models.vocoder import (
     HierVocoder,
     serving_state_dict,
 )
-from megatts2_hierspeechpp_torch.models.wav2vec2 import Wav2Vec2
+from megatts2_hierspeechpp_torch.models.wav2vec2 import KERNELS, Hubert, Wav2Vec2
 from megatts2_hierspeechpp_torch.ops.f0 import yin_f0
 from megatts2_hierspeechpp_torch.ops.stft import (
     istft,
@@ -751,6 +751,41 @@ def load_wav2vec2(path: str, device: str | torch.device = "cuda") -> Wav2Vec2:
     sd = torch.load(path, map_location="cpu", weights_only=True)
     return load_reference(Wav2Vec2(device="cpu"),
                           wav2vec2_state_dict(sd)).to(resolve_device(device))
+
+
+def hubert_state_dict(sd: dict) -> dict:
+    """An HF HubertModel state_dict in the port's names: the optional
+    `hubert.` prefix stripped, the positional conv's parametrizations
+    spelling (original0 / original1) renamed to weight_g / weight_v (the
+    same weight norm over the kernel axis)."""
+    sd = {k.removeprefix("hubert."): v for k, v in sd.items()}
+    base = "encoder.pos_conv_embed.conv.parametrizations.weight"
+    if f"{base}.original0" in sd:
+        conv = "encoder.pos_conv_embed.conv"
+        sd[f"{conv}.weight_g"] = sd.pop(f"{base}.original0")
+        sd[f"{conv}.weight_v"] = sd.pop(f"{base}.original1")
+    return sd
+
+
+def load_hubert(sd: dict, n_heads: int = 12,
+                device: str | torch.device = "cuda") -> Hubert:
+    """A Hubert of an HF HubertModel state_dict's widths and depth (the head
+    count is not recoverable from it) with its weights (hubert_state_dict),
+    on `device`."""
+    sd = hubert_state_dict(sd)
+    n_layers = max(int(k.split(".")[2]) for k in sd
+                   if k.startswith("encoder.layers.")) + 1
+    pos_v = sd["encoder.pos_conv_embed.conv.weight_v"]
+    hidden = sd["feature_projection.projection.bias"].shape[0]
+    model = Hubert(
+        hidden_size=hidden, n_heads=n_heads,
+        ffn_dim=sd["encoder.layers.0.feed_forward.intermediate_dense.bias"].shape[0],
+        n_layers=n_layers, pos_conv_kernel=pos_v.shape[2],
+        pos_conv_groups=hidden // pos_v.shape[1],
+        conv_dim=tuple(sd[f"feature_extractor.conv_layers.{i}.conv.weight"].shape[0]
+                       for i in range(len(KERNELS))),
+        device="cpu")
+    return load_reference(model, sd).to(resolve_device(device))
 
 
 def build_pipeline_from_reference_ckpts(

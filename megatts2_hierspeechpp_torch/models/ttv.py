@@ -363,6 +363,11 @@ class TTVModel(nn.Module):
         int32."""
         return self._prosody_codes(mel, mel_lengths)[0].int()
 
+    def extract_latent(self, x):
+        """Mel-pooled features (B, T, 20) -> RVQ codes (B, n_q, T) int32
+        (JAX TTVModel.extract_latent)."""
+        return self.quantizer.encode(x).transpose(0, 1).int()
+
     def infer_gt_dur(self, x_ids, tone, language, x_lengths, mel, mel_lengths,
                      dur, mrte_mel=None, mrte_mel_lengths=None):
         """Inference from ground-truth durations with the mel's own prosody

@@ -189,3 +189,107 @@ class Wav2Vec2(nn.Module):
         of layer `output_layer`."""
         feats = self.feature_extractor(x)
         return self.encoder(self.feature_projection(feats))
+
+
+# ---------- HuBERT (chinese-hubert-base family) ----------
+
+
+class GroupNormConvLayer(nn.Module):
+    """HF HubertGroupNormConvLayer (block 0): conv without bias ->
+    per-channel GroupNorm over time -> exact GELU, on (B, C, T)."""
+
+    def __init__(self, cin: int, cout: int, kernel: int, stride: int):
+        super().__init__()
+        self.conv = nn.Conv1d(cin, cout, kernel, stride=stride, bias=False)
+        self.layer_norm = nn.GroupNorm(cout, cout, eps=1e-5)
+
+    def forward(self, x):
+        return F.gelu(self.layer_norm(self.conv(x)))
+
+
+class NoLayerNormConvLayer(nn.Module):
+    """HF HubertNoLayerNormConvLayer (blocks 1-6): conv without bias ->
+    exact GELU."""
+
+    def __init__(self, cin: int, cout: int, kernel: int, stride: int):
+        super().__init__()
+        self.conv = nn.Conv1d(cin, cout, kernel, stride=stride, bias=False)
+
+    def forward(self, x):
+        return F.gelu(self.conv(x))
+
+
+class GroupNormConvFeatureExtractor(ConvFeatureExtractor):
+    """The group-norm variant of the conv extractor (HF *base* SSL models:
+    no conv bias, GroupNorm on block 0 only)."""
+
+    def __init__(self, conv_dim: Sequence[int] = (512,) * 7):
+        nn.Module.__init__(self)
+        cins = (1, *conv_dim[:-1])
+        self.conv_layers = nn.ModuleList(
+            (GroupNormConvLayer if i == 0 else NoLayerNormConvLayer)(ci, co, k, s)
+            for i, (ci, co, k, s) in enumerate(zip(cins, conv_dim, KERNELS,
+                                                   STRIDES)))
+
+
+class HubertEncoderLayer(nn.Module):
+    """Post-norm transformer layer (do_stable_layer_norm=False)."""
+
+    def __init__(self, dim: int, n_heads: int, ffn_dim: int):
+        super().__init__()
+        self.attention = Attention(dim, n_heads)
+        self.layer_norm = nn.LayerNorm(dim)
+        self.feed_forward = FeedForward(dim, ffn_dim)
+        self.final_layer_norm = nn.LayerNorm(dim)
+
+    def forward(self, x):
+        x = self.layer_norm(x + self.attention(x))
+        return self.final_layer_norm(x + self.feed_forward(x))
+
+
+class HubertEncoder(nn.Module):
+    """Positional conv, then the encoder LayerNorm, then the layers."""
+
+    def __init__(self, dim: int, n_heads: int, ffn_dim: int, n_layers: int,
+                 pos_kernel: int, pos_groups: int):
+        super().__init__()
+        self.pos_conv_embed = PosConvEmbed(dim, pos_kernel, pos_groups)
+        self.layer_norm = nn.LayerNorm(dim)
+        self.layers = nn.ModuleList(
+            HubertEncoderLayer(dim, n_heads, ffn_dim) for _ in range(n_layers))
+
+    def forward(self, x):
+        x = self.layer_norm(x + self.pos_conv_embed(x))
+        for layer in self.layers:
+            x = layer(x)
+        return x
+
+
+class Hubert(nn.Module):
+    """HF HubertModel, *base* variant (chinese-hubert-base widths by
+    default), inference only: the counterpart of the JAX `Hubert`
+    (models/wav2vec2.py:163-212). Parameter names are HF HubertModel's
+    (without its `hubert.` prefix). Built on the CPU with seeded weights
+    (nn/init.py), then moved to `device` ("cuda" by default; raises if CUDA
+    is absent)."""
+
+    def __init__(self, hidden_size: int = 768, n_heads: int = 12,
+                 ffn_dim: int = 3072, n_layers: int = 12,
+                 pos_conv_kernel: int = 128, pos_conv_groups: int = 16,
+                 conv_dim: Sequence[int] = (512,) * 7, seed: int = 0,
+                 device: str | torch.device = "cuda"):
+        super().__init__()
+        dev = resolve_device(device)
+        self.feature_extractor = GroupNormConvFeatureExtractor(tuple(conv_dim))
+        self.feature_projection = FeatureProjection(conv_dim[-1], hidden_size)
+        self.encoder = HubertEncoder(hidden_size, n_heads, ffn_dim, n_layers,
+                                     pos_conv_kernel, pos_conv_groups)
+        init_weights(self, seed)
+        self.eval().requires_grad_(False).to(dev)
+
+    def forward(self, x):
+        """x: (B, T) 16 kHz waveform -> last_hidden_state (B, T', hidden)
+        at 50 Hz."""
+        feats = self.feature_extractor(x)
+        return self.encoder(self.feature_projection(feats))
+

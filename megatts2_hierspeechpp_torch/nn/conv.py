@@ -6,6 +6,7 @@ reference checkpoint's names and torch layouts, so a reference `state_dict`
 loads as it is:
 
   Conv1d             weight (Cout, Cin/groups, K), bias (Cout,)
+  ConvTranspose1d    weight (Cin, Cout, K), bias (Cout,)
   WNConv1d           weight_g (Cout, 1, 1), weight_v (Cout, Cin, K), bias
   WNConvTranspose1d  weight_g (Cin, 1, 1), weight_v (Cin, Cout, K), bias
   WNConv2d           weight_g (Cout, 1, 1, 1), weight_v (Cout, Cin, Kh, Kw),
@@ -108,6 +109,23 @@ class Conv1d(nn.Module):
     def forward(self, x):
         return conv1d_op(x, self.weight, self.bias, self.stride, self.padding,
                          self.dilation, self.groups, self.dtype)
+
+
+class ConvTranspose1d(nn.Module):
+    """torch ConvTranspose1d on (B, T, C), float32: weight (Cin, Cout, K),
+    bias."""
+
+    def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
+                 stride: int = 1, padding: int = 0):
+        super().__init__()
+        self.stride, self.padding = stride, padding
+        self.weight = nn.Parameter(
+            torch.empty(in_channels, out_channels, kernel_size))
+        self.bias = nn.Parameter(torch.zeros(out_channels))
+
+    def forward(self, x):
+        return conv_transpose1d_op(x, self.weight, self.bias, self.stride,
+                                   self.padding)
 
 
 class WNConv1d(nn.Module):

@@ -13,8 +13,8 @@ saturates):
   weight-norm weight_g = ||weight_v||, so the effective weight is weight_v
   bias 0; snake alpha / beta 0 (log scale: alpha = beta = 1)
 
-fan_in is Cin*K for a conv and Cin*K/stride for a transposed conv. The
-acoustic stage's other parameters:
+fan_in is Cin*K for a conv and Cin*K/stride for a transposed conv (with or
+without weight norm). The acoustic stage's other parameters:
 
   embedding tables and relative-position tables  N(0, 1 / dim)
   LSTM weights and bias_ih  U(-1/sqrt(H), 1/sqrt(H)) (torch's default
@@ -46,6 +46,7 @@ from megatts2_hierspeechpp_torch.nn.activations import SnakeBeta
 from megatts2_hierspeechpp_torch.nn.attention import MultiHeadAttention
 from megatts2_hierspeechpp_torch.nn.conv import (
     Conv1d,
+    ConvTranspose1d,
     SNConv2d,
     WNConv1d,
     WNConv2d,
@@ -91,6 +92,9 @@ def init_weights(module: nn.Module, seed: int) -> None:
             normal_(m.weight_v, gain * m.weight_v[0].numel() ** -0.5)
             dims = tuple(range(1, m.weight_v.dim()))
             m.weight_g.copy_(m.weight_v.pow(2).sum(dim=dims, keepdim=True).sqrt())
+        elif isinstance(m, ConvTranspose1d):
+            cin, _, k = m.weight.shape
+            normal_(m.weight, gain * (cin * k / m.stride) ** -0.5)
         elif isinstance(m, WNConvTranspose1d):
             cin, _, k = m.weight_v.shape
             normal_(m.weight_v, gain * (cin * k / m.stride) ** -0.5)

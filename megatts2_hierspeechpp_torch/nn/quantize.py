@@ -50,6 +50,16 @@ class EuclideanCodebook(nn.Module):
     def decode(self, codes):
         return self.embed[codes.long()]
 
+    def forward(self, x, train: bool = False):
+        """x (..., D) -> (quantized in x's dtype, codes), both read from the
+        codebook as it is; with `train` one EMA step follows (the JAX
+        EuclideanCodebook.__call__'s order)."""
+        codes = self.encode(x)
+        quantized = self.decode(codes).to(x.dtype)
+        if train:
+            self.ema_update(x, codes)
+        return quantized, codes
+
     @torch.no_grad()
     def ema_update(self, x, codes) -> None:
         """One EMA step of the statistics from the batch x (..., D) and its
@@ -79,12 +89,9 @@ class VectorQuantization(nn.Module):
         the codebook takes one EMA step (after the codes and the quantized
         output are read from the old codebook), the output is
         straight-through and the commit loss is mean((sg(q) - x)^2)."""
-        cb = self._codebook
-        codes = cb.encode(x)
-        quantized = cb.decode(codes).to(x.dtype)
+        quantized, codes = self._codebook(x, train=train)
         if not train:
             return quantized, codes, x.new_zeros((), dtype=torch.float32)
-        cb.ema_update(x, codes)
         commit = (quantized - x).square().float().mean()
         return x + (quantized - x).detach(), codes, commit
 

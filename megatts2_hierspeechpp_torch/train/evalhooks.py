@@ -90,6 +90,22 @@ def make_s1_eval_fn(eval_batch: Dict[str, np.ndarray]) -> Callable:
     return eval_fn
 
 
+def make_ar_eval_fn(eval_batch: Dict[str, np.ndarray]) -> Callable:
+    """Text2Semantic's held-out CE loss (summed, as the training loss) and
+    accuracy, without dropout: scalars t2s_loss and t2s_acc_top10. The key
+    is the JAX hook's; the accuracy is the model's top-`top_k_acc` (3 at
+    the CLI's default), not top-10, as in JAX."""
+    def eval_fn(state, step: int, model_dir: str) -> Dict[str, float]:
+        b = _on(eval_batch, next(state.model.parameters()).device)
+        with torch.no_grad():  # no MaskSource is active: no dropout
+            out = state.model(b["x_ids"], b["x_lens"], b["y_ids"], b["y_lens"],
+                              b["bert_feature"])
+        return {"t2s_loss": float(out["loss"]),
+                "t2s_acc_top10": float(out["acc"])}
+
+    return eval_fn
+
+
 def make_vocoder_eval_fn(eval_batch: Dict[str, np.ndarray],
                          plot: bool = True) -> Callable:
     """Inference of the vocoder being trained, as built (HierVocoder.forward

@@ -92,6 +92,13 @@ def stamp_git_provenance(model_dir: str) -> None:
         f.write(h + "\n")
 
 
+def to_device(dev):
+    """A batch of numpy arrays -> the same dict of tensors on `dev` (the
+    `to_device` of run_training)."""
+    return lambda batch: {k: torch.from_numpy(v).to(dev)
+                          for k, v in batch.items()}
+
+
 def step_generator(seed: int, epoch: int, index: int) -> torch.Generator:
     """The CPU generator of step `index` of `epoch`."""
     s = np.random.SeedSequence([seed, epoch, index]).generate_state(1, np.uint64)
