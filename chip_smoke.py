@@ -218,13 +218,37 @@ Phases, in order; any failure exits non-zero:
      against a recompute on the card and the CPU); DiscreteVAE on a 10 s
      mel: encode / decode card against CPU (near ties allowed), one
      training forward with its EMA step within 1e-4. Phases 15-18 launch
-     none of the port's kernels (checked).
+     none of the port's kernels (checked);
+ 19. `dp_world1`: the six training CLIs (vocoder, s2, s1, SR, denoiser,
+     AR) at the published widths, 2 steps each at batch 2, first as on one
+     card, then under torchrun's variables at WORLD_SIZE 1 (an NCCL group
+     of one, every reduction of the data-parallel steps through it): each
+     launcher run's scalars and final state equal the plain run's, leaf
+     for leaf (cuDNN deterministic); step ms of both (the second step of
+     each is warm);
+ 20. `dp_gloo2` and `tp_decode`: two processes on the one card in a gloo
+     group (two NCCL ranks cannot share a card). One float32 step each of
+     the vocoder, s2 (k-means over both ranks' rows) and the denoiser at
+     the published widths on a global batch of two rows of unequal
+     lengths, one a rank: the ranks' states bitwise equal, the step within
+     the card-vs-CPU step gates of the one-process step at the same
+     global batch and draws, the vocoder kernels launched in a rank's
+     step. Then ProsodyLM (greedy, T = 500) and Text2Semantic (the 250
+     tokens of `ar_decode`'s sentence, top_k 3, seeded host draws) decoded
+     tensor-parallel, half the heads on each rank: tokens equal the
+     one-card decodes' (the plm_decode kernel, `t2s_decode`); host ms per
+     token of both;
+ 21. `mas`: monotonic alignment search, the torch version on the card
+     against the native C++ kernel at B = 8, 500 x 120 with ragged
+     lengths: equal paths, ms of both.
 Then the run's seconds, and one JSON line with every kernel's numbers (launches: the f32 rows
 from the tts requests of phase 5, or one float32 training step of phase 10
 where that count is larger, and the serve_trained request's beside them;
 the decode's float32 row also with its launches on the bf16-served
 request and in the 48 kHz infer_tts run;
-the decode's bf16 row from its batch decode of phase 3; the three _bf16
+the decode's bf16 row from its batch decode of phase 3; every row's
+launches in one rank's data-parallel vocoder step of phase 20
+(`launches_dp_step`); the three _bf16
 rows from one bf16_forward vocoder call, with their launches per bf16
 training step beside it; the triple's row also with its launches per SR
 training step and its SR training shapes), the card's name and power limit
@@ -4926,6 +4950,518 @@ def gpt_stack_phase(torch, dev, card):
     torch.cuda.empty_cache()
 
 
+# ---------- data / tensor parallel, MAS ----------
+
+DP_ROWS = 4             # dp_world1: utterances of each run's filelist at batch 2
+DP_OPTS = dict(batch_size=2, epochs=1, log_interval=1, save_interval=1000,
+               eval_interval=0)
+DP_WORLD = 2            # dp_gloo2 / tp_decode: gloo ranks, all on cuda:0
+DP_SEED = 11            # the one-process and the ranks' step draws
+DP_VOC_LENS = (64, 48)  # dp_gloo2's vocoder / s2 rows: frames (unequal lengths)
+TP_PLM_T = 500          # tp_decode: the ProsodyLM greedy decode's length
+ALLREDUCE_REPS = 200    # tp_decode: one gloo all_reduce timed alone, this many
+MAS_SHAPE = (8, 500, 120)   # mas: B, T_y, T_x (ragged lengths below them)
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def flat_items(obj, prefix=""):
+    """(path, leaf) of a nested state_dict (dicts, lists, tuples)."""
+    if isinstance(obj, dict):
+        for k, v in obj.items():
+            yield from flat_items(v, f"{prefix}{k}/")
+    elif isinstance(obj, (list, tuple)):
+        for i, v in enumerate(obj):
+            yield from flat_items(v, f"{prefix}{i}/")
+    else:
+        yield prefix[:-1], obj
+
+
+def state_diff(torch, a: dict, b: dict) -> dict:
+    """Leaves of two state_dicts that differ: path -> max abs difference
+    (tensors) or the two values."""
+    fa, fb = dict(flat_items(a)), dict(flat_items(b))
+    out = {}
+    for k in sorted(set(fa) | set(fb)):
+        x, y = fa.get(k), fb.get(k)
+        if isinstance(x, torch.Tensor) and isinstance(y, torch.Tensor):
+            if x.shape != y.shape or x.dtype != y.dtype:
+                out[k] = f"{tuple(x.shape)} {x.dtype} / {tuple(y.shape)} {y.dtype}"
+            elif not torch.equal(x, y):
+                out[k] = float((x.double() - y.double()).abs().max())
+        elif x != y:
+            out[k] = f"{x!r} / {y!r}"
+    return out
+
+
+def dp_world1_phase(torch, dev, tmp, corpus, card):
+    """The six training CLIs, 2 steps each (batch 2 on 4 utterances; AR at
+    grad_accum 2) at the published widths, first as they run on one card,
+    then under the launcher's variables (RANK 0, WORLD_SIZE 1, LOCAL_RANK
+    0, MASTER_ADDR / MASTER_PORT on this host), which start an NCCL group of
+    one: every gradient, statistic and metric reduction and the batch
+    padding run through NCCL. Each launcher run must equal its plain run:
+    the same scalars (time stamps aside) and the same final state, leaf for
+    leaf (cuDNN deterministic). The second step's ms of the two runs, each
+    warm from its first step, are the reductions' cost at world 1."""
+    import os
+
+    import torch.distributed as dist
+
+    from megatts2_hierspeechpp_torch.ar import trainer as ar_trainer
+    from megatts2_hierspeechpp_torch.cli import (
+        train_ar, train_denoiser, train_s1, train_s2, train_sr, train_vocoder)
+    from megatts2_hierspeechpp_torch.parallel import mesh
+    from megatts2_hierspeechpp_torch.train import denoiser as dnt
+    from megatts2_hierspeechpp_torch.train import s1, s2
+    from megatts2_hierspeechpp_torch.train import speechsr as srt
+    from megatts2_hierspeechpp_torch.train import vocoder as vt
+    from megatts2_hierspeechpp_torch.utils.config import load_hparams
+
+    if dist.is_initialized() or "WORLD_SIZE" in os.environ:
+        fail("dp_world1: a process group or launcher variables before the phase")
+    d = os.path.join(tmp, "dp_world1")
+    os.makedirs(d)
+    logs = os.path.join(d, "logs")
+    vsub = s_subset(corpus, os.path.join(d, "voc"), DP_ROWS,
+                    train_vocoder.BOUNDARIES)
+    vcfg = train_config(os.path.join(d, "voc.json"), load_hparams(TRAIN_CONFIG),
+                        vsub, **DP_OPTS)
+    ssub = s_subset(corpus, os.path.join(d, "s"), DP_ROWS)
+    scfg = train_config(os.path.join(d, "s.json"), load_hparams(S_CONFIG), ssub,
+                        eval_plots=False, **DP_OPTS)
+    ph, sem = ar_tables(corpus, os.path.join(d, "ar"), DP_ROWS)
+    short = ["--batch_size", "2", "--steps_per_epoch", "2", "--epochs", "1",
+             "--eval_interval", "0", "--log_interval", "1"]
+
+    def clis(tag):   # (name, CLI module, its step module, argv, batch keys)
+        run = ["--logs_dir", logs, "-m"]
+        return [
+            ("train_vocoder", train_vocoder, vt, ["-c", vcfg] + run + [f"voc{tag}"],
+             ("mask", "lengths")),
+            ("train_s2", train_s2, s2, ["-c", scfg] + run + [f"s2{tag}"],
+             ("mel", "mel_lengths")),
+            ("train_s1", train_s1, s1, ["-c", scfg, "--s2_ckpt",
+                                        os.path.join(logs, "s2plain", "ckpt")]
+             + run + [f"s1{tag}"], ("mel", "mel_lengths")),
+            ("train_sr", train_sr, srt, ["--data_dir", corpus, "--no_eval_plots"]
+             + short + run + [f"sr{tag}"], ("lo", None)),
+            ("train_denoiser", train_denoiser, dnt,
+             ["--data_dir", corpus, "--seg", "16000"] + short + run + [f"dn{tag}"],
+             ("clean", None)),
+            ("train_ar", train_ar, ar_trainer,
+             ["--phoneme_path", ph, "--semantic_path", sem, "--batch_size", "2",
+              "--grad_accum", "2", "--epochs", "1", "--log_interval", "1"]
+             + run + [f"ar{tag}"], ("y_ids", "y_lens")),
+        ]
+
+    out = {}
+    env = {"RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0",
+           "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(free_port())}
+    with deterministic_cudnn(torch):
+        for tag in ("plain", "launcher"):
+            if tag == "launcher":
+                os.environ.update(env)
+            try:
+                for name, cli, step_mod, argv, keys in clis(tag):
+                    t0 = time.perf_counter()
+                    state, recs, _ = run_cli(cli, step_mod, torch, [argv], keys=keys)
+                    with open(os.path.join(logs, argv[-1], "scalars.jsonl")) as f:
+                        scalars = [{k: v for k, v in json.loads(line).items()
+                                    if k not in ("time", "steps_per_sec")}
+                                   for line in f]
+                    out.setdefault(name, {})[tag] = {
+                        "state": state.state_dict(), "scalars": scalars,
+                        "step_ms": [r["ms"] for r in recs],
+                        "run_s": time.perf_counter() - t0,
+                        "world": mesh.world(),
+                        "backend": dist.get_backend() if dist.is_initialized() else None}
+                    del state
+            finally:
+                if tag == "launcher":
+                    if dist.is_initialized():
+                        dist.destroy_process_group()
+                    for k in env:
+                        os.environ.pop(k, None)
+    line = {"phase": "dp_world1", "card": card, "clis": {}}
+    bad = {}
+    for name, runs in out.items():
+        p, q = runs["plain"], runs["launcher"]
+        diff = state_diff(torch, p["state"], q["state"])
+        scal = p["scalars"] == q["scalars"]
+        line["clis"][name] = {
+            "steps": len(p["step_ms"]), "plain_step_ms": p["step_ms"],
+            "launcher_step_ms": q["step_ms"], "plain_run_s": p["run_s"],
+            "launcher_run_s": q["run_s"],
+            "launcher_world": q["world"], "launcher_backend": q["backend"],
+            "scalars_equal": scal,
+            "state_leaves": len(dict(flat_items(p["state"]))),
+            "state_leaves_differing": len(diff)}
+        if (not scal or diff or q["world"] != 1 or q["backend"] != "nccl"
+                or p["backend"] is not None
+                or len(p["step_ms"]) < 2):
+            bad[name] = {"scalars_equal": scal, "world": q["world"],
+                         "backend": q["backend"], "steps": len(p["step_ms"]),
+                         "diff": dict(list(diff.items())[:8])}
+        for s in p["scalars"]:
+            if not all(math.isfinite(v) for v in s.values()):
+                bad.setdefault(name, {})["non_finite"] = s
+    print(json.dumps(line), flush=True)
+    if bad:
+        fail(f"dp_world1: a launcher run differs from its plain run {bad}")
+
+
+def dp_build(torch, kind, dev, batch):
+    """A float32 training state of `kind` at the published widths, seeded;
+    s2's codebooks fit by k-means on `batch` (every rank's rows inside a
+    process group, cli/train_s2.kmeans_init)."""
+    from megatts2_hierspeechpp_torch.cli import train_denoiser, train_s2, train_vocoder
+    from megatts2_hierspeechpp_torch.utils.config import HParams, load_hparams
+
+    if kind == "vocoder":
+        h = HParams(**load_hparams(TRAIN_CONFIG).to_dict())
+        h.train.dtype = "fp32"
+        return train_vocoder.build_state(h, dev, h.train.seed)
+    if kind == "s2":
+        h = HParams(**load_hparams(S_CONFIG).to_dict())
+        h.train.dtype = "fp32"
+        state = train_s2.build_state(h, dev, h.train.seed, 10)
+        train_s2.kmeans_init(state.ttv, batch, h.train.seed)
+        return state
+    return train_denoiser.build_state(64, 64, 5e-4, 0.99, 10, dev, 1234)
+
+
+def dp_step(torch, kind, state, batch, dev):
+    """One step of `kind` on `batch` (numpy) with the draws of
+    Generator(DP_SEED): (metrics, {name: flat gradients}, {name: flat
+    statistics}, the stepped modules)."""
+    from megatts2_hierspeechpp_torch.cli import train_denoiser
+    from megatts2_hierspeechpp_torch.train import denoiser as dnt
+    from megatts2_hierspeechpp_torch.train import s2
+    from megatts2_hierspeechpp_torch.train import vocoder as vt
+    from megatts2_hierspeechpp_torch.utils.config import load_hparams
+
+    tb = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+    gen = torch.Generator().manual_seed(DP_SEED)
+    if kind == "vocoder":
+        hps = load_hparams(TRAIN_CONFIG)
+        step = vt.TrainStep(segment_frames=hps.train.segment_frames,
+                            c_mel=hps.train.c_mel, c_kl=hps.train.c_kl)
+        state, m = step.with_draws(state, tb, *step.draw(state, tb, gen))
+        mods = {"G": state.gen, "D": state.disc}
+        extra = {}
+    elif kind == "s2":
+        hps = load_hparams(S_CONFIG)
+        state, m = s2.TrainStep(c_mel=hps.train.c_mel, c_commit=hps.train.get(
+            "c_commit", 100.0))(state, tb, gen)
+        mods = {"G": state.ttv, "D": state.disc}
+        extra = {"rvq": torch.cat([b.flatten() for b in
+                                   state.ttv.quantizer.buffers()]),
+                 "u_v": torch.cat([b.flatten() for b in state.disc.buffers()])}
+    else:
+        state, m = dnt.TrainStep(train_denoiser.N_FFT, train_denoiser.HOP,
+                                 train_denoiser.WIN)(state, tb)
+        mods = {"G": state.model}
+        extra = {"batchnorm": torch.cat([
+            b.flatten().float() for n, b in state.model.named_buffers()
+            if n.endswith(("running_mean", "running_var"))])}
+    grads = {k: flat_grads(torch, mod.parameters()) for k, mod in mods.items()}
+    return ({k: float(v) for k, v in m.items()}, grads, extra, mods)
+
+
+def dp_rank(rank, world, plan):
+    """A dp_gloo2 / tp_decode rank on cuda:0 (gloo): each data-parallel
+    step of `plan` on this rank's rows, its errors against the one-process
+    step saved at plan's paths, the digest of its state, its kernel
+    launches and ms; then the tensor-parallel decodes of this rank's shards,
+    their tokens and ms; then one gloo all_reduce of a CUDA row of each
+    model's width timed alone (ALLREDUCE_REPS of them, host clock)."""
+    import torch
+
+    from megatts2_hierspeechpp_torch.ar import t2s
+    from megatts2_hierspeechpp_torch.device import resolve_device
+    from megatts2_hierspeechpp_torch.models.plm import ProsodyLM
+    from megatts2_hierspeechpp_torch.nn.decode import FedNoise
+    from megatts2_hierspeechpp_torch.ops import cuda_lib
+    from megatts2_hierspeechpp_torch.ops.plm_decode import plain_decode
+    from megatts2_hierspeechpp_torch.parallel.dryrun import digest
+    from megatts2_hierspeechpp_torch.parallel.tp import row_sum, shard_module
+
+    dev = resolve_device("cuda")
+    out = {}
+    for kind, batch, ref_path in plan["dp"]:
+        n = next(iter(batch.values())).shape[0] // world
+        rows = {k: np.ascontiguousarray(v[rank * n:(rank + 1) * n])
+                for k, v in batch.items()}
+        state = dp_build(torch, kind, dev, rows)
+        cuda_lib.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m, grads, extra, mods = dp_step(torch, kind, state, rows, dev)
+        ms = 1e3 * (time.perf_counter() - t0)
+        launches = dict(cuda_lib.LAUNCHES)
+        ref = torch.load(ref_path, map_location="cpu", weights_only=True)
+        out[kind] = {
+            "metrics": m, "ms": ms, "launches": launches,
+            "metric_rel_err": {k: abs(m[k] - v) / max(abs(v), 1e-30)
+                               for k, v in ref["metrics"].items()},
+            "grad_rel_l2": {k: float((g.cpu() - ref["grads"][k]).norm()
+                                     / ref["grads"][k].norm())
+                            for k, g in grads.items()},
+            "state_err_over_max": {k: float((x.cpu() - ref["extra"][k]).abs().max()
+                                            / ref["extra"][k].abs().max())
+                                   for k, x in extra.items()},
+            "digest": "".join(digest(mod) for mod in mods.values())}
+        del state, mods
+        torch.cuda.empty_cache()
+    tp = plan["tp"]
+    plm = shard_module(ProsodyLM(seed=99, device=dev), rank, world)
+    tc = torch.from_numpy(tp["tc"]).to(dev)
+    w = plm.packed()
+    plain_decode(w, tc[:, :8], plm.go_id, row_sum=row_sum)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    codes = plain_decode(w, tc, plm.go_id, row_sum=row_sum).cpu().numpy()
+    plm_ms = 1e3 * (time.perf_counter() - t0)
+    model = shard_module(t2s.Text2Semantic(**tp["t2s"], device=dev), rank, world)
+    inputs = [torch.from_numpy(v).to(dev) for v in tp["inputs"]]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tok, _ = t2s.t2s_decode(model, *inputs, max_new=AR_MAX_NEW, top_k=3,
+                            noise=FedNoise(tp["draws"]))
+    tok = tok.cpu().numpy()
+    t2s_ms = 1e3 * (time.perf_counter() - t0)
+    allreduce_ms = {}
+    for width in (w.wo.shape[1],   # d of each model: its row-parallel sums
+                  model.h.layers[0].self_attn.in_proj_weight.shape[1]):
+        y = torch.ones(1, width, device=dev)
+        row_sum(y)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(ALLREDUCE_REPS):
+            row_sum(y)
+        torch.cuda.synchronize()
+        allreduce_ms[str(width)] = 1e3 * (time.perf_counter() - t0) / ALLREDUCE_REPS
+    out["tp"] = {"plm_codes": codes, "plm_ms": plm_ms, "t2s_tokens": tok,
+                 "allreduce_ms": allreduce_ms,
+                 "t2s_steps": steps_run(tok[0], model.eos), "t2s_ms": t2s_ms,
+                 "in_proj_rows": int(model.h.layers[0].self_attn.in_proj_weight.shape[0])}
+    return out
+
+
+def dp_batches(torch, corpus):
+    """dp_gloo2's global batches (numpy), 2 rows each: the vocoder's and
+    s2's of two utterances cut to DP_VOC_LENS frames (unequal valid
+    lengths), the denoiser's of two 0.5 s clips at its CLI's noise."""
+    from megatts2_hierspeechpp_torch.cli import train_denoiser, train_vocoder
+    from megatts2_hierspeechpp_torch.data.dataset import (
+        DatasetConfig, SidecarDataset, collate)
+
+    ds = SidecarDataset(f"{corpus}/train_list.txt", DatasetConfig())
+    lens = ds.lengths()
+    first = next(i for i, n in enumerate(lens) if n >= DP_VOC_LENS[0])
+    idx = [first, next(i for i, n in enumerate(lens)
+                       if n >= DP_VOC_LENS[1] and i != first)]
+    t = DP_VOC_LENS[0]
+    full = train_vocoder.vocoder_batch(ds, idx)
+    cut = {"audio": 320 * t, "spec": t, "mel": t, "w2v": t, "f0": 4 * t,
+           "mask": t}
+    voc = {k: np.ascontiguousarray(full[k][:, :n]) for k, n in cut.items()}
+    voc["lengths"] = np.array(DP_VOC_LENS, np.int64)
+    short = DP_VOC_LENS[1]
+    for k, n in (("audio", 320 * short), ("spec", short), ("mel", short),
+                 ("w2v", short), ("f0", 4 * short), ("mask", short)):
+        voc[k][1, n:] = 0
+    s2b = cut_batch(collate([ds[i] for i in idx]), t)
+    for k in ("w2v_lengths", "mel_lengths"):
+        s2b[k] = np.array(DP_VOC_LENS, np.int32)
+    s2b["pitch_lengths"] = 4 * s2b["mel_lengths"]
+    for k, n in (("w2v", short), ("mel", short), ("pitch", 4 * short)):
+        s2b[k][1, n:] = 0
+    wavs = train_denoiser.load_wavs(corpus)
+    dn = next(train_denoiser.make_batch_iter(wavs, DN_CPU[0], DN_CPU[1], 0.0,
+                                             15.0, DP_SEED, 1)(0))
+    return {"vocoder": voc, "s2": s2b, "denoiser": dn}
+
+
+def dp_gloo2_phase(torch, dev, tmp, corpus, card):
+    """`dp_gloo2` and `tp_decode`: DP_WORLD processes on cuda:0 in one gloo
+    group (two NCCL ranks cannot share a card; gloo takes CUDA tensors).
+
+    dp_gloo2: one float32 step each of the vocoder, s2 and the denoiser at
+    the published widths on a global batch of 2 rows, one to each rank:
+    every rank's state bitwise equal to the other's after the step (the
+    sha256 of its parameters and buffers), and the step against the
+    one-process card step at the same global batch and draws within the
+    card-vs-CPU step gates (metrics 1e-4 relative, all G / all D gradients
+    1e-3 relative L2, the RVQ statistics, u / v and BatchNorm statistics
+    1e-5 x max); the vocoder kernels' launches in a rank's step.
+
+    tp_decode: the ProsodyLM at its defaults (d 276, 4 layers, 4 heads) and
+    the Text2Semantic of cli/train_ar (512 x 12 layers, 8 heads), each rank
+    holding half of the heads of every layer: the greedy T = 500 decode's
+    codes equal the one-card `decode`'s (the plm_decode kernel), and
+    `ar_decode`'s 250-token top-k 3 sentence from seeded host draws equals
+    one-card `t2s_decode`'s tokens; host ms per token of both. Returns the
+    vocoder's launches in one rank's step."""
+    import os
+
+    from megatts2_hierspeechpp_torch.ar import t2s
+    from megatts2_hierspeechpp_torch.cli.prepare_text import clean_phonemes
+    from megatts2_hierspeechpp_torch.data import text as frontend
+    from megatts2_hierspeechpp_torch.models.plm import ProsodyLM, decode
+    from megatts2_hierspeechpp_torch.nn.decode import FedNoise
+    from megatts2_hierspeechpp_torch.ops import cuda_lib
+    from megatts2_hierspeechpp_torch.parallel.dryrun import spawn
+
+    d = os.path.join(tmp, "dp_gloo2")
+    os.makedirs(d)
+    batches = dp_batches(torch, corpus)
+    plan_dp, ref_ms = [], {}
+    for kind, batch in batches.items():
+        state = dp_build(torch, kind, dev, batch)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m, grads, extra, _ = dp_step(torch, kind, state, batch, dev)
+        ref_ms[kind] = 1e3 * (time.perf_counter() - t0)
+        path = os.path.join(d, f"{kind}.pt")
+        torch.save({"metrics": m, "grads": {k: v.cpu() for k, v in grads.items()},
+                    "extra": {k: v.cpu() for k, v in extra.items()}}, path)
+        plan_dp.append((kind, batch, path))
+        del state, grads, extra
+        torch.cuda.empty_cache()
+
+    rng = np.random.default_rng(23)
+    tc = rng.standard_normal((1, TP_PLM_T, 256)).astype(np.float32)
+    build = dict(phoneme_vocab_size=frontend.N_VOCAB * 4, seed=AR_SEED)
+    rng = np.random.default_rng(11)      # ar_decode's sentence and draws
+    ids = [ar_text(frontend, clean_phonemes, rng, f / 50)
+           for f in REQUEST_FRAMES][-1]
+    rng = np.random.default_rng(21)
+    inputs = (np.array([ids], np.int64),
+              rng.standard_normal((1, len(ids), 1024)).astype(np.float32),
+              rng.integers(0, 1024, (1, AR_PROMPT)))
+    draws = gumbel_draws(rng, AR_MAX_NEW, (1, 3))
+    with torch.inference_mode():
+        plm = ProsodyLM(seed=99, device=dev)
+        tct = torch.from_numpy(tc).to(dev)
+        cuda_lib.reset_launches()
+        decode(plm, tct)
+        plm_codes, plm_ms = event_ms(torch, lambda: decode(plm, tct))
+        plm_launches = cuda_lib.LAUNCHES["plm_decode"]
+        model = t2s.Text2Semantic(**build, device=dev)
+        on = [torch.from_numpy(v).to(dev) for v in inputs]
+        (tok, _), t2s_ms = event_ms(torch, lambda: t2s.t2s_decode(
+            model, *on, max_new=AR_MAX_NEW, top_k=3, noise=FedNoise(draws)))
+        tok = tok.cpu().numpy()
+        steps = steps_run(tok[0], model.eos)
+        del plm, model
+    torch.cuda.empty_cache()
+    plan = {"dp": plan_dp, "tp": {"tc": tc, "t2s": build, "inputs": inputs,
+                                  "draws": draws}}
+    t0 = time.perf_counter()
+    ranks = spawn(dp_rank, DP_WORLD, (plan,), timeout=600, store_dir=d)
+    spawn_s = time.perf_counter() - t0
+
+    bad = {}
+    line = {"phase": "dp_gloo2", "card": card, "world": DP_WORLD,
+            "backend": "gloo", "device": "cuda:0 (every rank)",
+            "rows_per_rank": 1, "spawn_s": spawn_s, "steps": {},
+            "tolerance": {"metric": S_LOSS_TOL, "grad": S_GRAD_TOL,
+                          "state": S_VQ_TOL}}
+    for kind in batches:
+        rs = [r[kind] for r in ranks]
+        equal = len({r["digest"] for r in rs}) == 1
+        line["steps"][kind] = {
+            "one_process_ms": ref_ms[kind], "rank_ms": [r["ms"] for r in rs],
+            "ranks_bitwise_equal": equal, "metrics": rs[0]["metrics"],
+            "metric_rel_err": rs[0]["metric_rel_err"],
+            "grad_rel_l2": rs[0]["grad_rel_l2"],
+            "state_err_over_max": rs[0]["state_err_over_max"],
+            "launches_rank0": {k: v for k, v in rs[0]["launches"].items() if v}}
+        errs = rs[0]
+        if not (equal and max(errs["metric_rel_err"].values()) <= S_LOSS_TOL
+                and max(errs["grad_rel_l2"].values()) <= S_GRAD_TOL
+                and max(errs["state_err_over_max"].values(), default=0.0) <= S_VQ_TOL
+                and all(math.isfinite(v) for v in errs["metrics"].values())):
+            bad[kind] = line["steps"][kind]
+    voc = ranks[0]["vocoder"]["launches"]
+    if min(voc[k] for k in TRAIN_KERNELS) < 1:
+        bad["vocoder launches"] = voc
+    print(json.dumps(line), flush=True)
+
+    tps = [r["tp"] for r in ranks]
+    plm_codes = plm_codes.cpu().numpy()
+    plm_equal = [bool(np.array_equal(r["plm_codes"], plm_codes)) for r in tps]
+    t2s_equal = [bool(np.array_equal(r["t2s_tokens"], tok)) for r in tps]
+    tline = {"phase": "tp_decode", "card": card, "world": DP_WORLD,
+             "backend": "gloo", "device": "cuda:0 (every rank)",
+             "plm": {"T": TP_PLM_T, "heads_per_rank": 2,
+                     "one_card_kernel_ms": plm_ms,
+                     "one_card_ms_per_token": plm_ms / TP_PLM_T,
+                     "one_card_kernel_launches": plm_launches,
+                     "tp_host_ms": [r["plm_ms"] for r in tps],
+                     "tp_host_ms_per_token": [r["plm_ms"] / TP_PLM_T for r in tps],
+                     "codes_equal": plm_equal,
+                     "agreement": [float((r["plm_codes"] == plm_codes).mean())
+                                   for r in tps]},
+             "t2s": {"max_new": AR_MAX_NEW, "top_k": 3, "steps": steps,
+                     "heads_per_rank": 4,
+                     "in_proj_rows_per_rank": [r["in_proj_rows"] for r in tps],
+                     "one_card_ms": t2s_ms, "one_card_ms_per_token": t2s_ms / steps,
+                     "tp_host_ms": [r["t2s_ms"] for r in tps],
+                     "tp_host_ms_per_token": [r["t2s_ms"] / r["t2s_steps"] for r in tps],
+                     "tokens_equal": t2s_equal},
+             "allreduce_ms": {"reps": ALLREDUCE_REPS,
+                              "per_rank": [r["allreduce_ms"] for r in tps],
+                              "note": "one gloo all_reduce of a (1, width) "
+                                      "CUDA float32 tensor, host clock"}}
+    print(json.dumps(tline), flush=True)
+    if not (all(plm_equal) and all(t2s_equal)):
+        bad["tp_decode"] = {"plm": plm_equal, "t2s": t2s_equal}
+    if bad:
+        fail(f"dp_gloo2 / tp_decode: {bad}")
+    return voc
+
+
+def mas_phase(torch, dev, card):
+    """`mas`: ops/monotonic_align.maximum_path on the card against the
+    native C++ kernel (ops/mas_native, built with g++) at MAS_SHAPE with
+    ragged lengths: the paths exactly equal; ms of both."""
+    from megatts2_hierspeechpp_torch.ops import mas_native
+    from megatts2_hierspeechpp_torch.ops.monotonic_align import maximum_path
+
+    b, t_y, t_x = MAS_SHAPE
+    rng = np.random.default_rng(41)
+    value = rng.standard_normal((b, t_y, t_x)).astype(np.float32)
+    t_ys = rng.integers(t_y // 2, t_y + 1, b).astype(np.int32)
+    t_ys[0] = t_y
+    t_xs = np.minimum(rng.integers(t_x // 2, t_x + 1, b), t_ys).astype(np.int32)
+    t_xs[0] = t_x
+    args = [torch.from_numpy(a).to(dev) for a in (value, t_ys, t_xs)]
+    maximum_path(*args)
+    path, ms = event_ms(torch, lambda: maximum_path(*args))
+    mas_native.maximum_path(value, t_ys, t_xs)
+    t0 = time.perf_counter()
+    want = mas_native.maximum_path(value, t_ys, t_xs)
+    native_ms = 1e3 * (time.perf_counter() - t0)
+    got = path.cpu().numpy().astype(np.int32)
+    equal = bool(np.array_equal(got, want))
+    print(json.dumps({"phase": "mas", "card": card, "shape": list(MAS_SHAPE),
+                      "t_ys": t_ys.tolist(), "t_xs": t_xs.tolist(),
+                      "card_ms": ms, "native_cpu_ms": native_ms,
+                      "paths_equal": equal,
+                      "cells_differing": int((got != want).sum())}), flush=True)
+    if not equal or got.sum() != t_ys.sum():
+        fail("mas: the card's paths differ from the native kernel's")
+
+
 def main() -> int:
     import torch
 
@@ -5021,6 +5557,12 @@ def main() -> int:
         clock("train_ar")
         gpt_stack_phase(torch, dev, card)
         clock("gpt_stack")
+        dp_world1_phase(torch, dev, tmp, corpus, card)
+        clock("dp_world1")
+        dp_launches = dp_gloo2_phase(torch, dev, tmp, corpus, card)
+        clock("dp_gloo2")
+    mas_phase(torch, dev, card)
+    clock("mas")
     torch.cuda.empty_cache()
     new_shapes_phase(torch, dev, shapes)
 
@@ -5042,6 +5584,7 @@ def main() -> int:
             "launches_from": ("models/plm.decode, bf16, B=4 per row"
                               if key == "plm_decode_bf16" else
                               "tts requests, phase 5"),
+            "launches_dp_step": dp_launches.get(key, 0),
         })
         if key in BF16_KERNELS:
             out[-1].update(

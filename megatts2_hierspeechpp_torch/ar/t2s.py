@@ -47,6 +47,7 @@ from megatts2_hierspeechpp_torch.nn.decode import (
 )
 from megatts2_hierspeechpp_torch.nn.init import init_weights
 from megatts2_hierspeechpp_torch.ops.plm_decode import sine_positions
+from megatts2_hierspeechpp_torch.parallel import mesh
 
 BERT_DIM = 1024
 
@@ -218,7 +219,8 @@ class Text2Semantic(nn.Module):
         hit = (logits.topk(self.top_k_acc, dim=-1).indices
                == targets[..., None]).any(-1)
         valid = targets != self.eos
-        acc = (hit & valid).sum() / valid.sum().clamp_min(1)
+        # in a data-parallel step, this rank's share of the global ratio
+        acc = (hit & valid).sum() / mesh.batch_sum(valid.sum()).clamp_min(1)
         return {"loss": loss, "acc": acc, "logits": logits, "targets": targets}
 
     def prefix_logits(self, x_ids, bert_feature, y_ids):
@@ -253,8 +255,9 @@ def t2s_decode(model: Text2Semantic, x_ids, bert_feature, prompts,
     lengths (B,) int32, the tokens before EOS). `noise(shape)` gives the
     Gumbel draw of each step (default: GumbelNoise seeded 0 on x_ids'
     device)."""
-    nl, h, eos = model.n_layers, model.n_heads, model.eos
-    hd = model.hidden_dim // h
+    nl, eos = model.n_layers, model.eos
+    # the heads a layer holds (a tensor-parallel shard holds some of them)
+    h, hd = model.h.layers[0].self_attn.n_heads, model.h.layers[0].self_attn.hd
     dev = x_ids.device
     noise = default_noise(dev) if noise is None else noise
     b, x_len = x_ids.shape

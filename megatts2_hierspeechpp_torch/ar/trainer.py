@@ -11,6 +11,12 @@ inside an accumulation equals the run that was never stopped.
 Dropout masks (p_dropout > 0; the CLI's default is 0) come from a generator
 on the batch's device seeded by one draw from the loop's per-step CPU
 generator, as the s1 / s2 trainers'.
+
+Data parallel (parallel/mesh.py): each rank accumulates its own gradients;
+the buffer is summed over the ranks only when the update is applied (the
+CE is a sum over every position of the global batch, so its gradient is
+the ranks' sum, not their mean). The loss is summed and the accuracy
+divides by the global count into the metrics.
 """
 from __future__ import annotations
 
@@ -22,6 +28,7 @@ import torch
 from megatts2_hierspeechpp_torch.ar.scaled_adam import ScaledAdam
 from megatts2_hierspeechpp_torch.ar.t2s import Text2Semantic
 from megatts2_hierspeechpp_torch.nn.basic import dropout_masks
+from megatts2_hierspeechpp_torch.parallel import mesh
 from megatts2_hierspeechpp_torch.train.s2 import device_masks
 
 BATCH_KEYS = ("x_ids", "x_lens", "y_ids", "y_lens", "bert_feature")
@@ -66,6 +73,11 @@ class TrainStep:
 
     def __call__(self, state: ARTrainState, batch: Dict,
                  generator: torch.Generator):
+        with mesh.global_batch():
+            return self._step(state, batch, generator)
+
+    def _step(self, state: ARTrainState, batch: Dict,
+              generator: torch.Generator):
         model, opt = state.model, state.opt
         masks = device_masks(generator, batch["x_ids"].device)
         model.train()
@@ -80,10 +92,14 @@ class TrainStep:
                     a.add_(p.grad)
             state.accum_count += 1
             if state.accum_count >= self.grad_accum:
-                opt.step([a / self.grad_accum for a in state.accum])
+                # the CE is a sum over the batch: the global gradient is the
+                # sum of the ranks', reduced once, when the update is made
+                accum = mesh.all_sum(state.accum)
+                opt.step([a / self.grad_accum for a in accum])
                 for a in state.accum:
                     a.zero_()
                 state.accum_count = 0
         state.step += 1
-        return state, {"loss/t2s": out["loss"].detach(),
-                       "acc/t2s": out["acc"].detach()}
+        metrics = mesh.reduce_metrics({"loss/t2s": out["loss"],
+                                       "acc/t2s": out["acc"]}, average=False)
+        return state, {k: v.detach() for k, v in metrics.items()}

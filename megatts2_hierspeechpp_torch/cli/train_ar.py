@@ -8,12 +8,22 @@ warmup-cosine schedule (peak_lr 1e-2, from and to peak_lr / 100, warmup
 1234, collate rounding 64, the bucket boundaries [0, 200, 400, 700, 1000,
 1400] of DistributedBucketSampler at one replica, the eval hook on the last
 4 items every 100 micro-steps, checkpoints every 5000 and at each epoch's
-end. One card.
+end. One card, or several under torchrun (below).
 
 Deliberate additions, as the port's other CLIs: `--device` (default
 "cuda"; raises without CUDA), `--log_interval` (default 20, the JAX CLI's
 fixed value) and `main(argv)`. A resumed run starts at the epoch of its
 micro-step count, as the port's other CLIs do.
+
+Data parallel (parallel/mesh.py): launched by torchrun (`torchrun
+--nproc_per_node n -m megatts2_hierspeechpp_torch.cli.train_ar ...`), each
+rank takes cuda:LOCAL_RANK and the sampler's rank-th share of each epoch's
+batches (--batch_size rows each, as a JAX device; arrays zero-padded to the
+largest of any rank's, so that the ranks' rows form one global batch); the
+accumulation buffer is summed over the ranks when an update is applied; the
+steps reduce over the ranks, rank 0 writes the run directory, every rank
+resumes from it. Without the launcher's variables the CLI runs on one card
+as before.
 
 Usage: python -m megatts2_hierspeechpp_torch.cli.train_ar \
     --phoneme_path 2-name2text.txt --semantic_path 6-name2semantic.tsv -m exp_ar
@@ -33,7 +43,7 @@ from megatts2_hierspeechpp_torch.ar.scaled_adam import (
 from megatts2_hierspeechpp_torch.ar.t2s import Text2Semantic
 from megatts2_hierspeechpp_torch.data import text as text_frontend
 from megatts2_hierspeechpp_torch.data.dataset import DistributedBucketSampler
-from megatts2_hierspeechpp_torch.device import resolve_device
+from megatts2_hierspeechpp_torch.parallel import mesh
 from megatts2_hierspeechpp_torch.train import checkpoints as ckpt_lib
 from megatts2_hierspeechpp_torch.train.evalhooks import make_ar_eval_fn
 from megatts2_hierspeechpp_torch.train.loop import run_training, to_device
@@ -75,7 +85,7 @@ def main(argv=None):
     p.add_argument("--device", default="cuda")
     args = p.parse_args(argv)
 
-    dev = resolve_device(args.device)
+    dev = mesh.init_distributed(args.device)
     model_dir = os.path.join(args.logs_dir, args.model)
     os.makedirs(model_dir, exist_ok=True)
 
@@ -84,7 +94,8 @@ def main(argv=None):
     log.info("AR dataset: %d items", len(ds))
     sampler = DistributedBucketSampler(ds.lengths(), args.batch_size,
                                        boundaries=list(BOUNDARIES),
-                                       seed=args.seed)
+                                       num_replicas=mesh.world(),
+                                       rank=mesh.rank(), seed=args.seed)
 
     state = build_state(args, dev)
     if ckpt_lib.restore(os.path.join(model_dir, "ckpt"), state) is not None:

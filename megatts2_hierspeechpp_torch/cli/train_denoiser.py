@@ -2,7 +2,7 @@
 
 The port's counterpart of `megatts2_hierspeechpp_tpu/cli/train_denoiser.py`
 (the MP-SENet loss surface of reference denoiser/generator.py:150-170) over
-train/denoiser.py. One card.
+train/denoiser.py. One card, or several under torchrun (below).
 
 Data: clean 16 kHz wavs, every *.wav in --data_dir; the last 4 are held out
 for the eval when there are more than 4. Noisy inputs are made per segment
@@ -19,6 +19,15 @@ Differences from the JAX CLI:
   - a resumed run starts at the epoch its step count is in (the JAX CLI
     starts again at epoch 0).
 
+Data parallel (parallel/mesh.py): launched by torchrun (`torchrun
+--nproc_per_node n -m megatts2_hierspeechpp_torch.cli.train_denoiser ...`),
+each rank takes cuda:LOCAL_RANK and its rows of each global batch: every
+rank draws the JAX CLI's global batch (--batch_size rows per rank) from the
+same seeded stream, and rank r keeps rows r x batch_size to (r + 1) x
+batch_size; the steps reduce over the ranks, rank 0 writes the run
+directory, every rank resumes from it. Without the launcher's variables the
+CLI runs on one card as before.
+
 Usage: python -m megatts2_hierspeechpp_torch.cli.train_denoiser \
     --data_dir <corpus> -m <run> [--device cuda]
 """
@@ -31,8 +40,8 @@ import os
 import numpy as np
 import torch
 
-from megatts2_hierspeechpp_torch.device import resolve_device
 from megatts2_hierspeechpp_torch.models.denoiser import MPNet
+from megatts2_hierspeechpp_torch.parallel import mesh
 from megatts2_hierspeechpp_torch.train import checkpoints as ckpt_lib
 from megatts2_hierspeechpp_torch.train import denoiser as dnt
 from megatts2_hierspeechpp_torch.train.evalhooks import make_denoiser_eval_fn
@@ -125,7 +134,7 @@ def main(argv=None):
     p.add_argument("--device", default="cuda")
     args = p.parse_args(argv)
 
-    dev = resolve_device(args.device)
+    dev = mesh.init_distributed(args.device)
     model_dir = os.path.join(args.logs_dir, args.model)
     os.makedirs(model_dir, exist_ok=True)
 
@@ -139,15 +148,19 @@ def main(argv=None):
     state = build_state(args.dense_channel, args.attn_chunk, args.lr,
                         args.lr_decay, args.steps_per_epoch, dev, args.seed)
     ckpt_lib.restore(os.path.join(model_dir, "ckpt"), state)
-    batches = make_batch_iter(wavs, args.batch_size, args.seg, args.snr_lo,
-                              args.snr_hi, args.seed, args.steps_per_epoch)
+    batches = make_batch_iter(wavs, args.batch_size * mesh.world(), args.seg,
+                              args.snr_lo, args.snr_hi, args.seed,
+                              args.steps_per_epoch)
     # a fixed held-out batch at a fixed SNR, so evals compare across steps
     ev = next(make_batch_iter(ev_wavs, EVAL_ROWS, args.seg, EVAL_SNR_DB,
                               EVAL_SNR_DB, args.seed + 999, 1)(0))
     eval_fn = make_denoiser_eval_fn(ev, N_FFT, HOP, WIN)
 
-    def to_device(batch):
-        return {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+    rows = slice(mesh.rank() * args.batch_size,
+                 (mesh.rank() + 1) * args.batch_size)
+
+    def to_device(batch):   # this rank's rows of the global batch
+        return {k: torch.from_numpy(v[rows]).to(dev) for k, v in batch.items()}
 
     return run_training(
         state, dnt.TrainStep(N_FFT, HOP, WIN), batches, model_dir,

@@ -5,7 +5,7 @@ The port's counterpart of `megatts2_hierspeechpp_tpu/cli/train_s1.py`
 a port s2 run's checkpoint directory (`<logs>/<run>/ckpt`, its latest
 step), or a reference-named `.pth` state_dict (a reference checkpoint's
 "model" entry, or the state_dict itself), which the port loads as it is.
-One card.
+One card, or several under torchrun (below).
 
 As the JAX CLI: the s2 sampler and collate (pad_multiple 64), AdamW with
 the per-epoch decay at steps_per_epoch 1000, the loop, checkpoints and
@@ -15,6 +15,15 @@ model.plm_layers, where present, cuts the PLM's depth (default 4).
 train.dtype as cli/train_s2.py ("bf16" by default): the frozen TTV and the
 PLM both compute in it (JAX cli/train_s1.py:87-90), the PLM's parameters
 and optimizer state stay float32.
+
+Data parallel (parallel/mesh.py): launched by torchrun (`torchrun
+--nproc_per_node n -m megatts2_hierspeechpp_torch.cli.train_s1 ...`), each
+rank takes cuda:LOCAL_RANK and the sampler's rank-th share of each epoch's
+batches (train.batch_size rows each, as a JAX device; arrays zero-padded to
+the largest of any rank's, so that the ranks' rows form one global batch);
+the steps reduce over the ranks, rank 0 writes the run directory, every rank
+resumes from it. Without the launcher's variables the CLI runs on one card
+as before.
 
 Usage: python -m megatts2_hierspeechpp_torch.cli.train_s1 \
     -c configs/config.json -m <run> --s2_ckpt logs/<s2 run>/ckpt
@@ -40,9 +49,9 @@ from megatts2_hierspeechpp_torch.data.dataset import (
     SidecarDataset,
     collate,
 )
-from megatts2_hierspeechpp_torch.device import resolve_device
 from megatts2_hierspeechpp_torch.models.plm import ProsodyLM
 from megatts2_hierspeechpp_torch.models.ttv import TTVModel, build_ttv
+from megatts2_hierspeechpp_torch.parallel import mesh
 from megatts2_hierspeechpp_torch.train import checkpoints as ckpt_lib
 from megatts2_hierspeechpp_torch.train import s1
 from megatts2_hierspeechpp_torch.train.evalhooks import make_s1_eval_fn
@@ -101,16 +110,18 @@ def main(argv=None):
 
     hps = load_hparams(args.config)
     compute_dtype(hps)
-    dev = resolve_device(args.device)
+    dev = mesh.init_distributed(args.device)
     model_dir = os.path.join(args.logs_dir, args.model)
     os.makedirs(model_dir, exist_ok=True)
-    save_hparams(hps, os.path.join(model_dir, "config.json"))
+    if mesh.is_main():
+        save_hparams(hps, os.path.join(model_dir, "config.json"))
 
     ds_cfg = DatasetConfig()
     ds = SidecarDataset(hps.data.training_files, ds_cfg)
     sampler = DistributedBucketSampler(ds.lengths(), hps.train.batch_size,
                                        boundaries=list(BOUNDARIES),
-                                       seed=hps.train.seed)
+                                       num_replicas=mesh.world(),
+                                       rank=mesh.rank(), seed=hps.train.seed)
     collate_fn = partial(collate,
                          pad_multiple=int(hps.train.get("pad_multiple", 64)))
     first = collate_fn([ds[i] for i in sampler.epoch_batches(0)[0]])

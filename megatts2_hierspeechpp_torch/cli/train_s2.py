@@ -2,14 +2,16 @@
 
 The port's counterpart of `megatts2_hierspeechpp_tpu/cli/train_s2.py`
 (reference train_ms.py). It reads the sidecar features of a filelist
-(cli/make_synth_corpus.py writes such a corpus). One card.
+(cli/make_synth_corpus.py writes such a corpus). One card, or several
+under torchrun (below).
 
   - SidecarDataset + DistributedBucketSampler with the JAX boundaries;
     `collate` pads frames to a multiple of train.pad_multiple (64);
   - a training build of TTVModel (seeded train.seed) and the
     MultiResSpecDiscriminator (train.seed + 1), AdamW for each;
   - on a fresh run, k-means fits the RVQ codebooks on the first batch's
-    quantizer inputs (`pre_vq_features`, masked frames left out); a
+    quantizer inputs (`pre_vq_features`, masked frames left out; every
+    rank's first batch under torchrun, then rank 0's fit is broadcast); a
     resumed run keeps its checkpoint's;
   - the loop, checkpoints (torch.save, keep 3) and resume, the s2 eval hook
     every train.eval_interval steps (train.eval_plots false: scalars only,
@@ -33,6 +35,15 @@ each epoch from (train.seed, epoch), so a run resumed at an epoch boundary
 sees the batches a straight run would (the JAX CLI's rng runs on from
 wherever the restart left it).
 
+Data parallel (parallel/mesh.py): launched by torchrun (`torchrun
+--nproc_per_node n -m megatts2_hierspeechpp_torch.cli.train_s2 ...`), each
+rank takes cuda:LOCAL_RANK and the sampler's rank-th share of each epoch's
+batches (train.batch_size rows each, as a JAX device; arrays zero-padded to
+the largest of any rank's, so that the ranks' rows form one global batch);
+the steps reduce over the ranks, rank 0 writes the run directory, every rank
+resumes from it. Without the launcher's variables the CLI runs on one card
+as before.
+
 Usage: python -m megatts2_hierspeechpp_torch.cli.train_s2 \
     -c configs/config.json -m <run> [--logs_dir logs] [--device cuda]
 """
@@ -53,12 +64,12 @@ from megatts2_hierspeechpp_torch.data.dataset import (
     SidecarDataset,
     collate,
 )
-from megatts2_hierspeechpp_torch.device import resolve_device
 from megatts2_hierspeechpp_torch.models.discriminators import (
     MultiResSpecDiscriminator,
 )
 from megatts2_hierspeechpp_torch.models.ttv import TTVModel, build_ttv
 from megatts2_hierspeechpp_torch.ops.kmeans import init_rvq_state
+from megatts2_hierspeechpp_torch.parallel import mesh
 from megatts2_hierspeechpp_torch.train import checkpoints as ckpt_lib
 from megatts2_hierspeechpp_torch.train import s2
 from megatts2_hierspeechpp_torch.train.evalhooks import make_s2_eval_fn
@@ -90,15 +101,19 @@ def build_state(hps, device, seed: int, steps_per_epoch: int) -> s2.S2TrainState
 
 def kmeans_init(ttv: TTVModel, batch: dict, seed: int) -> None:
     """Fit the codebooks on the quantizer inputs of `batch` (numpy, as
-    collate gives it), padding frames left out."""
+    collate gives it), padding frames left out. With a process group up,
+    on the inputs of every rank's batch, in rank order (JAX fits on the
+    global first batch), and rank 0's codebooks are broadcast."""
     dev = next(ttv.parameters()).device
     with torch.no_grad():
         feats, pool_mask = ttv.pre_vq_features(
             torch.from_numpy(batch["mel"]).to(dev),
             torch.from_numpy(batch["mel_lengths"]).to(dev))
-    keep = pool_mask[..., 0].reshape(-1).cpu().numpy() > 0
-    samples = feats.reshape(-1, feats.shape[-1]).cpu().numpy()[keep]
-    init_rvq_state(ttv.quantizer, samples, seed=seed)
+    keep = pool_mask[..., 0].reshape(-1) > 0
+    with mesh.global_batch():
+        samples = mesh.gather_varlen(feats.reshape(-1, feats.shape[-1])[keep])
+    init_rvq_state(ttv.quantizer, samples.cpu().numpy(), seed=seed)
+    mesh.broadcast_module(ttv.quantizer)
 
 
 def epoch_batches(ds: SidecarDataset, sampler: DistributedBucketSampler,
@@ -125,19 +140,23 @@ def main(argv=None):
 
     hps = load_hparams(args.config)
     compute_dtype(hps)
-    dev = resolve_device(args.device)
+    dev = mesh.init_distributed(args.device)
     model_dir = os.path.join(args.logs_dir, args.model)
     os.makedirs(model_dir, exist_ok=True)
-    save_hparams(hps, os.path.join(model_dir, "config.json"))
+    if mesh.is_main():
+        save_hparams(hps, os.path.join(model_dir, "config.json"))
 
     ds_cfg = DatasetConfig()
     ds = SidecarDataset(hps.data.training_files, ds_cfg)
     log.info("dataset size: %d", len(ds))
     sampler = DistributedBucketSampler(ds.lengths(), hps.train.batch_size,
                                        boundaries=list(BOUNDARIES),
-                                       seed=hps.train.seed)
-    # the JAX CLI's schedule: samples (not batches) of epoch 0 per decay
-    steps_per_epoch = max(sum(len(b) for b in sampler.epoch_batches(0)), 1)
+                                       num_replicas=mesh.world(),
+                                       rank=mesh.rank(), seed=hps.train.seed)
+    # the JAX CLI's schedule: samples (not batches) of epoch 0 per decay,
+    # every rank's (the JAX sampler's global batches hold them all)
+    steps_per_epoch = max(mesh.world() * sum(
+        len(b) for b in sampler.epoch_batches(0)), 1)
     collate_fn = partial(collate,
                          pad_multiple=int(hps.train.get("pad_multiple", 64)))
     first = collate_fn([ds[i] for i in sampler.epoch_batches(0)[0]])

@@ -4,7 +4,7 @@ The port's counterpart of `megatts2_hierspeechpp_tpu/cli/train_sr.py`
 (reference speechsr48k / speechsr24k configs: segment 9600 at 48 kHz, i.e.
 3200 at 16 kHz in, c_mel 45, AdamW lr 1e-4 betas (0.8, 0.99), lr decay 0.995
 per epoch; their in-file discriminator bank) over train/speechsr.py. One
-card.
+card, or several under torchrun (below).
 
 Data: raw 16 kHz wavs, listed by --data_dir/trans.txt (the synthetic
 corpus's layout) or else every *.wav in --data_dir. The target is
@@ -19,6 +19,15 @@ Differences from the JAX CLI:
   - a resumed run starts at the epoch its step count is in (the JAX CLI
     starts again at epoch 0).
 
+Data parallel (parallel/mesh.py): launched by torchrun (`torchrun
+--nproc_per_node n -m megatts2_hierspeechpp_torch.cli.train_sr ...`), each
+rank takes cuda:LOCAL_RANK and its rows of each global batch: every rank
+draws the JAX CLI's global batch (--batch_size rows per rank) from the same
+seeded stream, and rank r keeps rows r x batch_size to (r + 1) x batch_size;
+the steps reduce over the ranks, rank 0 writes the run directory, every rank
+resumes from it. Without the launcher's variables the CLI runs on one card
+as before.
+
 Usage: python -m megatts2_hierspeechpp_torch.cli.train_sr \
     --data_dir <corpus> -m <run> [--out_sr 48000] [--device cuda]
 """
@@ -31,13 +40,13 @@ import os
 import numpy as np
 import torch
 
-from megatts2_hierspeechpp_torch.device import resolve_device
 from megatts2_hierspeechpp_torch.models.discriminators import (
     SPEECHSR48_RESOLUTIONS,
     VOCODER_RESOLUTIONS,
     MultiPeriodDiscriminator,
 )
 from megatts2_hierspeechpp_torch.models.speechsr import SpeechSR, rate_for
+from megatts2_hierspeechpp_torch.parallel import mesh
 from megatts2_hierspeechpp_torch.train import checkpoints as ckpt_lib
 from megatts2_hierspeechpp_torch.train import speechsr as srt
 from megatts2_hierspeechpp_torch.train.evalhooks import make_sr_eval_fn
@@ -162,7 +171,7 @@ def main(argv=None):
     args = p.parse_args(argv)
 
     num, den = rate_for(args.out_sr)
-    dev = resolve_device(args.device)
+    dev = mesh.init_distributed(args.device)
     model_dir = os.path.join(args.logs_dir, args.model)
     os.makedirs(model_dir, exist_ok=True)
 
@@ -171,14 +180,18 @@ def main(argv=None):
     state = build_state(args.out_sr, args.ch, args.lr, args.lr_decay,
                         args.steps_per_epoch, dev, args.seed)
     ckpt_lib.restore(os.path.join(model_dir, "ckpt"), state)
-    batches = make_batch_iter(lo_wavs, hi_wavs, args.batch_size, args.seg_in,
-                              num, den, args.seed, args.steps_per_epoch)
+    batches = make_batch_iter(lo_wavs, hi_wavs, args.batch_size * mesh.world(),
+                              args.seg_in, num, den, args.seed,
+                              args.steps_per_epoch)
     eval_fn = make_sr_eval_fn(
         eval_batch(lo_wavs, hi_wavs, args.seg_in, num, den, args.seed),
         args.out_sr, plot=not args.no_eval_plots)
 
-    def to_device(batch):
-        return {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+    rows = slice(mesh.rank() * args.batch_size,
+                 (mesh.rank() + 1) * args.batch_size)
+
+    def to_device(batch):   # this rank's rows of the global batch
+        return {k: torch.from_numpy(v[rows]).to(dev) for k, v in batch.items()}
 
     return run_training(
         state, srt.TrainStep(c_mel=args.c_mel, sr_out=args.out_sr), batches,

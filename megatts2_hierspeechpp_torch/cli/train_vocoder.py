@@ -2,7 +2,8 @@
 
 The port's counterpart of `megatts2_hierspeechpp_tpu/cli/train_vocoder.py`.
 It reads sidecar features and raw 16 kHz wavs (cli/make_synth_corpus.py
-writes such a corpus); linear spectra are computed on the fly. One card.
+writes such a corpus); linear spectra are computed on the fly. One card,
+or several under torchrun (below).
 
 Config: the keys the JAX CLI reads (configs/hierspeechpp.json). Besides,
 model.posterior_wn_layers / n_flows / flow_layers and model.mpd_resolutions
@@ -25,6 +26,15 @@ Every train.eval_interval steps (none when the key is absent, as the JAX
 CLI), the eval hook synthesises the first batch of epoch 0 with the
 inference path and logs eval/mel_l1 (train/evalhooks.make_vocoder_eval_fn).
 
+Data parallel (parallel/mesh.py): launched by torchrun (`torchrun
+--nproc_per_node n -m megatts2_hierspeechpp_torch.cli.train_vocoder ...`),
+each rank takes cuda:LOCAL_RANK and the sampler's rank-th share of each
+epoch's batches (train.batch_size rows each, as a JAX device; arrays
+zero-padded to the largest of any rank's, so that the ranks' rows form one
+global batch); the steps reduce over the ranks, rank 0 writes the run
+directory, every rank resumes from it. Without the launcher's variables the
+CLI runs on one card as before.
+
 Usage: python -m megatts2_hierspeechpp_torch.cli.train_vocoder \
     -c configs/hierspeechpp.json -m <run> [--device cuda]
 """
@@ -42,7 +52,6 @@ from megatts2_hierspeechpp_torch.data.dataset import (
     DistributedBucketSampler,
     SidecarDataset,
 )
-from megatts2_hierspeechpp_torch.device import resolve_device
 from megatts2_hierspeechpp_torch.models.discriminators import (
     PERIODS,
     VOCODER_RESOLUTIONS,
@@ -50,10 +59,11 @@ from megatts2_hierspeechpp_torch.models.discriminators import (
 )
 from megatts2_hierspeechpp_torch.models.vocoder import HierVocoder, vocoder_kwargs
 from megatts2_hierspeechpp_torch.ops.stft import linear_spectrogram
+from megatts2_hierspeechpp_torch.parallel import mesh
 from megatts2_hierspeechpp_torch.train import checkpoints as ckpt_lib
 from megatts2_hierspeechpp_torch.train import vocoder as vt
 from megatts2_hierspeechpp_torch.train.evalhooks import make_vocoder_eval_fn
-from megatts2_hierspeechpp_torch.train.loop import run_training
+from megatts2_hierspeechpp_torch.train.loop import run_training, to_device
 from megatts2_hierspeechpp_torch.utils.config import (
     compute_dtype,
     load_hparams,
@@ -127,16 +137,18 @@ def main(argv=None):
     args = p.parse_args(argv)
 
     hps = load_hparams(args.config)
-    dev = resolve_device(args.device)
+    dev = mesh.init_distributed(args.device)
     model_dir = os.path.join(args.logs_dir, args.model)
     os.makedirs(model_dir, exist_ok=True)
-    save_hparams(hps, os.path.join(model_dir, "config.json"))
+    if mesh.is_main():
+        save_hparams(hps, os.path.join(model_dir, "config.json"))
 
     ds = SidecarDataset(hps.data.get("training_files", "filelists/train_list.txt"),
                         DatasetConfig())
     sampler = DistributedBucketSampler(ds.lengths(), hps.train.batch_size,
                                        boundaries=list(BOUNDARIES),
-                                       seed=hps.train.seed)
+                                       num_replicas=mesh.world(),
+                                       rank=mesh.rank(), seed=hps.train.seed)
     state = build_state(hps, dev, hps.train.seed)
     ckpt_lib.restore(os.path.join(model_dir, "ckpt"), state)
     train_step = vt.TrainStep(
@@ -148,9 +160,6 @@ def main(argv=None):
         for idx in sampler.epoch_batches(epoch):
             yield vocoder_batch(ds, idx)
 
-    def to_device(batch):
-        return {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
-
     eval_fn = make_vocoder_eval_fn(
         vocoder_batch(ds, sampler.epoch_batches(0)[0]),
         plot=hps.train.get("eval_plots", True))
@@ -158,7 +167,7 @@ def main(argv=None):
     return run_training(
         state, train_step, batches, model_dir, epochs=hps.train.epochs,
         seed=hps.train.seed, log_interval=hps.train.log_interval,
-        save_interval=hps.train.save_interval, to_device=to_device,
+        save_interval=hps.train.save_interval, to_device=to_device(dev),
         start_epoch=state.step // per_epoch,
         eval_interval=hps.train.get("eval_interval", None), eval_fn=eval_fn)
 

@@ -25,6 +25,13 @@ checkpointed, so the backward holds one chunk's scores at a time (JAX
 `_attn_q_chunked`). `remat` checkpoints each TS block (JAX
 `nn.remat(TSConformerBlock)`); the recompute does not move BatchNorm's
 running statistics a second time.
+
+In a data-parallel step (parallel/mesh.global_batch, world above 1) a rank
+holds its rows of the global batch, and the two couplings across rows run
+over the global batch, as under the JAX trainer's GSPMD: each attention
+gathers every rank's keys and values along axis 0 (its backward sums their
+gradients and keeps the rank's slice), and BatchNorm
+(mesh.GlobalBatchNorm1d) normalises with the global batch's statistics.
 """
 from __future__ import annotations
 
@@ -38,6 +45,8 @@ from torch.utils.checkpoint import checkpoint
 
 from megatts2_hierspeechpp_torch.device import resolve_device
 from megatts2_hierspeechpp_torch.nn.init import init_weights
+from megatts2_hierspeechpp_torch.parallel import mesh
+from megatts2_hierspeechpp_torch.parallel.mesh import GlobalBatchNorm1d
 
 
 def _norm_act(channels: int):
@@ -109,6 +118,10 @@ class TorchMHA(nn.Module):
         q, k, v = F.linear(x, self.in_proj_weight, self.in_proj_bias).chunk(3, -1)
         q = q.reshape(l, n, h, -1) * (e // h) ** -0.5
         k, v = k.reshape(l, n, h, -1), v.reshape(l, n, h, -1)
+        if mesh.shard()[1] > 1:
+            # a data-parallel step: this rank's queries attend over every
+            # rank's rows of axis 0, as one process's over the global batch
+            k, v = mesh.gather_rows(torch.cat([k, v], -1)).chunk(2, -1)
         c = self.attn_chunk
         if c is not None and l > c:
             # every chunk c rows (the last zero-padded, as the JAX form), so
@@ -163,7 +176,7 @@ class ConformerConvModule(nn.Module):
             nn.GLU(dim=1),
             nn.Conv1d(inner, inner, kernel, padding=(kernel - 1) // 2,
                       groups=inner),
-            nn.BatchNorm1d(inner), nn.SiLU(), nn.Conv1d(inner, dim, 1),
+            GlobalBatchNorm1d(inner), nn.SiLU(), nn.Conv1d(inner, dim, 1),
             Transpose())
 
     def forward(self, x):

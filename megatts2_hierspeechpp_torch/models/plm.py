@@ -49,6 +49,8 @@ from megatts2_hierspeechpp_torch.ops.plm_decode import (
     plm_decode_greedy,
     sine_positions,
 )
+from megatts2_hierspeechpp_torch.parallel import mesh
+
 
 NEG_INF = -1e9
 
@@ -68,8 +70,9 @@ class PLMAttention(nn.Module):
                                       Dropout(P_DROPOUT))
 
     def forward(self, x, bias):
-        b, t, d = x.shape
+        b, t, _ = x.shape
         h = self.n_heads
+        d = self.w_q.weight.shape[0]   # a tensor-parallel shard's heads' width
         hd = d // h
         q, k, v = (m(x).view(b, t, h, hd).transpose(1, 2)
                    for m in (self.w_q, self.w_k, self.w_v))
@@ -201,9 +204,10 @@ class ProsodyLM(nn.Module):
         loss = _nll(self, logits, p_codes, valid)
         top10 = logits.topk(10, dim=-1).indices
         hit = (top10 == p_codes.long()[..., None]).any(-1).float()
-        acc = (hit * valid).sum() / valid.sum().clamp_min(1)
+        # in a data-parallel step, this rank's shares of the global ratios
+        acc = (hit * valid).sum() / mesh.batch_sum(valid.sum()).clamp_min(1)
         return {"logits": logits, "targets": p_codes, "loss": loss,
-                "loss_log": loss / lens.sum(), "acc": acc}
+                "loss_log": loss / mesh.batch_sum(lens.sum()), "acc": acc}
 
     def _pack_key(self) -> tuple:
         # a model built under inference_mode has inference tensors, which
@@ -286,7 +290,7 @@ class ProsodyLMNonCausal(nn.Module):
         logits = self.predict_layer(self.plm(x * mask, mask))
         loss = _nll(self, logits, p_codes, mask[..., 0])
         return {"logits": logits, "targets": p_codes, "loss": loss,
-                "loss_log": loss / lens.sum()}
+                "loss_log": loss / mesh.batch_sum(lens.sum())}
 
 
 @torch.inference_mode()

@@ -49,6 +49,7 @@ from megatts2_hierspeechpp_torch.nn.quantize import ResidualVectorQuantizer
 from megatts2_hierspeechpp_torch.nn.resblocks import ResBlock1
 from megatts2_hierspeechpp_torch.nn.styleencoder import StyleEncoder
 from megatts2_hierspeechpp_torch.nn.wavenet import WN
+from megatts2_hierspeechpp_torch.parallel import mesh
 from megatts2_hierspeechpp_torch.utils.masking import feature_mask
 
 
@@ -317,7 +318,9 @@ class TTVModel(nn.Module):
         # log-domain MSE against the ground-truth durations
         logw_ = torch.log(dur.float() + 1)[:, :, None] * x_mask
         logw = self.duration_predictor(x, x_mask, g)
-        l_length = (logw - logw_).square().sum() / x_mask.sum()
+        # a data-parallel step's share of the global batch's masked mean
+        l_length = ((logw - logw_).square().sum()
+                    / mesh.share_denominator(x_mask.sum()))
 
         x_frame = self._upsample_to_frames(x, dur, x_lengths, 2 * mel_len)
         x_frame = x_frame[:, :mel_len]

@@ -10,6 +10,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from megatts2_hierspeechpp_torch.parallel import mesh
+
 LRELU_SLOPE = 0.1
 
 
@@ -104,7 +106,14 @@ class MaskSource:
     """Keep masks for the dropout sites of one forward, in call order: drawn
     from `generator` (on the generator's device, then moved to the
     input's), or taken from `masks`, a list of bool keep masks (the tests
-    feed the JAX forward's)."""
+    feed the JAX forward's).
+
+    Inside a data-parallel step (parallel/mesh.global_batch with a process
+    group up) a site's input holds this rank's rows of the global batch on
+    axis 0 (every site of the port's models does): the mask is the global
+    batch's, drawn (the generator seeded alike on every rank) or given, and
+    the rank keeps its rows, so the ranks together draw what one process
+    draws for the whole batch."""
 
     def __init__(self, generator: torch.Generator | None = None, masks=None):
         if (generator is None) == (masks is None):
@@ -113,16 +122,18 @@ class MaskSource:
         self.masks = None if masks is None else list(masks)
 
     def keep(self, shape, p: float, device) -> torch.Tensor:
+        shape = (shape[0] * mesh.shard()[1],) + tuple(shape[1:])
         if self.masks is not None:
             if not self.masks:
                 raise RuntimeError("more dropout sites than masks given")
             m = torch.as_tensor(self.masks.pop(0))
-            if tuple(m.shape) != tuple(shape):
+            if tuple(m.shape) != shape:
                 raise ValueError(f"dropout mask {tuple(m.shape)} for an "
-                                 f"input {tuple(shape)}")
-            return m.to(device=device, dtype=torch.bool)
+                                 f"input {shape}")
+            return mesh.local_rows(m).to(device=device, dtype=torch.bool)
         g = self.generator
-        return (torch.rand(shape, generator=g, device=g.device) < 1.0 - p).to(device)
+        keep = torch.rand(shape, generator=g, device=g.device) < 1.0 - p
+        return mesh.local_rows(keep).to(device)
 
 
 @contextlib.contextmanager

@@ -14,7 +14,9 @@ the output is straight-through, and the commit loss mean((sg(q) - x)^2).
 Under a lower compute dtype the distances, the statistics and the commit
 loss's mean stay float32, and the quantized output takes x's dtype (JAX
 quantize.py:64-79, :110, :139-143).
-The k-means initialisation is ops/kmeans.py.
+The k-means initialisation is ops/kmeans.py. In a data-parallel step
+(parallel/mesh.global_batch) the counts and embedding sums are summed over
+the ranks before the EMA, so the codebooks stay the same on every rank.
 
 Dead-code expiry draws nothing here. In the JAX package (quantize.py:88-108)
 and the reference alike, the expired codewords are replaced in `embed` and
@@ -25,6 +27,8 @@ from __future__ import annotations
 
 import torch
 from torch import nn
+
+from megatts2_hierspeechpp_torch.parallel import mesh
 
 DECAY, EPSILON = 0.99, 1e-5   # EMA decay, Laplace smoothing
 
@@ -67,8 +71,9 @@ class EuclideanCodebook(nn.Module):
         flat = x.reshape(-1, x.shape[-1]).float()
         onehot = nn.functional.one_hot(codes.reshape(-1),
                                        self.codebook_size).float()
-        counts = onehot.sum(0)
-        embed_sum = onehot.t() @ flat
+        # the global batch's statistics in a data-parallel step, so every
+        # rank takes the same EMA step (JAX quantize.py:64-80 under GSPMD)
+        counts, embed_sum = mesh.all_sum([onehot.sum(0), onehot.t() @ flat])
         cluster_size = DECAY * self.cluster_size + (1 - DECAY) * counts
         embed_avg = DECAY * self.embed_avg + (1 - DECAY) * embed_sum
         total = cluster_size.sum()

@@ -197,17 +197,28 @@ def _rounder(dtype: torch.dtype):
 
 
 def _plain_loop(w: PLMWeights, tc_latent: torch.Tensor, go_id: int, pick,
-                weight_dtype: torch.dtype, cache_dtype: torch.dtype):
+                weight_dtype: torch.dtype, cache_dtype: torch.dtype,
+                row_sum=None):
     """The KV-cached token loop; pick(step, logits) -> the (B,) codes fed
-    back. Returns the codes (B, T) int32."""
+    back. Returns the codes (B, T) int32.
+
+    The attention's width dl is wqkv's rows / 3: D, or a tensor-parallel
+    shard's heads' share of it (parallel/tp.py), whose out-proj and ff1
+    products are partial sums: row_sum(y) adds them over the ranks, before
+    the bias."""
     _check_dtype("weight_dtype", weight_dtype)
     _check_dtype("cache_dtype", cache_dtype)
     rw, rc = _rounder(weight_dtype), _rounder(cache_dtype)
     b, t, _ = tc_latent.shape
     dev = tc_latent.device
-    n_layers, d = w.wo.shape[0], w.wo.shape[1]
+    n_layers, d, dl = w.wo.shape[0], w.wo.shape[1], w.wqkv.shape[1] // 3
     h = w.n_heads
-    hd = d // h
+    hd = dl // h
+
+    def row_linear(v, wt, bias):
+        if row_sum is None:
+            return F.linear(v, wt, bias)
+        return row_sum(F.linear(v, wt)) + bias
     wqkv, wo, ff0, ff1, pred = (rw(m) for m in (w.wqkv, w.wo, w.ff0, w.ff1,
                                                  w.pred))
     pe = _scaled_positions(w, t, d, dev)
@@ -220,9 +231,9 @@ def _plain_loop(w: PLMWeights, tc_latent: torch.Tensor, go_id: int, pick,
         for i in range(n_layers):
             yn = F.layer_norm(x, (d,), w.ln[i, 0], w.ln[i, 1], 1e-5)
             qkv = F.linear(rw(yn), wqkv[i], w.bqkv[i])
-            q = qkv[:, :d].reshape(b, h, hd)
-            k = qkv[:, d:2 * d].reshape(b, h, hd)
-            v = qkv[:, 2 * d:].reshape(b, h, hd)
+            q = qkv[:, :dl].reshape(b, h, hd)
+            k = qkv[:, dl:2 * dl].reshape(b, h, hd)
+            v = qkv[:, 2 * dl:].reshape(b, h, hd)
             k_cache[i, :, :, step] = rc(k)
             v_cache[i, :, :, step] = rc(v)
             # the earlier tokens from the cache, this one as computed
@@ -230,11 +241,11 @@ def _plain_loop(w: PLMWeights, tc_latent: torch.Tensor, go_id: int, pick,
             vc = torch.cat([v_cache[i, :, :, :step], v[:, :, None]], dim=2)
             scores = torch.einsum("bhd,bhkd->bhk", q, kc) / math.sqrt(hd)
             p = torch.softmax(scores, dim=-1)
-            att = torch.einsum("bhk,bhkd->bhd", p, vc).reshape(b, d)
-            x = x + F.linear(rw(att), wo[i], w.bo[i])
+            att = torch.einsum("bhk,bhkd->bhd", p, vc).reshape(b, dl)
+            x = x + row_linear(rw(att), wo[i], w.bo[i])
             yn = F.layer_norm(x, (d,), w.ln[i, 2], w.ln[i, 3], 1e-5)
             hid = torch.relu(F.linear(rw(yn), ff0[i], w.ff0b[i]))
-            x = x + F.linear(rw(hid), ff1[i], w.ff1b[i])
+            x = x + row_linear(rw(hid), ff1[i], w.ff1b[i])
         nxt = pick(step, F.linear(rw(x), pred))
         codes[:, step] = nxt.to(torch.int32)
         prev = nxt.long()
@@ -245,7 +256,8 @@ def plain_decode(w: PLMWeights, tc_latent: torch.Tensor, go_id: int = 1024,
                  top_k: int = 0, temperature: float = 1.0,
                  generator: Optional[torch.Generator] = None,
                  weight_dtype: torch.dtype = torch.float32,
-                 cache_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+                 cache_dtype: torch.dtype = torch.float32,
+                 row_sum=None) -> torch.Tensor:
     """KV-cached decode loop: tc_latent (B, T, TC) -> codes (B, T) int32.
 
     Greedy (first argmax) when top_k == 0; otherwise top-k sampling at
@@ -253,7 +265,9 @@ def plain_decode(w: PLMWeights, tc_latent: torch.Tensor, go_id: int = 1024,
     torch.Generator on that device). With bf16 weight / cache dtypes, the
     matrices, each product's vector and each cached k, v row are rounded
     to bf16 where the kernel rounds them (module docstring); the math is
-    float32."""
+    float32. On a tensor-parallel shard's weights, `row_sum` is
+    parallel/tp.row_sum (every rank then draws the same codes, the
+    generator seeded alike)."""
 
     def pick(step, logits):
         if top_k == 0:
@@ -263,7 +277,8 @@ def plain_decode(w: PLMWeights, tc_latent: torch.Tensor, go_id: int = 1024,
                                    generator=generator)
         return torch.gather(idxs, 1, choice)[:, 0]
 
-    return _plain_loop(w, tc_latent, go_id, pick, weight_dtype, cache_dtype)
+    return _plain_loop(w, tc_latent, go_id, pick, weight_dtype, cache_dtype,
+                       row_sum)
 
 
 def plain_gap(w: PLMWeights, tc_latent: torch.Tensor, codes: torch.Tensor,

@@ -15,6 +15,14 @@ FFT's rounding (ROADMAP.md section 3), so parity checks feed both sides
 one STFT.
 
 Training computes in float32.
+
+Data parallel (parallel/mesh.py): MPNet's training forward is not
+row-separable (its attention runs over batch x freq and batch x frames,
+its BatchNorm over the batch), so inside `mesh.global_batch()` each
+attention gathers every rank's keys and values and BatchNorm takes the
+global batch's statistics (models/denoiser.py); the losses are means over
+equal-shaped rank tensors, so the gradients and the losses are averaged
+over the ranks.
 """
 from __future__ import annotations
 
@@ -26,6 +34,7 @@ import torch
 
 from megatts2_hierspeechpp_torch.models.denoiser import MPNet
 from megatts2_hierspeechpp_torch.ops import stft as tstft
+from megatts2_hierspeechpp_torch.parallel import mesh
 from megatts2_hierspeechpp_torch.train.optim import AdamW
 
 
@@ -94,6 +103,11 @@ class TrainStep:
                      pha_c, clean):
         """One update from the noisy and clean spectra (B, frames, bins)
         and the clean waveform (B, T)."""
+        with mesh.global_batch():
+            return self._step(state, mag_n, pha_n, mag_c, pha_c, clean)
+
+    def _step(self, state: DenoiserTrainState, mag_n, pha_n, mag_c, pha_c,
+              clean):
         mag_g, pha_g = state.model(mag_n, pha_n)
         l_mag = (mag_g - mag_c).square().mean()
         ip, gd, iaf = phase_losses(pha_c, pha_g)
@@ -107,8 +121,10 @@ class TrainStep:
         total = 0.9 * l_mag + 0.3 * l_pha + 0.1 * l_com + 0.2 * l_time
         state.opt.zero_grad()
         total.backward()
+        mesh.reduce_grads(state.opt.params)
         state.opt.step()
         state.step += 1
-        metrics = {"loss/total": total, "loss/mag": l_mag, "loss/pha": l_pha,
-                   "loss/com": l_com, "loss/time": l_time}
+        metrics = mesh.reduce_metrics({
+            "loss/total": total, "loss/mag": l_mag, "loss/pha": l_pha,
+            "loss/com": l_com, "loss/time": l_time})
         return state, {k: v.detach() for k, v in metrics.items()}

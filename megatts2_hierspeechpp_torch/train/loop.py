@@ -8,6 +8,12 @@ scalars every `log_interval` steps (JSONL + log), checkpoints every
 Each step's torch.Generator is seeded from (seed, epoch, index in the
 epoch), so a restart at an epoch boundary replays the same draws (the
 JAX loop's fold_in(fold_in(seed, epoch), i)).
+
+Data parallel (parallel/mesh.py): every rank runs this loop on its own
+batches with the same seeds, and its steps reduce over the ranks; rank 0
+alone writes the scalars, the checkpoints, the git stamp and the eval
+output (its metrics are already the global batch's). Every rank restores
+the checkpoint it starts from (the CLIs, before the loop).
 """
 from __future__ import annotations
 
@@ -23,6 +29,7 @@ from typing import Callable, Dict, Iterable, Optional
 import numpy as np
 import torch
 
+from megatts2_hierspeechpp_torch.parallel import mesh
 from megatts2_hierspeechpp_torch.train import checkpoints as ckpt_lib
 
 log = logging.getLogger("megatts2")
@@ -94,9 +101,12 @@ def stamp_git_provenance(model_dir: str) -> None:
 
 def to_device(dev):
     """A batch of numpy arrays -> the same dict of tensors on `dev` (the
-    `to_device` of run_training)."""
+    `to_device` of run_training). With a process group up, the arrays are
+    first zero-padded to the largest shape of any rank's batch, so the
+    ranks' rows form one global batch (mesh.pad_to_global; this runs in
+    the loop's thread, where the steps' collectives run)."""
     return lambda batch: {k: torch.from_numpy(v).to(dev)
-                          for k, v in batch.items()}
+                          for k, v in mesh.pad_to_global(batch).items()}
 
 
 def step_generator(seed: int, epoch: int, index: int) -> torch.Generator:
@@ -116,8 +126,10 @@ def run_training(state, train_step: Callable,
     epochs start_epoch .. epochs - 1; `batch_iter_fn(epoch)` yields host
     batches (made in the prefetch thread), which `to_device` moves before
     the step. Returns the state."""
-    logger = ScalarLogger(model_dir)
-    stamp_git_provenance(model_dir)
+    main = mesh.is_main()
+    logger = ScalarLogger(model_dir) if main else None
+    if main:
+        stamp_git_provenance(model_dir)
     ckpt_dir = os.path.join(model_dir, "ckpt")
     t_last = time.time()
     for epoch in range(start_epoch, epochs):
@@ -127,6 +139,8 @@ def run_training(state, train_step: Callable,
             state, metrics = train_step(state, batch,
                                         step_generator(seed, epoch, i))
             step = state.step
+            if not main:
+                continue
             if step % log_interval == 0:
                 scalars = {k: float(v) for k, v in metrics.items()}
                 now = time.time()
@@ -144,5 +158,6 @@ def run_training(state, train_step: Callable,
                                             for k, v in scalars.items()})
                 except Exception:
                     log.exception("eval_fn failed at step %d", step)
-        ckpt_lib.save(ckpt_dir, state, state.step)
+        if main:
+            ckpt_lib.save(ckpt_dir, state, state.step)
     return state

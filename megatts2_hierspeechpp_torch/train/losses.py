@@ -10,6 +10,8 @@ from typing import Sequence
 
 import torch
 
+from megatts2_hierspeechpp_torch.parallel import mesh
+
 
 def feature_loss(fmap_r: Sequence, fmap_g: Sequence):
     """L1 over every discriminator feature map, times 2."""
@@ -46,4 +48,5 @@ def kl_loss(z_p, logs_q, m_p, logs_p, z_mask):
         t.float() for t in (z_p, logs_q, m_p, logs_p, z_mask))
     kl = logs_p - logs_q - 0.5
     kl = kl + 0.5 * (z_p - m_p).square() * torch.exp(-2.0 * logs_p)
-    return (kl * z_mask).sum() / z_mask.sum()
+    # in a data-parallel step, this rank's share of the global masked mean
+    return (kl * z_mask).sum() / mesh.share_denominator(z_mask.sum())

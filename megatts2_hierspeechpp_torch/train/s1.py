@@ -12,6 +12,11 @@ draw from the loop's per-step CPU generator (`TrainStep.draw`);
 JAX step's masks). The frozen TTV and the PLM compute in their own `dtype`
 (bf16 from cli/train_s1 by default): the TTV hands the PLM a bf16 latent,
 the loss is float32, the parameters and AdamW moments float32.
+
+Data parallel (parallel/mesh.py): inside `mesh.global_batch()` the masks
+are the global batch's rows, the loss (a sum over the batch) has its
+gradients summed over the ranks, and the per-frame loss and the accuracy
+divide by the global counts and are summed into the metrics.
 """
 from __future__ import annotations
 
@@ -23,6 +28,7 @@ import torch
 from megatts2_hierspeechpp_torch.models.plm import ProsodyLM
 from megatts2_hierspeechpp_torch.models.ttv import TTVModel
 from megatts2_hierspeechpp_torch.nn.basic import MaskSource, dropout_masks
+from megatts2_hierspeechpp_torch.parallel import mesh
 from megatts2_hierspeechpp_torch.train.optim import AdamW
 from megatts2_hierspeechpp_torch.train.s2 import device_masks, global_norm
 
@@ -76,15 +82,23 @@ class TrainStep:
         return device_masks(generator, batch["mel"].device)
 
     def with_draws(self, state: S1TrainState, batch: Dict, masks: MaskSource):
+        with mesh.global_batch():
+            return self._step(state, batch, masks)
+
+    def _step(self, state: S1TrainState, batch: Dict, masks: MaskSource):
         x_frame, lr_codes = extract(state.ttv, batch)
         state.plm.train()
         with dropout_masks(masks):
             out = state.plm.loss_dict(x_frame, lr_codes, batch["mel_lengths"])
         state.opt.zero_grad()
         out["loss"].backward()
+        # the loss is a sum over the batch: the global gradient is the sum
+        mesh.reduce_grads(state.opt.params, average=False)
         grad_norm = global_norm(state.opt.params)
         state.opt.step()
         state.step += 1
-        metrics = {"loss/plm": out["loss_log"], "acc/plm_top10": out["acc"],
-                   "grad_norm": grad_norm}
+        metrics = mesh.reduce_metrics(
+            {"loss/plm": out["loss_log"], "acc/plm_top10": out["acc"]},
+            average=False)
+        metrics["grad_norm"] = grad_norm
         return state, {k: v.detach() for k, v in metrics.items()}

@@ -26,6 +26,13 @@ bf16 by default, as the JAX CLI): w2v_pred and the losses come out float32
 (the masks promote them, the losses read the D's bf16 logits in float32),
 the RVQ statistics update in float32, and the parameters, their gradients
 and the AdamW moments stay float32.
+
+Data parallel (parallel/mesh.py): the step runs inside
+`mesh.global_batch()`, so a rank holding its rows of the global batch
+computes the JAX step on that batch: the dropout masks are the global
+batch's rows, the RVQ statistics, the duration loss's and the w2v loss's
+mask sums are global, both gradients are averaged over the ranks before
+their norms and updates, and the losses are averaged into the metrics.
 """
 from __future__ import annotations
 
@@ -39,6 +46,7 @@ from megatts2_hierspeechpp_torch.models.discriminators import (
 )
 from megatts2_hierspeechpp_torch.models.ttv import TTVModel
 from megatts2_hierspeechpp_torch.nn.basic import MaskSource, dropout_masks
+from megatts2_hierspeechpp_torch.parallel import mesh
 from megatts2_hierspeechpp_torch.train import losses as L
 from megatts2_hierspeechpp_torch.train.optim import AdamW
 
@@ -114,6 +122,11 @@ class TrainStep:
 
     def with_draws(self, state: S2TrainState, batch: Dict, teacher_force,
                    masks: MaskSource):
+        with mesh.global_batch():
+            return self._step(state, batch, teacher_force, masks)
+
+    def _step(self, state: S2TrainState, batch: Dict, teacher_force,
+              masks: MaskSource):
         ttv, disc = state.ttv, state.disc
         ttv.train()
         with dropout_masks(masks):
@@ -128,6 +141,7 @@ class TrainStep:
         loss_d = L.discriminator_loss(dr, dg)[0]
         state.opt_d.zero_grad()
         loss_d.backward()
+        mesh.reduce_grads(state.opt_d.params)
         grad_norm_d = global_norm(state.opt_d.params)
         state.opt_d.step()
 
@@ -137,7 +151,7 @@ class TrainStep:
             dr, dg, fr, fg = disc(w2v_real, w2v_pred.transpose(1, 2))
         finally:
             disc.requires_grad_(True)
-        mask_sum = out["y_mask"].sum()
+        mask_sum = mesh.batch_sum(out["y_mask"].sum())
         diff = batch["w2v"] - w2v_pred
         loss_dur = out["l_length"].float() * 2.0
         loss_pitch = out["l_pitch"].float()
@@ -150,13 +164,15 @@ class TrainStep:
                  + commit)
         state.opt_g.zero_grad()
         total.backward()
+        mesh.reduce_grads(state.opt_g.params)
         grad_norm_g = global_norm(state.opt_g.params)
         state.opt_g.step()
         state.step += 1
-        metrics = {"loss/g/total": total, "loss/g/dur": loss_dur,
-                   "loss/g/pitch": loss_pitch, "loss/g/w2v_mse": l_w2v,
-                   "loss/g/w2v_l1": l_w2v1, "loss/g/fm": loss_fm,
-                   "loss/g/gen": loss_gen, "loss/g/commit": commit,
-                   "loss/d/total": loss_d, "grad_norm_g": grad_norm_g,
-                   "grad_norm_d": grad_norm_d}
+        metrics = mesh.reduce_metrics({
+            "loss/g/total": total, "loss/g/dur": loss_dur,
+            "loss/g/pitch": loss_pitch, "loss/g/w2v_mse": l_w2v,
+            "loss/g/w2v_l1": l_w2v1, "loss/g/fm": loss_fm,
+            "loss/g/gen": loss_gen, "loss/g/commit": commit,
+            "loss/d/total": loss_d})
+        metrics.update(grad_norm_g=grad_norm_g, grad_norm_d=grad_norm_d)
         return state, {k: v.detach() for k, v in metrics.items()}

@@ -13,6 +13,10 @@ generator's hi-rate stage is the fused_amp_triple kernel, forward and
 backward (cuda_lib.plain_vjp).
 
 Training computes in float32, the port's kernels' type.
+
+Data parallel (parallel/mesh.py): every loss is a mean over equal-shaped
+rank tensors, so inside `mesh.global_batch()` both gradients and the
+losses are averaged over the ranks.
 """
 from __future__ import annotations
 
@@ -26,6 +30,7 @@ from megatts2_hierspeechpp_torch.models.discriminators import (
 )
 from megatts2_hierspeechpp_torch.models.speechsr import SpeechSR
 from megatts2_hierspeechpp_torch.ops.stft import linear_spectrogram, spec_to_mel
+from megatts2_hierspeechpp_torch.parallel import mesh
 from megatts2_hierspeechpp_torch.train import losses as L
 from megatts2_hierspeechpp_torch.train.optim import AdamW
 
@@ -82,6 +87,10 @@ class TrainStep:
 
     def __call__(self, state: SRTrainState, batch: Dict,
                  generator: torch.Generator | None = None):
+        with mesh.global_batch():
+            return self._step(state, batch)
+
+    def _step(self, state: SRTrainState, batch: Dict):
         gen, disc = state.gen, state.disc
         lo, hi = batch["lo"], batch["hi"]
         fake = gen(lo)
@@ -91,6 +100,7 @@ class TrainStep:
         loss_d = L.discriminator_loss(dr, dg)[0]
         state.opt_d.zero_grad()
         loss_d.backward()
+        mesh.reduce_grads(state.opt_d.params)
         state.opt_d.step()
 
         # G step through the updated D, whose parameters take no gradient
@@ -105,9 +115,11 @@ class TrainStep:
         total = loss_mel + loss_fm + loss_gen
         state.opt_g.zero_grad()
         total.backward()
+        mesh.reduce_grads(state.opt_g.params)
         state.opt_g.step()
         state.step += 1
-        metrics = {"loss/g/total": total, "loss/g/mel": loss_mel,
-                   "loss/g/fm": loss_fm, "loss/g/gen": loss_gen,
-                   "loss/d/total": loss_d}
+        metrics = mesh.reduce_metrics({
+            "loss/g/total": total, "loss/g/mel": loss_mel,
+            "loss/g/fm": loss_fm, "loss/g/gen": loss_gen,
+            "loss/d/total": loss_d})
         return state, {k: v.detach() for k, v in metrics.items()}

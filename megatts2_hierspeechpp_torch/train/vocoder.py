@@ -28,6 +28,11 @@ convs and the vocoder kernels run in bf16 while the parameters, their
 gradients and the AdamW state stay float32, and every loss reads its
 inputs in float32 (train/losses.py; the mel L1's spectra are float32, the
 excitation L1 casts e_).
+
+Data parallel (parallel/mesh.py): the draws are the global batch's, of
+which a rank keeps its rows; the step runs inside `mesh.global_batch()`,
+where the KL's mask sums are global, both gradients are averaged over the
+ranks before the updates and the losses into the metrics.
 """
 from __future__ import annotations
 
@@ -41,6 +46,7 @@ from megatts2_hierspeechpp_torch.models.discriminators import (
 )
 from megatts2_hierspeechpp_torch.models.vocoder import HierVocoder
 from megatts2_hierspeechpp_torch.ops.stft import linear_spectrogram, spec_to_mel
+from megatts2_hierspeechpp_torch.parallel import mesh
 from megatts2_hierspeechpp_torch.train import losses as L
 from megatts2_hierspeechpp_torch.train.optim import AdamW
 
@@ -119,8 +125,11 @@ class TrainStep:
         b, t = batch["mask"].shape[:2]
         c = state.gen.enc_q.out_channels
         dev = batch["mask"].device
-        u = torch.rand(b, generator=generator).to(dev)
-        noise_q = torch.randn((b, t, c), generator=generator).to(dev)
+        with mesh.global_batch():   # this rank's rows of the global draws
+            w = mesh.shard()[1]
+            u = mesh.local_rows(torch.rand(b * w, generator=generator)).to(dev)
+            noise_q = mesh.local_rows(
+                torch.randn((b * w, t, c), generator=generator)).to(dev)
         return rand_slice_indices(u, batch["lengths"], self.segment), noise_q
 
     def mel(self, wav):
@@ -132,6 +141,10 @@ class TrainStep:
     def with_draws(self, state: VocTrainState, batch: Dict, starts, noise_q):
         """One D update and one G update on the given window starts (B,)
         and z_q noise (B, T, C)."""
+        with mesh.global_batch():
+            return self._step(state, batch, starts, noise_q)
+
+    def _step(self, state: VocTrainState, batch: Dict, starts, noise_q):
         gen, disc, seg = state.gen, state.disc, self.segment
         mask = batch["mask"]
         out = gen.train_encode(
@@ -146,6 +159,7 @@ class TrainStep:
         loss_d = L.discriminator_loss(dr, dg)[0]
         state.opt_d.zero_grad()
         loss_d.backward()
+        mesh.reduce_grads(state.opt_d.params)
         state.opt_d.step()
 
         # G step through the updated D, whose parameters take no gradient
@@ -168,10 +182,12 @@ class TrainStep:
                  + loss_gen + loss_prosody + loss_f0 * self.c_f0)
         state.opt_g.zero_grad()
         total.backward()
+        mesh.reduce_grads(state.opt_g.params)
         state.opt_g.step()
         state.step += 1
-        metrics = {"loss/g/total": total, "loss/g/mel": loss_mel,
-                   "loss/g/kl1": kl1, "loss/g/kl2": kl2, "loss/g/fm": loss_fm,
-                   "loss/g/gen": loss_gen, "loss/g/prosody": loss_prosody,
-                   "loss/g/f0": loss_f0, "loss/d/total": loss_d}
+        metrics = mesh.reduce_metrics({
+            "loss/g/total": total, "loss/g/mel": loss_mel, "loss/g/kl1": kl1,
+            "loss/g/kl2": kl2, "loss/g/fm": loss_fm, "loss/g/gen": loss_gen,
+            "loss/g/prosody": loss_prosody, "loss/g/f0": loss_f0,
+            "loss/d/total": loss_d})
         return state, {k: v.detach() for k, v in metrics.items()}
