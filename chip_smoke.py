@@ -26,9 +26,14 @@ Phases, in order; any failure exits non-zero:
      with float32, 10 repeats identical), and the per-row greedy decode of
      a batch of 4 in float32 and bf16 (one launch per row); the three
      vocoder kernels' bf16 configuration (bf16 in and out, float32 inside,
-     each conv one bf16 mma pass) at the same serving shapes against their
-     bf16 twins (`kernel_bf16` lines: bf16_check, ms, device ms, the twin's
-     ms, the bf16 bound beside the 3xTF32 one);
+     each conv on snake_conv_bf16.cu's wgmma from packed bf16 weights) at
+     the same serving shapes against their bf16 twins (`kernel_bf16` lines:
+     bf16_check, ms, device ms, the twin's ms, the bf16 bound beside the
+     3xTF32 one, cuDNN's bf16 conv1d of the same convs alone, and the
+     kernel's tile plan on the card against the mirror in ops/ampblock.py
+     at every launch shape; `snake_conv_bf16_split` lines: the bf16
+     kernel's phase split from its stamps at bench.py's SR and Generator
+     shapes);
   4. the decode half (`synthesize`) at the published HierSpeech++ widths
      with seeded random weights: one 3 s prompt, three requests of
      100/250/500 frames (2/5/10 s) through vocoder + SpeechSR-48k, checking
@@ -60,7 +65,9 @@ Phases, in order; any failure exits non-zero:
      then every kernel against its plain version at each distinct launch
      shape these paths gave it (`new_shape` lines; the AA-snake and the
      epilogue with their device ms; bf16 snake_conv launches with
-     "events_ms", those that write float32 also held by their mean error;
+     "events_ms", those that write float32 also held by their mean error,
+     each with its tile plan on the card against the mirror and cuDNN's
+     bf16 conv1d of the same conv alone;
      the shared-prompt batch profiled);
   9. the denoiser and voice conversion at full width: `denoise`, MP-SENet
      (dense_channel 64, 4 TS blocks) on the 3 s prompt (49,600 padded
@@ -345,12 +352,12 @@ SOURCES = {  # launch-count key: (kernel, source, TPU kernel it replaces)
                         "megatts2_hierspeechpp_torch/csrc/plm_decode.cu",
                         "megatts2_hierspeechpp_tpu/ops/pallas_plm_decode.py:59"),
     # the vocoder kernels' bf16 configuration (bf16 in and out, float32
-    # inside, each conv one bf16 product pass)
+    # inside, each conv on the tensor cores' wgmma from bf16 operands)
     "aa_snakebeta_bf16": ("aa_snakebeta_bf16",
                           "megatts2_hierspeechpp_torch/csrc/aa_snake.cu",
                           "megatts2_hierspeechpp_tpu/ops/pallas_snake.py:93"),
     "ampblock_bf16": ("ampblock_bf16",
-                      "megatts2_hierspeechpp_torch/csrc/snake_conv.cu",
+                      "megatts2_hierspeechpp_torch/csrc/snake_conv_bf16.cu",
                       "megatts2_hierspeechpp_tpu/ops/pallas_ampblock.py:151"),
     "amp_triple_bf16": ("triple_epilogue_bf16",
                         "megatts2_hierspeechpp_torch/csrc/triple_epilogue.cu",
@@ -549,6 +556,77 @@ def snake_sweep(torch, args, ref, tol: float) -> dict:
     return out
 
 
+def plan_check(b: int, t: int, c: int, k: int, d: int) -> dict:
+    """The bf16 snake_conv launch plan the card runs at this shape against
+    its mirror in ops/ampblock.py (fails the run where they differ)."""
+    from megatts2_hierspeechpp_torch.ops.ampblock import (
+        PLAN_KEYS, snake_conv_bf16_plan, snake_conv_bf16_plan_card)
+
+    card = snake_conv_bf16_plan_card(b, t, c, c, k, d)
+    mirror = snake_conv_bf16_plan(b, t, c, c, k, d)
+    if any(card[key] != mirror[key] for key in PLAN_KEYS):
+        fail(f"snake_conv bf16 plan at B={b} T={t} C={c} k={k} d={d}: card "
+             f"{card}, mirror {mirror}")
+    return card
+
+
+def conv_alone_fn(torch, dev, b: int, t: int, c: int, convs):
+    """cuDNN's bf16 conv1d of the same convs, (k, d) each, on a bf16 (b, c,
+    t) input with bf16 weights: the conv alone, without the snake, the bias
+    or the residual, so not the same function; a yardstick that the port
+    never calls."""
+    import torch.nn.functional as F
+
+    s = torch.randn(b, c, t, device=dev).bfloat16()
+    ws = [(torch.randn(c, c, k, device=dev).bfloat16(), k, d) for k, d in convs]
+    return lambda: [F.conv1d(s, w, None, 1, (k - 1) // 2 * d, d) for w, k, d in ws]
+
+
+# bf16 snake_conv launches whose phase split the kernel_bf16 lines report
+# (B, T, C, k, d, bf16 x): bench.py's SpeechSR stage and Generator stage 1
+# at B = 4 x 1000 frames, the serving path's Generator stage 1
+BF16_SPLIT_SHAPES = ((4, 960000, 32, 11, 5, True), (4, 960000, 32, 3, 1, False),
+                     (4, 20000, 128, 11, 5, True), (1, 10000, 128, 11, 5, True))
+BF16_SPLIT_NAMES = ("producer_wait_window_free", "producer_snake_window",
+                    "consumer_wait_window", "consumer_wait_weights",
+                    "consumer_taps", "consumer_epilogue", "block")
+
+
+def bf16_split(torch, dev, b, t, c, k, d, x_bf16) -> dict:
+    """Where a bf16 snake_conv launch's time goes, from one launch with the
+    kernel's phase stamps (SM cycles per block, summed over its tiles):
+    the producer warps' wait for a free window and their snake, the
+    consumers' waits for a window and for weight slices, their taps and
+    their epilogue, the block's whole span; means over the blocks, each
+    also per tile and as a share of the block."""
+    from megatts2_hierspeechpp_torch.ops.ampblock import (
+        pack_bf16, snake_conv, snake_conv_bf16_plan)
+
+    g = torch.Generator(device=dev).manual_seed(7)
+    x = torch.randn(b, t, c, device=dev, generator=g)
+    x = x.bfloat16() if x_bf16 else x
+    a, ib = (torch.exp(0.2 * torch.randn(c, device=dev, generator=g))
+             for _ in range(2))
+    w = torch.randn(k, c, c, device=dev, generator=g) * (c * k) ** -0.5
+    bias = 0.05 * torch.randn(c, device=dev, generator=g)
+    plan = snake_conv_bf16_plan(b, t, c, c, k, d)
+    st = torch.zeros((plan["grid"], 8), dtype=torch.int64, device=dev)
+    with torch.inference_mode():
+        wp = pack_bf16(w)
+        snake_conv(x, a, ib, w, bias, d, bf16_mma=True, packed=wp)
+        snake_conv(x, a, ib, w, bias, d, bf16_mma=True, packed=wp, stamps=st)
+        torch.cuda.synchronize()
+    mean = st.double().mean(0).cpu().numpy()
+    tiles = max(float(mean[7]), 1.0)
+    cycles = dict(zip(BF16_SPLIT_NAMES, map(float, mean[:7])))
+    return {"shape": f"B={b} T={t} C={c} k={k} d={d}",
+            "x": "bf16" if x_bf16 else "float32", "tm": plan["tm"],
+            "tiles_per_block": tiles, "cycles_per_block": cycles,
+            "cycles_per_tile": {n: v / tiles for n, v in cycles.items()},
+            "share_of_block": {n: v / max(mean[6], 1.0)
+                               for n, v in cycles.items() if n != "block"}}
+
+
 def kernel_phase(torch, dev):
     from megatts2_hierspeechpp_torch.ops.amp_triple import (
         composed_triple, fused_amp_triple)
@@ -650,11 +728,17 @@ def kernel_bf16_phase(torch, dev):
     against their bf16 twins (bf16_check): error, ms (CUDA events around
     the wrapper), device ms per call (profiler, the wrapper's launches
     summed), the twin's ms, the bf16 bound and the 3xTF32 configuration's
-    bound of the same shape."""
+    bound of the same shape. The AMPBlock and the stage: held with the
+    weights bare (packed in the call) and packed once (as the modules
+    cache them), timed packed; each snake_conv launch's tile plan on the
+    card against its mirror (plan_check); beside them cuDNN's bf16 conv1d
+    of the same 6 / 18 convs alone (CUDA events; the conv alone, not the
+    same function). Then the phase split of a few bf16 snake_conv launches
+    from the kernel's stamps (bf16_split)."""
     from megatts2_hierspeechpp_torch.ops.amp_triple import (
         composed_triple, fused_amp_triple)
     from megatts2_hierspeechpp_torch.ops.ampblock import (
-        composed_ampblock, fused_ampblock)
+        composed_ampblock, fused_ampblock, pack_bf16)
     from megatts2_hierspeechpp_torch.ops.snake import (
         composed_snakebeta, fused_aa_snakebeta)
 
@@ -675,7 +759,8 @@ def kernel_bf16_phase(torch, dev):
     dil = (1, 3, 5)
     bf = torch.bfloat16
     # (kind, label, x, twin args, fused fn, plain fn, launches a call, f32
-    # bytes, bf16 bytes, flops, conv flops, device kernel names)
+    # bytes, bf16 bytes, flops, conv flops, device kernel names, the fused
+    # fn on packed weights, (C, T, the snake_conv launches' (k, d)))
     cases = []
     for c in (256, 64):
         x, a, b = randn(1, 4 * T, c).to(bf), pos(c), pos(c)
@@ -684,16 +769,21 @@ def kernel_bf16_phase(torch, dev):
                       lambda x=x, a=a, b=b: fused_aa_snakebeta(x, a, b),
                       lambda x=x, a=a, b=b: composed_snakebeta(x, a, b), 1,
                       4.0 * (2 * n + 2 * c), 2.0 * 2 * n + 8.0 * c,
-                      SNAKE_FLOPS * n, 0.0, ("aa_snakebeta_kernel",)))
+                      SNAKE_FLOPS * n, 0.0, ("aa_snakebeta_kernel",), None,
+                      None))
     for c, t, k in [(128, 20 * T, k) for k in (3, 7, 11)] + [
             (128, 2 * T, k) for k in (3, 5, 7)]:
         x, ws = randn(1, t, c).to(bf), block_ws(c, k)
+        packed = (pack_bf16(ws[2]), pack_bf16(ws[6]))
         w_bytes = 4.0 * (6 * k * c * c + 10 * c)
         cases.append(("ampblock", f"C={c} T={t} k={k}", x, (*ws, k, dil),
                       lambda x=x, ws=ws, k=k: fused_ampblock(x, *ws, k, dil),
                       lambda x=x, ws=ws, k=k: composed_ampblock(x, *ws, k, dil),
                       6, 4.0 * 2 * t * c + w_bytes, 2.0 * 2 * t * c + w_bytes,
-                      *block_flops(t, c, k), ("snake_conv_kernel",)))
+                      *block_flops(t, c, k), ("snake_conv_bf16_kernel",),
+                      lambda x=x, ws=ws, k=k, p=packed:
+                          fused_ampblock(x, *ws, k, dil, packed=p),
+                      (c, t, [(k, d) for d in dil] + [(k, 1)] * 3)))
     for c, t, ks, tail in ((64, 4 * T, (3, 5, 7), False),
                            (64, 80 * T, (3, 7, 11), False),
                            (32, 160 * T, (3, 7, 11), False),
@@ -701,6 +791,7 @@ def kernel_bf16_phase(torch, dev):
                            (32, 960 * T, (3, 7, 11), True)):
         x = randn(1, t, c).to(bf)
         bws = [block_ws(c, k) for k in ks]
+        packs = [(pack_bf16(bw[2]), pack_bf16(bw[6])) for bw in bws]
         dils = (dil,) * 3
         post = (pos(c), pos(c), randn(7, c, scale=0.1 * (7 * c) ** -0.5)) if tail else None
         flops = sum(block_flops(t, c, k)[0] for k in ks) + 3.0 * t * c
@@ -718,32 +809,52 @@ def kernel_bf16_phase(torch, dev):
                           composed_triple(x, bws, ks, dils, post),
                       19, 4.0 * (t * c + out_n) + w_bytes,
                       2.0 * (t * c + out_n) + w_bytes, flops, conv_flops,
-                      ("snake_conv_kernel", "triple_avg_kernel",
-                       "triple_post_kernel")))
+                      ("snake_conv_bf16_kernel", "triple_avg_kernel",
+                       "triple_post_kernel"),
+                      lambda x=x, bws=bws, ks=ks, dils=dils, post=post, p=packs:
+                          fused_amp_triple(x, bws, ks, dils, post, packed=p),
+                      (c, t, [(k, d) for k in ks for d in dil + (1, 1, 1)])))
 
     results = {}
     for (kind, label, x, twin_args, fused, plain, launches, bytes_f32,
-         bytes_bf16, flops, conv_flops, names) in cases:
+         bytes_bf16, flops, conv_flops, names, fused_packed, convs) in cases:
         name = kind + "_bf16"
+        timed = fused_packed or fused
+        extra = {}
         with torch.inference_mode():
             y = fused()
             twin32, f32, chain = bf16_twin(torch, kind, x, twin_args)
             torch.cuda.synchronize()
             check = bf16_check(y, twin32, f32, chain)
+            if fused_packed is not None:  # packed once, as the modules do
+                check_p = bf16_check(fused_packed(), twin32, f32, chain)
+                if not check_p["ok"]:
+                    fail(f"{name} {label} with packed weights: {check_p}")
+                c, t, kds = convs
+                extra = {"plans": {f"k={k} d={d}": plan_check(1, t, c, k, d)
+                                   for k, d in sorted(set(kds))},
+                         "conv_alone_cudnn_ms": time_ms(torch, conv_alone_fn(
+                             torch, dev, 1, t, c, kds), 5),
+                         "conv_alone_note": "cuDNN bf16 conv1d of the same "
+                                            "convs alone, not the same function"}
             del twin32, f32
-            ms = time_ms(torch, fused, 10)
-            dev_ms = device_ms(torch, fused, names, 10, required=False,
+            ms = time_ms(torch, timed, 10)
+            dev_ms = device_ms(torch, timed, names, 10, required=False,
                                launches=launches)
             plain_ms = time_ms(torch, plain, 3)
         b_ms, b_by = bound_ms_bf16(bytes_bf16, flops, conv_flops)
         line = {"phase": "kernel_bf16", "name": name, "shape": label,
                 "dtype": "bf16", **check, "ms": ms, "device_ms": dev_ms,
                 "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-                "bound_ms_3xtf32": bound_ms(bytes_f32, flops, conv_flops)[0]}
+                "bound_ms_3xtf32": bound_ms(bytes_f32, flops, conv_flops)[0],
+                **extra}
         print(json.dumps(line), flush=True)
         if not check["ok"]:
             fail(f"{name} {label}: {check}")
         results.setdefault(name, []).append(line)
+    for shape in BF16_SPLIT_SHAPES:
+        print(json.dumps({"phase": "snake_conv_bf16_split",
+                          **bf16_split(torch, dev, *shape)}), flush=True)
     return results
 
 
@@ -1444,8 +1555,9 @@ class LaunchShapes:
     def _note(self, name, a):
         if name == "aa_snakebeta_fwd":
             key = ("aa_snakebeta", a[4], a[5], a[6], a[9])
-        elif name == "snake_conv_fwd":
-            b, t, cin, cout, k, d, io = a[7:14]
+        elif name in ("snake_conv_fwd", "snake_conv_bf16_fwd"):
+            b, t, cin, cout, k, d = a[7:13]
+            io = a[13] if name == "snake_conv_bf16_fwd" else 0
             self._conv = (b, t, cout)
             key = ("snake_conv", b, t, cin, k, d, a[5].value is not None, io)
         elif name == "triple_avg_fwd":  # the average of the stage's last convs
@@ -1733,13 +1845,17 @@ def new_shapes_phase(torch, dev, shapes):
     rounding: within BF16_MARGIN x max|ref| of the bf16 twin before its
     final rounding; a bf16 snake_conv launch that writes float32 also by its
     mean error (MMA_F32_MEAN_TOL), with what a bf16-rounded output would
-    read beside it."""
+    read beside it; its weights packed once (as the modules cache them),
+    its tile plan on the card held to the mirror (plan_check), and cuDNN's
+    bf16 conv1d of the same conv alone beside it ("conv_alone_events_ms",
+    summed like events_ms: not the same function)."""
     from megatts2_hierspeechpp_torch.models.plm import ProsodyLM, teacher_forced_gap
     from megatts2_hierspeechpp_torch.nn.conv import conv1d_op
     from megatts2_hierspeechpp_torch.ops.amp_triple import (
         composed_epilogue, fused_epilogue)
     from megatts2_hierspeechpp_torch.ops.ampblock import (
-        IO_BF16_MMA, IO_RES_BF16, IO_X_BF16, IO_Y_BF16, rounded, snake_conv)
+        IO_BF16_MMA, IO_RES_BF16, IO_X_BF16, IO_Y_BF16, pack_bf16, rounded,
+        snake_conv)
     from megatts2_hierspeechpp_torch.ops.plm_decode import (
         plain_gap, plm_decode_greedy)
     from megatts2_hierspeechpp_torch.ops.resample import activation1d
@@ -1810,8 +1926,9 @@ def new_shapes_phase(torch, dev, shapes):
                 out_dt = bf if io & IO_Y_BF16 else torch.float32
                 a, ib = pos(c), pos(c)
                 w, bias = randn(k, c, c, scale=(c * k) ** -0.5), randn(c, scale=0.05)
+                wp = pack_bf16(w) if mma else None
                 y = snake_conv(x, a, ib, w, bias, d, res=res, bf16_mma=mma,
-                               out_dtype=out_dt)
+                               out_dtype=out_dt, packed=wp)
                 op = rounded if mma else (lambda v: v)
 
                 def plain():
@@ -1838,14 +1955,17 @@ def new_shapes_phase(torch, dev, shapes):
 
                 def run():
                     return snake_conv(x, a, ib, w, bias, d, res=res,
-                                      bf16_mma=mma, out_dtype=out_dt)
+                                      bf16_mma=mma, out_dtype=out_dt, packed=wp)
 
-                conv_dev = conv_ev = None
+                conv_dev = conv_ev = alone_ev = None
                 if path.startswith(DEVICE_MS_PATHS) and not mma:
                     conv_dev = device_ms(torch, run, ("snake_conv",), 10,
                                          required=False)
                 if mma:
+                    plan_check(b, t, c, k, d)
                     conv_ev = back_to_back_ms(torch, run)
+                    alone_ev = back_to_back_ms(torch, conv_alone_fn(
+                        torch, dev, b, t, c, [(k, d)]))
                 kind = "snake_conv_bf16" if mma else "snake_conv"
                 del x, res, y, ref
             else:  # plm_decode at a new length
@@ -1888,7 +2008,9 @@ def new_shapes_phase(torch, dev, shapes):
                                       "f32_out_rounded_least_mean_err": 1.0}
                                      if bf16_io else {}),
                                   "bound_ms": 0.0, "device_ms": 0.0,
-                                  **({"events_ms": 0.0} if bf16_io else {}),
+                                  **({"events_ms": 0.0,
+                                      "conv_alone_events_ms": 0.0}
+                                     if bf16_io else {}),
                                   "plain_ms": 0.0})
             g["launch_shapes"] += 1
             g["bound_ms"] += conv_bound
@@ -1897,6 +2019,7 @@ def new_shapes_phase(torch, dev, shapes):
                               else g["device_ms"] + conv_dev)
             if bf16_io:
                 g["events_ms"] += conv_ev
+                g["conv_alone_events_ms"] += alone_ev
             if mean_err is not None:
                 g["f32_out_worst_mean_err"] = max(g["f32_out_worst_mean_err"],
                                                   mean_err)
@@ -1916,7 +2039,7 @@ def new_shapes_phase(torch, dev, shapes):
 GROUPS = (  # (group, substrings of kernel names), first match wins
     ("plm_decode (ours)", ("plm_decode_kernel",)),
     ("aa_snakebeta (ours)", ("aa_snakebeta_kernel",)),
-    ("snake_conv (ours)", ("snake_conv_kernel",)),
+    ("snake_conv (ours)", ("snake_conv_kernel", "snake_conv_bf16_kernel")),
     ("triple_epilogue (ours)", ("triple_avg_kernel", "triple_post_kernel")),
     # cuDNN runs a small-batch LSTM as one cell kernel and one gemv per step
     ("LSTM cells + gemv", ("RNN", "rnn", "LSTM", "lstm", "gemv")),
@@ -2432,8 +2555,8 @@ TRAIN_BWD_TOL = 1e-4        # a kernel's gradients against autograd of its
                             # plain version (the bf16 twin for bf16 x), x
                             # max|ref| of each tensor, cuDNN deterministic
 TRAIN_FWD_TOL = {"aa_snakebeta": 1e-5, "ampblock": 1e-4, "amp_triple": 1e-4}
-OURS = ("aa_snakebeta_kernel", "snake_conv_kernel", "triple_avg_kernel",
-        "triple_post_kernel")
+OURS = ("aa_snakebeta_kernel", "snake_conv_kernel", "snake_conv_bf16_kernel",
+        "triple_avg_kernel", "triple_post_kernel")
 TRAIN_GROUPS = (  # the rest of a step's kernels, first match wins
     ("optimizer (foreach)", ("multi_tensor_apply",)),
     ("cuDNN/cuBLAS conv+gemm", ("conv", "cudnn", "xmma", "gemm", "sgemm",
@@ -3570,6 +3693,41 @@ def state_dicts_equal(got: dict, want: dict) -> bool:
         bool((got[k].cpu() == want[k].cpu()).all()) for k in want)
 
 
+def bf16_packs_current(torch, models) -> dict:
+    """Every AMPBlock of `models` that cached its bf16 conv pack: the pack
+    its last call used is still the one packed_bf16() gives, and it equals
+    pack_bf16 of the weights the block holds; then one conv weight changed
+    in place (as an optimizer step writes it) gives a new pack of the new
+    values, and the weight is put back."""
+    from megatts2_hierspeechpp_torch.nn.resblocks import AMPBlock
+    from megatts2_hierspeechpp_torch.ops.ampblock import pack_bf16
+
+    def fresh(blk):
+        _, _, w1, _, _, _, w2, _ = blk.fused_weights()
+        return pack_bf16(w1), pack_bf16(w2)
+
+    def equal(a, b):
+        return all(torch.equal(x, y) for x, y in zip(a, b))
+
+    blocks = [m for model in models for m in model.modules()
+              if isinstance(m, AMPBlock) and m._packed is not None]
+    with torch.no_grad():
+        current = all(blk.packed_bf16() is blk._packed[1] and
+                      equal(blk._packed[1], fresh(blk)) for blk in blocks)
+        renewed = False
+        if blocks:
+            blk = blocks[0]
+            old = blk.packed_bf16()
+            v = blk.convs1[0].weight_v
+            saved = v.clone()
+            v.add_(0.5 * v.abs().mean())  # moves the normalised weight too
+            new = blk.packed_bf16()
+            renewed = (new is not old and not equal(new, old)
+                       and equal(new, fresh(blk)))
+            v.copy_(saved)
+    return {"blocks": len(blocks), "current": current, "renewed": renewed}
+
+
 def serve_trained_phase(torch, dev, shapes, audio, state, batch, runs):
     """The trained models served through infer/from_training: the pipeline
     of the four run directories `runs` (phase 11's bf16 s2 and s1 runs,
@@ -3581,7 +3739,11 @@ def serve_trained_phase(torch, dev, shapes, audio, state, batch, runs):
     decode's teacher-forced gap against the float32 plain twin; the s1
     run's in-memory PLM, packed, then stepped once more (an optimizer's
     in-place update: its decode weights must be packed anew), then loaded
-    with the checkpoint, decodes the pipeline's codes."""
+    with the checkpoint, decodes the pipeline's codes; after the bf16
+    request, every AMPBlock's cached bf16 conv pack (the vocoder's and
+    SpeechSR's) equals pack_bf16 of its trained weights, and an in-place
+    update of a conv weight gives a new pack of the new values
+    (bf16_packs_current)."""
     import os
 
     from megatts2_hierspeechpp_torch.infer.from_training import (
@@ -3662,6 +3824,12 @@ def serve_trained_phase(torch, dev, shapes, audio, state, batch, runs):
                  "decodes other codes than the pipeline's")
         if dtype is not None and ac.x_frame.dtype != torch.bfloat16:
             fail(f"{label}: the latent is {ac.x_frame.dtype}, not bf16")
+        if dtype is not None:
+            packs = bf16_packs_current(torch, [pipe.vocoder, pipe.speechsr])
+            print(json.dumps({"phase": "serve_trained_bf16_packs", **packs}),
+                  flush=True)
+            if not (packs["blocks"] and packs["current"] and packs["renewed"]):
+                fail(f"{label}: a stale bf16 conv pack: {packs}")
         del pipe
         torch.cuda.empty_cache()
     return (lines["serve_trained"]["calls"],
@@ -3802,7 +3970,8 @@ def serve_trained_sr_phase(torch, dev, shapes, state):
         y, counts = run_path(torch, cuda_lib, shapes, "serve_trained_sr", lambda: sr(x))
         ms = 1e3 * (time.perf_counter() - t0)
         fused = speechsr.fused_amp_triple
-        speechsr.fused_amp_triple = composed_triple
+        speechsr.fused_amp_triple = (  # the plain stage takes no packed weights
+            lambda *a, packed=None, **kw: composed_triple(*a, **kw))
         try:
             ref = sr(x)
         finally:

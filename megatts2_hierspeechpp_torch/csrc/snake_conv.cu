@@ -61,35 +61,14 @@
 // conflicts, whatever the shift. Cout from 1 to 128, any Cin: padding
 // channels are zero-filled.
 //
-// bf16 configuration (the TPU kernels' bf16 activations, where the MXU
-// runs each conv at Precision.DEFAULT: operands rounded to bf16, products
-// summed in float32). With kBf16Mma each product is one mma.sync m16n8k16
-// bf16 pass with a float32 accumulator, in place of the three TF32 passes:
-// the snake window is written to shared memory once, as bf16 (two channels
-// a 32-bit word), and the float32 weights are rounded to bf16 as their
-// fragments load. Everything else stays float32: the snake, the taps, the
-// bias and the residual. The I/O types are chosen per launch (kXBf16,
-// kResBf16, kYBf16): a block's first launch reads bf16 x, its second adds
-// the bf16 x as the residual, the intermediates between launches stay
-// float32 (the TPU kernel keeps them in VMEM), and the block's last launch
-// writes bf16 (ops/ampblock.py:run_block). Float32 I/O with the bf16
-// products is allowed; bf16 I/O with the TF32 products is refused. The
-// float32 configuration compiles to the same arithmetic as before (its
-// instantiation has the bf16 branches compiled out).
-//
-// bf16 shared rows: the window row is 16 words of channel pairs + 4 of pad
-// (kSW = 20): an A fragment reads rows g .. g + 7 (any shift) at words t4,
-// and 20 g mod 32 runs over distinct multiples of 4, so the 32 lanes hit 32
-// banks. The weight ring keeps float32 rows of 40 (kSB): a B fragment is
-// two float2 reads, and each half-warp (rows g .. g + 3) covers the 32
-// banks once.
+// The bf16 configuration (bf16 conv operands, float32 sums) is
+// snake_conv_bf16.cu's: wgmma on packed bf16 weights.
 //
 // Resources (ptxas -v, sm_90a; build/kernels/build.log): 120-127 registers
 // for every tile but 128 x 128 (168), no spills, no static shared memory.
 // Dynamic shared memory is (W + 12) 32 + 2 W 36 + 3 TN 36 floats, W = TM +
 // (K-1)d: at k=11, d=5, 89 KB for SpeechSR's 128 x 32 tiles (two blocks per
-// SM) and 104 KB for Generator stage 1's 64 x 128. The bf16 products need
-// (W + 12) 32 + 20 W + 3 TN 40 words: 71 KB and 90 KB at those shapes.
+// SM) and 104 KB for Generator stage 1's 64 x 128.
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -100,14 +79,6 @@
 namespace {
 
 constexpr int kS = kChunk + 4;  // shared row stride of window and weights
-constexpr int kSW = kChunk / 2 + 4;  // bf16 window row, 32-bit words
-constexpr int kSB = kChunk + 8;      // weight row of the bf16 products
-
-// snake_conv_fwd's `io` flags
-constexpr int kBf16Mma = 1;  // one-pass bf16 products, float32 accumulate
-constexpr int kXBf16 = 2;    // x is bf16
-constexpr int kResBf16 = 4;  // the residual is bf16
-constexpr int kYBf16 = 8;    // y is bf16
 
 __device__ __forceinline__ uint32_t tf32(float f) {
   uint32_t r;
@@ -119,21 +90,6 @@ __device__ __forceinline__ void split(float v, uint32_t* hi, uint32_t* lo) {
   const uint32_t h = tf32(v);
   *hi = h;
   *lo = tf32(v - __uint_as_float(h));
-}
-
-// Two float32 values rounded to bf16, packed as an mma operand register
-// (the lower index in the low half).
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  return (uint32_t)bf16_bits(lo) | ((uint32_t)bf16_bits(hi) << 16);
-}
-
-__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a,
-                                         const uint32_t* b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
 __device__ __forceinline__ void mma_tf32(float* c, const uint32_t* a,
@@ -173,59 +129,43 @@ __device__ __forceinline__ void cp_wait_prev() {
 
 constexpr int kStages = 3;  // weight slices in flight: this tap, next two
 
-// Shared bytes of one block: x rows, the window (hi + lo parts, or bf16),
-// the weight ring.
-inline size_t smem_bytes(bool bf16, int tm, int tn, int K, int dil) {
+// Shared bytes of one block: x rows, the window (hi + lo parts), the weight
+// ring.
+inline size_t smem_bytes(int tm, int tn, int K, int dil) {
   const size_t W = tm + (size_t)(K - 1) * dil;
-  if (bf16)
-    return sizeof(float) *
-           ((W + 12) * kChunk + W * kSW + (size_t)kStages * tn * kSB);
   return sizeof(float) *
          ((W + 12) * kChunk + 2 * W * kS + (size_t)kStages * tn * kS);
 }
 
-template <int WM, int WN, int MT, int NT, bool BF16>
+template <int WM, int WN, int MT, int NT>
 __global__ void __launch_bounds__(WM * WN * 32)
-snake_conv_kernel(const void* __restrict__ x, const float* __restrict__ alpha,
+snake_conv_kernel(const float* __restrict__ x, const float* __restrict__ alpha,
                   const float* __restrict__ inv_beta,
                   const float* __restrict__ w,  // (K, Cout, Cin)
                   const float* __restrict__ bias,
-                  const void* __restrict__ res,  // (B, T, Cout) or null
-                  void* __restrict__ y, int T, int Cin, int Cout, int K,
-                  int dil, int vec, int io) {
+                  const float* __restrict__ res,  // (B, T, Cout) or null
+                  float* __restrict__ y, int T, int Cin, int Cout, int K,
+                  int dil, int vec) {
   constexpr int kThreads = WM * WN * 32, kWarps = WM * WN;
   constexpr int TM = WM * MT * 16, TN = WN * NT * 8;
-  constexpr int kWS = BF16 ? kSB : kS;  // weight ring row stride
   extern __shared__ __align__(16) float smem[];
-  const bool x16 = BF16 && (io & kXBf16);
-  const bool r16 = BF16 && (io & kResBf16);
-  const bool y16 = BF16 && (io & kYBf16);
   const int hd = (K - 1) / 2 * dil;
   const int W = TM + (K - 1) * dil;  // conv input window
   float* xs = smem;                  // (W + 12) x kChunk
-  // the window: hi and lo parts, W x kS each; or bf16 pairs, W x kSW
+  // the window: hi and lo parts, W x kS each
   uint32_t* ahi = reinterpret_cast<uint32_t*>(xs + (W + 12) * kChunk);
   uint32_t* alo = ahi + W * kS;
-  uint32_t* awin = ahi;
-  float* wring = reinterpret_cast<float*>(ahi + (BF16 ? W * kSW : 2 * W * kS));
-  // kStages x TN x kWS
+  float* wring = reinterpret_cast<float*>(ahi + 2 * W * kS);  // kStages x TN x kS
 
   const int t0 = blockIdx.x * TM, n0 = blockIdx.y * TN, b = blockIdx.z;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, t4 = lane & 3;
   const int wm = warp % WM, wn = warp / WM;
   const int w0 = t0 - hd;
-  const float* xb = static_cast<const float*>(x) + (size_t)b * T * Cin;
+  const float* xb = x + (size_t)b * T * Cin;
 
   auto stage_x = [&](int c0) {
-    if (x16) {  // bf16 x: converted as it is staged (no cp.async)
-      const bf16* xh = static_cast<const bf16*>(x) + (size_t)b * T * Cin;
-      for (int i = tid; i < (W + 12) * kChunk; i += kThreads) {
-        const int r = i / kChunk, q = i % kChunk;
-        const int p = clampi(w0 - 6 + r, 0, T - 1);
-        xs[i] = c0 + q < Cin ? ld_act(xh + (size_t)p * Cin + c0 + q) : 0.f;
-      }
-    } else if (vec) {
+    if (vec) {
       for (int i = tid; i < (W + 12) * 8; i += kThreads) {
         const int r = i >> 3, q = (i & 7) * 4;
         const int p = clampi(w0 - 6 + r, 0, T - 1);
@@ -243,19 +183,19 @@ snake_conv_kernel(const void* __restrict__ x, const float* __restrict__ alpha,
   };
   auto stage_w = [&](int step) {
     const int j = step % K, c0 = step / K * kChunk;
-    float* wr = wring + (step % kStages) * TN * kWS;
+    float* wr = wring + (step % kStages) * TN * kS;
     if (vec) {
       for (int i = tid; i < TN * 8; i += kThreads) {
         const int co = i >> 3, q = (i & 7) * 4;
         const bool ok = n0 + co < Cout && c0 + q < Cin;
-        cp16(wr + co * kWS + q,
+        cp16(wr + co * kS + q,
              ok ? w + ((size_t)j * Cout + n0 + co) * Cin + c0 + q : w, ok);
       }
     } else {
       for (int i = tid; i < TN * kChunk; i += kThreads) {
         const int co = i / kChunk, q = i % kChunk;
         const bool ok = n0 + co < Cout && c0 + q < Cin;
-        cp4(wr + co * kWS + q,
+        cp4(wr + co * kS + q,
             ok ? w + ((size_t)j * Cout + n0 + co) * Cin + c0 + q : w, ok);
       }
     }
@@ -297,11 +237,7 @@ snake_conv_kernel(const void* __restrict__ x, const float* __restrict__ alpha,
           for (int k = 0; k < 12; ++k) v += kDown[k] * ring[k];
           const int p = w0 + r;
           v = p >= 0 && p < T ? v : 0.f;
-          if constexpr (BF16)
-            reinterpret_cast<unsigned short*>(awin)[r * 2 * kSW + lane] =
-                bf16_bits(v);
-          else
-            split(v, &ahi[r * kS + lane], &alo[r * kS + lane]);
+          split(v, &ahi[r * kS + lane], &alo[r * kS + lane]);
           if (++r >= rb) break;
 #pragma unroll
           for (int k = 0; k < 10; ++k) ring[k] = ring[k + 2];
@@ -317,61 +253,36 @@ snake_conv_kernel(const void* __restrict__ x, const float* __restrict__ alpha,
     if (step + 2 < n_steps) stage_w(step + 2);
     cp_commit();
 
-    const float* wr = wring + (step % kStages) * TN * kWS;
+    const float* wr = wring + (step % kStages) * TN * kS;
 
-    if constexpr (BF16) {
-      const int n_k16 = (min(kChunk, Cin - c0) + 15) / 16;
-      for (int kk = 0; kk < n_k16; ++kk) {
-        uint32_t bw[NT][2];
+    const int n_k8 = min(kChunk, Cin - c0 + 7) / 8;
+    for (int k8 = 0; k8 < n_k8; ++k8) {
+      const int kc = k8 * 8 + t4;
+      uint32_t bh[NT][2], bl[NT][2];
 #pragma unroll
-        for (int nt = 0; nt < NT; ++nt) {
-          const float* wp =
-              wr + (wn * NT * 8 + nt * 8 + g) * kSB + kk * 16 + 2 * t4;
-          const float2 lo = *reinterpret_cast<const float2*>(wp);
-          const float2 hi = *reinterpret_cast<const float2*>(wp + 8);
-          bw[nt][0] = pack_bf16(lo.x, lo.y);
-          bw[nt][1] = pack_bf16(hi.x, hi.y);
-        }
-#pragma unroll
-        for (int mt = 0; mt < MT; ++mt) {
-          const int o =
-              (wm * MT * 16 + mt * 16 + g + j * dil) * kSW + kk * 8 + t4;
-          const uint32_t a[4] = {awin[o], awin[o + 8 * kSW], awin[o + 4],
-                                 awin[o + 8 * kSW + 4]};
-#pragma unroll
-          for (int nt = 0; nt < NT; ++nt) mma_bf16(acc[mt][nt], a, bw[nt]);
-        }
+      for (int nt = 0; nt < NT; ++nt) {
+        const int o = (wn * NT * 8 + nt * 8 + g) * kS + kc;
+        split(wr[o], &bh[nt][0], &bl[nt][0]);
+        split(wr[o + 4], &bh[nt][1], &bl[nt][1]);
       }
-    } else {
-      const int n_k8 = min(kChunk, Cin - c0 + 7) / 8;
-      for (int k8 = 0; k8 < n_k8; ++k8) {
-        const int kc = k8 * 8 + t4;
-        uint32_t bh[NT][2], bl[NT][2];
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+        const int o = (wm * MT * 16 + mt * 16 + g + j * dil) * kS + kc;
+        const uint32_t ah[4] = {ahi[o], ahi[o + 8 * kS], ahi[o + 4],
+                                ahi[o + 8 * kS + 4]};
+        const uint32_t al[4] = {alo[o], alo[o + 8 * kS], alo[o + 4],
+                                alo[o + 8 * kS + 4]};
 #pragma unroll
         for (int nt = 0; nt < NT; ++nt) {
-          const int o = (wn * NT * 8 + nt * 8 + g) * kS + kc;
-          split(wr[o], &bh[nt][0], &bl[nt][0]);
-          split(wr[o + 4], &bh[nt][1], &bl[nt][1]);
-        }
+          // small terms first, into a fresh sum that joins acc with a
+          // float32 add: the tensor cores' own accumulation truncates, and
+          // over K x Cin / 8 steps that drifts by more than float32 does
+          float t[4] = {0.f, 0.f, 0.f, 0.f};
+          mma_tf32(t, al, bh[nt]);
+          mma_tf32(t, ah, bl[nt]);
+          mma_tf32(t, ah, bh[nt]);
 #pragma unroll
-        for (int mt = 0; mt < MT; ++mt) {
-          const int o = (wm * MT * 16 + mt * 16 + g + j * dil) * kS + kc;
-          const uint32_t ah[4] = {ahi[o], ahi[o + 8 * kS], ahi[o + 4],
-                                  ahi[o + 8 * kS + 4]};
-          const uint32_t al[4] = {alo[o], alo[o + 8 * kS], alo[o + 4],
-                                  alo[o + 8 * kS + 4]};
-#pragma unroll
-          for (int nt = 0; nt < NT; ++nt) {
-            // small terms first, into a fresh sum that joins acc with a
-            // float32 add: the tensor cores' own accumulation truncates, and
-            // over K x Cin / 8 steps that drifts by more than float32 does
-            float t[4] = {0.f, 0.f, 0.f, 0.f};
-            mma_tf32(t, al, bh[nt]);
-            mma_tf32(t, ah, bl[nt]);
-            mma_tf32(t, ah, bh[nt]);
-#pragma unroll
-            for (int e = 0; e < 4; ++e) acc[mt][nt][e] += t[e];
-          }
+          for (int e = 0; e < 4; ++e) acc[mt][nt][e] += t[e];
         }
       }
     }
@@ -392,27 +303,22 @@ snake_conv_kernel(const void* __restrict__ x, const float* __restrict__ alpha,
           if (co >= Cout) continue;
           const size_t o = (row0 + t) * Cout + co;
           float v = acc[mt][nt][2 * h + e] + bias[co];
-          if (res != nullptr)
-            v += r16 ? ld_act(static_cast<const bf16*>(res) + o)
-                     : static_cast<const float*>(res)[o];
-          if (y16)
-            st_act(static_cast<bf16*>(y) + o, v);
-          else
-            static_cast<float*>(y)[o] = v;
+          if (res != nullptr) v += res[o];
+          y[o] = v;
         }
       }
     }
   }
 }
 
-template <int WM, int WN, int MT, int NT, bool BF16>
-int launch(const void* x, const float* alpha, const float* inv_beta,
-           const float* w, const float* bias, const void* res, void* y,
-           int B, int T, int Cin, int Cout, int K, int dil, int vec, int io,
+template <int WM, int WN, int MT, int NT>
+int launch(const float* x, const float* alpha, const float* inv_beta,
+           const float* w, const float* bias, const float* res, float* y,
+           int B, int T, int Cin, int Cout, int K, int dil, int vec,
            cudaStream_t stream) {
   constexpr int TM = WM * MT * 16, TN = WN * NT * 8;
-  auto kernel = snake_conv_kernel<WM, WN, MT, NT, BF16>;
-  const size_t smem = smem_bytes(BF16, TM, TN, K, dil);
+  auto kernel = snake_conv_kernel<WM, WN, MT, NT>;
+  const size_t smem = smem_bytes(TM, TN, K, dil);
   static size_t smem_set = 48 * 1024;
   if (smem > smem_set) {
     cudaError_t e = cudaFuncSetAttribute(
@@ -423,16 +329,15 @@ int launch(const void* x, const float* alpha, const float* inv_beta,
   dim3 grid((T + TM - 1) / TM, (Cout + TN - 1) / TN, B);
   kernel<<<grid, WM * WN * 32, smem, stream>>>(x, alpha, inv_beta, w, bias,
                                                res, y, T, Cin, Cout, K, dil,
-                                               vec, io);
+                                               vec);
   return (int)cudaGetLastError();
 }
 
 // Tile of a launch: the widest time tile that still gives a block per SM
 // (TM 128, 64, then 32) with all of Cout in one block; at TM 32, Cout is
 // split (down to 32 channels a block) until the card is full. 0 when the
-// shape is not supported. `bf16`: the shared memory of the bf16 products.
-int choose_tile(bool bf16, int B, int T, int Cout, int K, int dil, int* tm,
-                int* tn) {
+// shape is not supported.
+int choose_tile(int B, int T, int Cout, int K, int dil, int* tm, int* tn) {
   static int sms = 0, smem_max = 0;
   if (sms == 0) {
     int dev = 0;
@@ -447,7 +352,7 @@ int choose_tile(bool bf16, int B, int T, int Cout, int K, int dil, int* tm,
   *tn = full;
   for (int m : {128, 64}) {
     if ((long)B * ((T + m - 1) / m) >= sms &&
-        smem_bytes(bf16, m, full, K, dil) <= (size_t)smem_max) {
+        smem_bytes(m, full, K, dil) <= (size_t)smem_max) {
       *tm = m;
       break;
     }
@@ -456,44 +361,34 @@ int choose_tile(bool bf16, int B, int T, int Cout, int K, int dil, int* tm,
     const long t_tiles = (long)B * ((T + 31) / 32);
     while (*tn > 32 && t_tiles * ((Cout + *tn - 1) / *tn) < sms) *tn /= 2;
   }
-  return smem_bytes(bf16, *tm, *tn, K, dil) <= (size_t)smem_max;
+  return smem_bytes(*tm, *tn, K, dil) <= (size_t)smem_max;
 }
 
 }  // namespace
 
 extern "C" int snake_conv_tile(int B, int T, int Cout, int K, int dil,
-                               int bf16, int* tm, int* tn) {
-  return choose_tile(bf16 != 0, B, T, Cout, K, dil, tm, tn)
-             ? 0
-             : (int)cudaErrorInvalidValue;
+                               int* tm, int* tn) {
+  return choose_tile(B, T, Cout, K, dil, tm, tn) ? 0
+                                                 : (int)cudaErrorInvalidValue;
 }
 
-// io: kBf16Mma for the bf16 products, with kXBf16 / kResBf16 / kYBf16 for
-// bf16 x / res / y (each float32 without its flag); 0 is the float32
-// configuration.
-extern "C" int snake_conv_fwd(const void* x, const float* alpha,
+// The float32 configuration (split TF32); the bf16 one is
+// snake_conv_bf16_fwd (snake_conv_bf16.cu).
+extern "C" int snake_conv_fwd(const float* x, const float* alpha,
                               const float* inv_beta, const float* w,
-                              const float* bias, const void* res, void* y,
+                              const float* bias, const float* res, float* y,
                               int B, int T, int Cin, int Cout, int K, int dil,
-                              int io, void* stream) {
-  const bool mma16 = io & kBf16Mma;
-  if ((io & ~(kBf16Mma | kXBf16 | kResBf16 | kYBf16)) || (!mma16 && io))
-    return (int)cudaErrorInvalidValue;
+                              void* stream) {
   int tm, tn;
-  if (Cin < 1 || !choose_tile(mma16, B, T, Cout, K, dil, &tm, &tn))
+  if (Cin < 1 || !choose_tile(B, T, Cout, K, dil, &tm, &tn))
     return (int)cudaErrorInvalidValue;
-  const int vec = Cin % 4 == 0 &&
-                  ((io & kXBf16) || (uintptr_t)x % 16 == 0) &&
+  const int vec = Cin % 4 == 0 && (uintptr_t)x % 16 == 0 &&
                   (uintptr_t)w % 16 == 0;
   cudaStream_t s = (cudaStream_t)stream;
-#define SNAKE_CONV_CASE(M, N, WM, WN, MT, NT)                                 \
-  if (tm == M && tn == N)                                                     \
-    return mma16 ? launch<WM, WN, MT, NT, true>(x, alpha, inv_beta, w, bias,  \
-                                                res, y, B, T, Cin, Cout, K,   \
-                                                dil, vec, io, s)              \
-                 : launch<WM, WN, MT, NT, false>(x, alpha, inv_beta, w, bias, \
-                                                 res, y, B, T, Cin, Cout, K,  \
-                                                 dil, vec, io, s);
+#define SNAKE_CONV_CASE(M, N, WM, WN, MT, NT)                              \
+  if (tm == M && tn == N)                                                  \
+    return launch<WM, WN, MT, NT>(x, alpha, inv_beta, w, bias, res, y, B, T, \
+                                  Cin, Cout, K, dil, vec, s);
   SNAKE_CONV_CASE(128, 128, 2, 4, 4, 4)
   SNAKE_CONV_CASE(64, 128, 2, 4, 2, 4)
   SNAKE_CONV_CASE(32, 128, 2, 4, 1, 4)

@@ -18,7 +18,8 @@ from megatts2_hierspeechpp_torch.device import resolve_device
 from megatts2_hierspeechpp_torch.nn.activations import AASnakeBeta
 from megatts2_hierspeechpp_torch.nn.conv import Conv1d, WNConv1d
 from megatts2_hierspeechpp_torch.nn.init import init_weights
-from megatts2_hierspeechpp_torch.nn.resblocks import AMPBlock, fused_triple_enabled
+from megatts2_hierspeechpp_torch.nn.resblocks import (
+    AMPBlock, fused_triple_enabled, stage_packs)
 from megatts2_hierspeechpp_torch.ops.amp_triple import fused_amp_triple
 
 
@@ -102,7 +103,8 @@ class SpeechSR(nn.Module):
             pw = self.conv_post.weight[0].t().contiguous()
             return fused_amp_triple(
                 y, [b.fused_weights() for b in self.resblocks], self.ks,
-                self.dils, post=(pa, pib, pw))
+                self.dils, post=(pa, pib, pw),
+                packed=stage_packs(self.resblocks, y))
         xs = None
         for blk in self.resblocks:
             r = blk(y)

@@ -49,7 +49,8 @@ from megatts2_hierspeechpp_torch.nn.conv import (
 )
 from megatts2_hierspeechpp_torch.nn.dit import ResidualCouplingBlockTransformer
 from megatts2_hierspeechpp_torch.nn.init import init_weights
-from megatts2_hierspeechpp_torch.nn.resblocks import AMPBlock, fused_triple_enabled
+from megatts2_hierspeechpp_torch.nn.resblocks import (
+    AMPBlock, fused_triple_enabled, stage_packs)
 from megatts2_hierspeechpp_torch.nn.styleencoder import StyleEncoder
 from megatts2_hierspeechpp_torch.nn.wavenet import WN
 from megatts2_hierspeechpp_torch.ops.amp_triple import fused_amp_triple
@@ -228,7 +229,8 @@ class SourceNetwork(nn.Module):
             blocks = self.resblocks[i * n:(i + 1) * n]
             if fused_triple_enabled(y.shape[-1]):
                 y = fused_amp_triple(y, [b.fused_weights() for b in blocks],
-                                     self.resblock_kernels, ((1, 3, 5),) * n)
+                                     self.resblock_kernels, ((1, 3, 5),) * n,
+                                     packed=stage_packs(blocks, y))
             else:
                 xs = None
                 for blk in blocks:
@@ -329,8 +331,10 @@ class Generator(nn.Module):
                     pa, pib = self.activation_post.fused_params()
                     pw = self.conv_post.weight[0].t().contiguous()
                     return fused_amp_triple(y, bws, self.ks, self.dils,
-                                            post=(pa, pib, pw))
-                y = fused_amp_triple(y, bws, self.ks, self.dils)
+                                            post=(pa, pib, pw),
+                                            packed=stage_packs(blocks, y))
+                y = fused_amp_triple(y, bws, self.ks, self.dils,
+                                     packed=stage_packs(blocks, y))
             else:
                 xs = None
                 for blk in blocks:

@@ -8,7 +8,9 @@ runs as one `fused_amp_triple` call (`fused_triple_enabled`). Each wrapper
 takes its plain version for CPU tensors, so the dispatch is the same on
 both devices. `dtype` is the convs' compute dtype; the fused wrappers take
 their activation's dtype (bf16: the kernels' bf16 configuration) with the
-weights of `fused_weights`, which stay float32.
+weights of `fused_weights`, which stay float32, and on the card the bf16
+configuration's packed conv weights (`AMPBlock.packed_bf16`, packed once
+per parameter version).
 """
 from __future__ import annotations
 
@@ -20,12 +22,20 @@ from torch import nn
 from megatts2_hierspeechpp_torch.nn.activations import AASnakeBeta
 from megatts2_hierspeechpp_torch.nn.basic import leaky_relu
 from megatts2_hierspeechpp_torch.nn.conv import WNConv1d, get_padding
-from megatts2_hierspeechpp_torch.ops.ampblock import fused_ampblock
+from megatts2_hierspeechpp_torch.ops.ampblock import fused_ampblock, pack_bf16
 
 
 def fused_triple_enabled(channels: int) -> bool:
     """Whole-stage fusion gate: the narrow stages (C <= 64)."""
     return channels <= 64
+
+
+def stage_packs(blocks, x):
+    """The blocks' packed bf16 conv weights for a fused stage on x: where x
+    runs the kernels' bf16 configuration on the card, else None."""
+    if x.dtype != torch.bfloat16 or x.device.type != "cuda":
+        return None
+    return [b.packed_bf16() for b in blocks]
 
 
 class ResBlock1(nn.Module):
@@ -70,6 +80,7 @@ class AMPBlock(nn.Module):
             for _ in self.dilation)
         self.activations = nn.ModuleList(
             AASnakeBeta(channels) for _ in range(2 * len(self.dilation)))
+        self._packed = None  # (key, (packed w1, packed w2))
 
     def fused_weights(self):
         """(a1, ib1, w1, b1, a2, ib2, w2, b2) stacked over branches: the
@@ -86,11 +97,34 @@ class AMPBlock(nn.Module):
                 out[4 * j + 3].append(conv.bias)
         return tuple(torch.stack(v) for v in out)
 
+    def _pack_key(self) -> tuple:
+        # the convs' own parameters: replaced (data_ptr) or written in place
+        # (_version: an optimizer step, load_state_dict); inference tensors
+        # carry no version counter, and no optimizer steps them
+        return tuple((p.data_ptr(), 0 if p.is_inference() else p._version)
+                     for conv in (*self.convs1, *self.convs2)
+                     for p in (conv.weight_g, conv.weight_v))
+
+    def packed_bf16(self):
+        """(pack_bf16(w1), pack_bf16(w2)) of the weights `fused_weights`
+        stacks: the bf16 configuration's conv operands, built on first use
+        and again whenever a conv parameter was replaced or written in place
+        since."""
+        key = self._pack_key()
+        if self._packed is None or self._packed[0] != key:
+            with torch.no_grad():
+                w1 = torch.stack([c.weight().permute(2, 0, 1) for c in self.convs1])
+                w2 = torch.stack([c.weight().permute(2, 0, 1) for c in self.convs2])
+                self._packed = (key, (pack_bf16(w1), pack_bf16(w2)))
+        return self._packed[1]
+
     def forward(self, x):
         if x.shape[-1] <= 128:
+            packed = (self.packed_bf16() if x.dtype == torch.bfloat16
+                      and x.device.type == "cuda" else None)
             return fused_ampblock(x, *self.fused_weights(),
                                   kernel_size=self.kernel_size,
-                                  dilations=self.dilation)
+                                  dilations=self.dilation, packed=packed)
         for i in range(len(self.dilation)):
             xt = self.activations[2 * i](x)
             xt = self.convs1[i](xt)

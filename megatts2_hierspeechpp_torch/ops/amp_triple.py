@@ -15,8 +15,9 @@ to device memory. Edges are exact, as in ops/ampblock.py, so no strip of
 `composed_triple` is stitched in.
 
 bf16 configuration (a bf16 x, counted as `amp_triple_bf16`): each block runs
-the AMPBlock's bf16 configuration (ops/ampblock.py) but writes its output in
-float32, and the epilogue averages in float32, runs the tail in float32 and
+the AMPBlock's bf16 configuration (ops/ampblock.py, its convs on
+`csrc/snake_conv_bf16.cu` from the blocks' packed weights) but writes its
+output in float32, and the epilogue averages in float32, runs the tail in float32 and
 rounds the stage's output to bf16 once, as the TPU kernel keeps the whole
 stage in float32 in VMEM.
 """
@@ -28,7 +29,8 @@ import torch
 
 from megatts2_hierspeechpp_torch.nn.conv import conv1d_op
 from megatts2_hierspeechpp_torch.ops import cuda_lib
-from megatts2_hierspeechpp_torch.ops.ampblock import block_math, run_block
+from megatts2_hierspeechpp_torch.ops.ampblock import (
+    SMEM_LIMIT, block_math, run_block)
 from megatts2_hierspeechpp_torch.ops.resample import activation1d
 
 
@@ -70,7 +72,6 @@ def composed_triple(x, block_ws, ks, dils, post=None):
 EPILOGUE_THREADS = 256          # csrc/triple_epilogue.cu kThreads
 EPILOGUE_TILES = (248, 120, 56, 24)
 EPILOGUE_ROWS_PER_TASK = 16     # kR: AA-snake rows per thread task
-SMEM_LIMIT = 232_448            # shared memory a Hopper block may use
 
 
 def epilogue_smem(c: int, tile: int) -> int:
@@ -147,9 +148,9 @@ def fused_epilogue(r0, r1, r2, post=None, out_dtype=torch.float32):
     return _epilogue(r0, r1, r2, post, out_dtype=out_dtype)
 
 
-def _launch(x, block_ws, dils, post):
-    rs = [run_block(x, bw, d, out_dtype=torch.float32)
-          for bw, d in zip(block_ws, dils)]
+def _launch(x, block_ws, dils, post, packed=None):
+    rs = [run_block(x, bw, d, out_dtype=torch.float32, packed=p)
+          for bw, d, p in zip(block_ws, dils, packed or (None,) * len(dils))]
     return _epilogue(*rs, post, out_dtype=x.dtype)
 
 
@@ -167,21 +168,21 @@ def _composed_flat(x, *flat_and_static):
 
 class _AMPTriple(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, ks, dils, has_post, *flat):
+    def forward(ctx, x, ks, dils, has_post, packed, *flat):
         ctx.save_for_backward(x, *flat)
         ctx.static = (ks, dils, has_post)
         block_ws, post = _unflatten(flat, len(ks), has_post)
-        y = _launch(x, block_ws, dils, post)
+        y = _launch(x, block_ws, dils, post, packed)
         cuda_lib.LAUNCHES["amp_triple_bf16" if x.dtype == torch.bfloat16
                           else "amp_triple"] += 1
         return y
 
     @staticmethod
     def backward(ctx, ct):
-        needs = (ctx.needs_input_grad[0],) + ctx.needs_input_grad[4:]
+        needs = (ctx.needs_input_grad[0],) + ctx.needs_input_grad[5:]
         grads = cuda_lib.plain_vjp(_composed_flat, ctx.saved_tensors, needs,
                                    ct, *ctx.static)
-        return (grads[0], None, None, None) + grads[1:]
+        return (grads[0], None, None, None, None) + grads[1:]
 
 
 def fused_amp_triple(
@@ -190,10 +191,12 @@ def fused_amp_triple(
     ks: Sequence[int],
     dils: Sequence[Sequence[int]],
     post: Optional[Tuple[torch.Tensor, torch.Tensor, torch.Tensor]] = None,
+    packed=None,
 ):
     """Whole decoder stage; x: (B, T, C) float32 or bf16 (the bf16
     configuration) -> (B, T, C), or the (B, T, 1) tanh waveform with `post`,
-    in x's dtype.
+    in x's dtype. `packed`: per block the bf16 configuration's packed conv
+    weights (ops/ampblock.run_block), else packed in the call.
 
     CUDA tensors run the kernels (any T >= 1); CPU tensors run the plain
     version."""
@@ -204,4 +207,4 @@ def fused_amp_triple(
     flat = [w for bw in block_ws for w in bw] + (list(post) if post else [])
     return _AMPTriple.apply(x.contiguous(), tuple(ks),
                             tuple(tuple(d) for d in dils),
-                            post is not None, *flat)
+                            post is not None, packed, *flat)

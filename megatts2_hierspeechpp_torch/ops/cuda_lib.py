@@ -44,11 +44,15 @@ _I = ctypes.c_int
 _SIGNATURES = {
     # x, alpha, inv_beta, y, B, T, C, rows, blocks, act_bytes, stream
     "aa_snakebeta_fwd": [_P] * 4 + [_I] * 6 + [_P],
-    # x, alpha, inv_beta, w, bias, res, y, B, T, Cin, Cout, K, dil, io,
-    # stream
-    "snake_conv_fwd": [_P] * 7 + [_I] * 7 + [_P],
-    # B, T, Cout, K, dil, bf16, &tm, &tn
-    "snake_conv_tile": [_I] * 6 + [_P, _P],
+    # x, alpha, inv_beta, w, bias, res, y, B, T, Cin, Cout, K, dil, stream
+    "snake_conv_fwd": [_P] * 7 + [_I] * 6 + [_P],
+    # B, T, Cout, K, dil, &tm, &tn
+    "snake_conv_tile": [_I] * 5 + [_P, _P],
+    # x, alpha, inv_beta, packed w, bias, res, y, B, T, Cin, Cout, K, dil,
+    # io, stamps, stream
+    "snake_conv_bf16_fwd": [_P] * 7 + [_I] * 7 + [_P, _P],
+    # B, T, Cin, Cout, K, dil, out[9]
+    "snake_conv_bf16_plan": [_I] * 6 + [_P],
     # r0, r1, r2, y, n, y_bytes, stream
     "triple_avg_fwd": [_P, _P, _P, _P, _I, _I, _P],
     # r0, r1, r2, alpha, inv_beta, w7, y, B, T, C, tile, smem_bytes, stamps,

@@ -161,13 +161,14 @@ def test_bf16_functions_count_their_own_keys(monkeypatch):
     c = 8
     ws = [_t(w).requires_grad_() for w in _block_ws(rng, 3, c)]
     x = _t(rng.standard_normal((1, 40, c))).bfloat16().requires_grad_()
-    monkeypatch.setattr(ampblock, "run_block", lambda x_, ws_, d, out_dtype=None:
+    monkeypatch.setattr(ampblock, "run_block",
+                        lambda x_, ws_, d, out_dtype=None, packed=None:
                         ampblock.composed_ampblock(x_, *ws_, 3, d))
-    monkeypatch.setattr(amp_triple, "_launch", lambda x_, bws, d, post:
+    monkeypatch.setattr(amp_triple, "_launch", lambda x_, bws, d, post, packed=None:
                         amp_triple.composed_triple(x_, bws, (3, 3, 3), d, post))
     monkeypatch.setattr(cuda_lib, "LAUNCHES", dict.fromkeys(cuda_lib.LAUNCHES, 0))
-    y = ampblock._AMPBlock.apply(x, 3, DIL, *ws)
-    y = amp_triple._AMPTriple.apply(y, (3, 3, 3), (DIL,) * 3, False, *ws * 3)
+    y = ampblock._AMPBlock.apply(x, 3, DIL, None, *ws)
+    y = amp_triple._AMPTriple.apply(y, (3, 3, 3), (DIL,) * 3, False, None, *ws * 3)
     assert y.dtype == torch.bfloat16
     y.float().square().sum().backward()
     assert x.grad.dtype == torch.bfloat16 and torch.isfinite(x.grad.float()).all()

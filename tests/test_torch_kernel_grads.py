@@ -133,9 +133,10 @@ def test_autograd_functions_route_gradients_to_module_parameters(monkeypatch):
         def forward(self, x_):
             if self.use_fn:
                 y = snake._AASnakeBeta.apply(x_, *self.act.act.params(), None)
-                y = ampblock._AMPBlock.apply(y, 3, DIL, *self.blocks[0].fused_weights())
+                y = ampblock._AMPBlock.apply(y, 3, DIL, None,
+                                             *self.blocks[0].fused_weights())
                 return amp_triple._AMPTriple.apply(
-                    y, (3, 7, 11), (DIL,) * 3, False,
+                    y, (3, 7, 11), (DIL,) * 3, False, None,
                     *[w for b in self.blocks for w in b.fused_weights()])
             y = self.act(x_)
             y = self.blocks[0](y)
@@ -146,9 +147,9 @@ def test_autograd_functions_route_gradients_to_module_parameters(monkeypatch):
     monkeypatch.setattr(snake, "_launch",
                         lambda x_, a, b, ib=None, rows=None:
                         snake.composed_snakebeta(x_, a, b))
-    monkeypatch.setattr(ampblock, "run_block", lambda x_, ws, d:
+    monkeypatch.setattr(ampblock, "run_block", lambda x_, ws, d, packed=None:
                         ampblock.composed_ampblock(x_, *ws, 3, d))
-    monkeypatch.setattr(amp_triple, "_launch", lambda x_, bws, d, post:
+    monkeypatch.setattr(amp_triple, "_launch", lambda x_, bws, d, post, packed=None:
                         amp_triple.composed_triple(x_, bws, (3, 7, 11), d, post))
     monkeypatch.setattr(cuda_lib, "LAUNCHES", dict.fromkeys(cuda_lib.LAUNCHES, 0))
     want = _module_grads(Stage(False), x, cot)

@@ -200,13 +200,14 @@ def test_stage_function_routes_gradients_to_every_parameter(monkeypatch):
         gen(x).backward(cot)
         return {k: p.grad.clone() for k, p in gen.named_parameters()}
 
-    monkeypatch.setattr(amp_triple, "_launch", lambda x_, bws, d, post:
+    monkeypatch.setattr(amp_triple, "_launch", lambda x_, bws, d, post, packed=None:
                         amp_triple.composed_triple(x_, bws, gen.ks, d, post))
     monkeypatch.setattr(cuda_lib, "LAUNCHES", dict.fromkeys(cuda_lib.LAUNCHES, 0))
 
-    def through_function(y, block_ws, ks, dils, post=None):
+    def through_function(y, block_ws, ks, dils, post=None, packed=None):
         flat = [w for bw in block_ws for w in bw] + list(post)
-        return amp_triple._AMPTriple.apply(y.contiguous(), tuple(ks), dils, True, *flat)
+        return amp_triple._AMPTriple.apply(y.contiguous(), tuple(ks), dils, True,
+                                           None, *flat)
 
     monkeypatch.setattr(tsr_mod, "fused_amp_triple", through_function)
     got = grads()
