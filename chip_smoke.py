@@ -304,6 +304,7 @@ BF16_MARGIN = 2.0 ** -8
 # rounded the output to bf16 reads a step's mean (both reported per line).
 MMA_F32_MEAN_TOL = 1e-4
 BF16_LATENTS = 3        # T=500 latents of the bf16 comparison
+BF16_LENGTHS = (1, 37, 1100)  # the bf16 decode's other lengths (plm_bf16)
 PLM_REPEATS = 10        # launches at the main path's T that must give the same codes
 BATCH_ROWS = 4          # serve_batch's rows (one shared prompt) and the per-row decode
 SPEAKER_ROWS = 3        # serve_batch's rows with one prompt each
@@ -347,9 +348,9 @@ SOURCES = {  # launch-count key: (kernel, source, TPU kernel it replaces)
                    "megatts2_hierspeechpp_tpu/ops/pallas_amp_triple.py:60"),
     "plm_decode": ("plm_decode", "megatts2_hierspeechpp_torch/csrc/plm_decode.cu",
                    "megatts2_hierspeechpp_tpu/ops/pallas_plm_decode.py:59"),
-    # the same kernel's bf16 weight / cache configuration
+    # its bf16 weight / cache configuration: one cluster per layer
     "plm_decode_bf16": ("plm_decode_bf16",
-                        "megatts2_hierspeechpp_torch/csrc/plm_decode.cu",
+                        "megatts2_hierspeechpp_torch/csrc/plm_decode_bf16.cu",
                         "megatts2_hierspeechpp_tpu/ops/pallas_plm_decode.py:59"),
     # the vocoder kernels' bf16 configuration (bf16 in and out, float32
     # inside, each conv on the tensor cores' wgmma from bf16 operands)
@@ -470,9 +471,10 @@ def bound_ms_f32(n_bytes: float, flops: float, conv_flops: float = 0.0):
 
 
 def bound_ms_bf16(n_bytes: float, flops: float, conv_flops: float = 0.0):
-    """(ms, what bounds it) of the bf16 configuration's work: the conv
-    products one bf16 tensor-core pass each, the rest float32 on the CUDA
-    cores; n_bytes counts bf16 activations at 2 bytes."""
+    """(ms, what bounds it) of the bf16 configuration's work: the conv (or
+    matrix) products one bf16 tensor-core pass each, the rest float32 on
+    the CUDA cores; n_bytes counts bf16 activations (or weights) at 2
+    bytes."""
     t_bytes = n_bytes / HBM_BYTES_PER_S
     t_ops = flops / F32_FLOPS_PER_S + conv_flops / BF16_FLOPS_PER_S
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else
@@ -1090,16 +1092,88 @@ def snake_conv_phase(torch, dev):
 
 
 def plm_work(model, t: int, wbytes: int = 4):
-    """(bytes, flops) of one greedy decode of t tokens: every weight and the
-    input latent read once (the matrices at wbytes per weight), the codes
-    written once; 2 flops per weight of every matrix per token, plus q.k and
-    p.v over the cache."""
+    """(bytes, attention flops, matrix flops) of one greedy decode of t
+    tokens: every weight and the input latent read once (the matrices at
+    wbytes per weight), the codes written once; q.k and p.v over the cache
+    (float32 on the CUDA cores in both kernels), and 2 flops per weight of
+    every matrix per token (float32 CUDA cores in plm_decode.cu, bf16
+    tensor cores in plm_decode_bf16.cu)."""
     mats = sum(p.numel() for n, p in model.named_parameters()
                if p.dim() == 2 and not n.startswith("pc_embedding"))
     n_bytes = (4.0 * (sum(p.numel() for p in model.parameters()) + t * 256 + t)
                - (4 - wbytes) * mats)
     d, n_layers = model.predict_layer.weight.shape[1], len(model.plm.layers)
-    return n_bytes, 2.0 * mats * t + n_layers * 4.0 * d * t * (t + 1) / 2
+    return n_bytes, n_layers * 4.0 * d * t * (t + 1) / 2, 2.0 * mats * t
+
+
+def plm_split_bf16(torch, w, tc, go_id: int) -> dict:
+    """Where one bf16 decode's time goes (csrc/plm_decode_bf16.cu, one
+    cluster per layer), from the stamps of each cluster's rank-0 CTA in one
+    launch (SM cycles; %globaltimer over the launch converts them to us). A
+    token is the period of layer 0's "x in hand"; each cluster's share runs
+    from its x in hand to its E published (the last: its argmax published);
+    the rest of the period is the L hops through L2 (x to the next layer,
+    the code back to layer 0). Per handoff inside a cluster, mean over the
+    layers ("phase_us", letters as plm_split's: A qkv, B partials, C xc, D h,
+    E the last layer's logits input, then the logits): from holding the
+    handoff before to holding this one, split into the rank-0 CTA's own work
+    up to handing its part on ("work_us") and its wait for the rest
+    ("wait_us")."""
+    from megatts2_hierspeechpp_torch.ops.plm_decode import (
+        STAMP_COLUMNS, phase_stamps)
+
+    bf = torch.bfloat16
+    with torch.inference_mode():
+        _, stamps = phase_stamps(w, tc, go_id, bf, bf)
+        torch.cuda.synchronize()
+    st = stamps.cpu().numpy().astype(np.float64)  # (T, L, columns)
+    col = {name: k for k, name in enumerate(STAMP_COLUMNS)}
+    n_layers = st.shape[1]
+    us_per_cycle = ((st[-1, 0, col["wall"]] - st[0, 0, col["wall"]])
+                    / (st[-1, 0, col["ready"]] - st[0, 0, col["ready"]]) / 1e3)
+    ready = st[:, :, col["ready"]]
+    period = (ready[1:, 0] - ready[:-1, 0]) * us_per_cycle  # (T - 1,)
+    ends = [col["arg_out"] if c == n_layers - 1 else col["e_out"]
+            for c in range(n_layers)]
+    share = np.stack([st[:-1, c, ends[c]] - ready[:-1, c]
+                      for c in range(n_layers)], 1) * us_per_cycle
+    s = st[1:]  # tokens 1..T-1
+    inner = n_layers - 1
+
+    def mean(to, frm, layers):
+        return float(np.mean([(s[:, c, col[to]] - s[:, c, col[frm]]).mean()
+                              for c in layers]) * us_per_cycle)
+
+    every = range(n_layers)
+    phase = {"A": mean("qkv_in", "ready", every),
+             "B": mean("part_in", "qkv_in", every),
+             "C": mean("xc_in", "part_in", every),
+             "D": mean("h_in", "xc_in", every),
+             "E": mean("xl_in", "h_in", [inner]),
+             "logits": mean("arg_out", "xl_in", [inner])}
+    work = {"A": mean("qkv_out", "ready", every),
+            "B": mean("part_out", "qkv_in", every),
+            "C": mean("xc_out", "part_in", every),
+            "D": mean("h_out", "xc_in", every),
+            "E": mean("e_out", "h_in", [inner]),
+            "logits": phase["logits"]}
+    steps = {"layer_norm1": mean("ln1", "ready", every),
+             "qkv_rows": mean("qkv_rows", "ln1", every),
+             "qkv_push": mean("qkv_out", "qkv_rows", every),
+             "layer_norm2": mean("ln2", "xc_in", every),
+             "ff0_rows": mean("ff0_rows", "ln2", every),
+             "ff0_push": mean("h_out", "ff0_rows", every)}
+    hops = period - share.sum(1)
+    return {"us_per_token": float(period.mean()),
+            "sm_clock_mhz": 1.0 / us_per_cycle,
+            "in_cluster_us_per_token": float(share.sum(1).mean()),
+            "per_layer_us": [float(x) for x in share.mean(0)],
+            "l2_hops_us_per_token": float(hops.mean()),
+            "l2_hop_us": float(hops.mean()) / n_layers,
+            "l2_hops_per_token": n_layers,
+            "in_cluster_handoffs_per_token": 4 * n_layers + 1,
+            "phase_us": phase, "work_us": work, "steps_us": steps,
+            "wait_us": {k: phase[k] - work[k] for k in phase}}
 
 
 def plm_split(torch, w, tc, go_id: int) -> dict:
@@ -1174,7 +1248,8 @@ def plm_phase(torch, dev):
         ok = bool(math.isfinite(gap) and gap <= TF_MARGIN * scale
                   and codes.shape == (1, t)
                   and bool(((codes >= 0) & (codes < 1024)).all()))
-        b_ms, b_by = bound_ms(*plm_work(model, t))
+        n_bytes, attn_flops, mat_flops = plm_work(model, t)
+        b_ms, b_by = bound_ms(n_bytes, attn_flops + mat_flops)
         line = {"phase": "kernel", "name": "plm_decode",
                 "shape": f"T={t} d=276 L=4 H=4 F=1104 bins=1024",
                 "max_abs_err": gap, "max_abs_ref": scale,
@@ -1228,13 +1303,16 @@ def plm_bf16_latent_gate(torch, model, tc):
 
 def plm_bf16_phase(torch, dev):
     """The bf16 configuration of the decode kernel (weights and KV cache
-    bf16, float32 sums) at the main path's T: its ms, its teacher-forced
+    bf16, float32 sums; csrc/plm_decode_bf16.cu, one cluster per layer) at
+    the main path's T: its ms beside the float32 kernel's, its cluster size
+    and the card's cudaOccupancyMaxActiveClusters, its split (stamps:
+    in-cluster handoffs and L2 hops), its teacher-forced
     gap against the bf16 plain twin (plain_gap, fails above BF16_MARGIN x
     max|logits|), its token agreement with the float32 kernel (reported
     only), PLM_REPEATS launches identical (fails otherwise); on each of
     BF16_LATENTS latents, beside the kernel's gap and agreement with the
     twin on the card, as a yardstick, the twin on the CPU's (its sums in
-    another order). Then the
+    another order); at BF16_LENGTHS its ms and the same gate. Then the
     per-row greedy decode of a batch of BATCH_ROWS through models/plm.decode
     in float32 and in bf16: one launch per row, the codes held by the
     teacher-forced gap against plain_decode's batch in the same dtypes. The
@@ -1243,7 +1321,7 @@ def plm_bf16_phase(torch, dev):
     from megatts2_hierspeechpp_torch.models.plm import ProsodyLM, decode
     from megatts2_hierspeechpp_torch.ops import cuda_lib
     from megatts2_hierspeechpp_torch.ops.plm_decode import (
-        plain_decode, plain_gap, plm_decode_greedy)
+        cluster_choice, plain_decode, plain_gap, plm_decode_greedy)
 
     bf = torch.bfloat16
     model = ProsodyLM(seed=99, device=dev)
@@ -1275,7 +1353,7 @@ def plm_bf16_phase(torch, dev):
             w, tc0, go, weight_dtype=bf, cache_dtype=bf), 1)
         same = sum(bool(torch.equal(plm_decode_greedy(w, tc0, go, bf, bf), first))
                    for _ in range(PLM_REPEATS))
-    b_ms, b_by = bound_ms(*plm_work(model, t, 2))
+    b_ms, b_by = bound_ms_bf16(*plm_work(model, t, 2))
     worst = max(latents, key=lambda x: x["kernel"]["gap"] / x["max_abs_ref"])
     line = {"phase": "plm_bf16", "name": "plm_decode_bf16",
             "shape": f"T={t} d=276 L=4 H=4 F=1104 bins=1024 bf16 weights+cache",
@@ -1288,6 +1366,26 @@ def plm_bf16_phase(torch, dev):
             "repeats_identical": f"{same}/{PLM_REPEATS}", "ms": ms,
             "f32_ms": f32_ms, "plain_ms": plain_ms, "bound_ms": b_ms,
             "bound_by": b_by}
+    n_layers = w.wo.shape[0]
+    n, _, active = cluster_choice(w.wo.shape[1], w.ff0.shape[1], n_layers,
+                                  w.pred.shape[0], w.n_heads, dev)
+    line["cluster"] = {"size": n, "clusters": n_layers,
+                       "max_active_clusters": {str(k): v for k, v in active.items()}}
+    line["split"] = plm_split_bf16(torch, w, tc0, go)
+    line["lengths"] = []
+    for tl in BF16_LENGTHS:  # the same gate at the other lengths
+        tcl = torch.randn(1, tl, 256, generator=gen).to(dev)
+        with torch.inference_mode():
+            cl = plm_decode_greedy(w, tcl, go, bf, bf)
+            gl, sl = plain_gap(w, tcl, cl, go, bf, bf)
+            ms_l = time_ms(torch, lambda: plm_decode_greedy(w, tcl, go, bf, bf), 3)
+            f32_l = time_ms(torch, lambda: plm_decode_greedy(w, tcl, go), 3)
+        line["lengths"].append({"T": tl, "ms": ms_l, "f32_ms": f32_l,
+                                "max_abs_err": gl, "max_abs_ref": sl})
+        if not gl <= BF16_MARGIN * sl:
+            print(json.dumps(line), flush=True)
+            fail(f"plm_decode bf16 T={tl}: teacher-forced gap {gl} over "
+                 f"{BF16_MARGIN} x {sl}")
     ok = (all(x["kernel"]["gap"] <= BF16_MARGIN * x["max_abs_ref"]
               for x in latents)
           and bool(((first >= 0) & (first < 1024)).all()))
@@ -1311,9 +1409,12 @@ def plm_bf16_phase(torch, dev):
             gap_b, scale_b = plain_gap(w, tcb, rows, go, dt, dt)
             agree = (rows == plain_decode(w, tcb, go, weight_dtype=dt,
                                           cache_dtype=dt)).float().mean().item()
+            batch_ms = time_ms(torch, lambda: decode(
+                model, tcb, weight_dtype=dt, cache_dtype=dt), 2)
         ln = {"phase": "plm_batch", "dtype": str(dt), "rows": BATCH_ROWS,
               "T": t, "calls": counts, "max_abs_err": gap_b,
-              "max_abs_ref": scale_b, "agreement_with_plain": agree}
+              "max_abs_ref": scale_b, "agreement_with_plain": agree,
+              "ms": batch_ms}
         print(json.dumps(ln), flush=True)
         want = dict.fromkeys(counts, 0)
         want[key] = BATCH_ROWS
@@ -1568,6 +1669,8 @@ class LaunchShapes:
             key = ("triple_post", a[7], a[8], a[9], a[13])
         elif name == "plm_decode_fwd":
             key = ("plm_decode", a[17], a[28], a[29])
+        elif name == "plm_decode_bf16_fwd":
+            key = ("plm_decode", a[17], 2, 2)
         else:
             return
         self.seen.setdefault(key, self.path)

@@ -1,7 +1,9 @@
 // Greedy KV-cached decode of the prosody LM (ProsodyLM), B = 1: the whole
 // token loop in one persistent cooperative launch. Weights and KV cache in
 // float32 or bf16 (chosen apart, as the TPU kernel's weight_dtype and
-// cache_dtype); accumulation always float32.
+// cache_dtype); accumulation always float32. bf16 weights with a bf16 cache
+// are plm_decode_bf16.cu's (one cluster per layer); this kernel takes the
+// other three configurations.
 //
 // Replaces megatts2_hierspeechpp_tpu/ops/pallas_plm_decode.py (_kernel, via
 // plm_decode_greedy). Per token t: x = [tc_t | emb(prev)] + pos_alpha * pe_t,
@@ -68,7 +70,7 @@
 //   (ld.global.cg, ld.volatile), never L1.
 // * A wait that lasts for seconds traps instead of hanging the card.
 //
-// bf16 (W = bf16_t and/or C = bf16_t), rounded where the TPU kernel rounds
+// bf16 (W = bf16_t or C = bf16_t, not both), rounded where the TPU kernel rounds
 // (pallas_plm_decode.py _kernel): the matrices wqkv, wo, ff0, ff1 and pred
 // are bf16 (the wrapper passes them with rows padded to 8 elements, so every
 // row copy is a whole number of 16-byte units), and every matrix-vector
@@ -870,7 +872,8 @@ extern "C" int plm_decode_fwd(const float* tc, const float* pe,
                               int wbytes, int cbytes, void* stream) {
   if (T < 1 || L < 1 || H < 1 || D % 4 || F % 4 || D % H || D > kThreads ||
       TC < 0 || TC >= D || H > kMaxParts || grid < H || grid > kMaxGrid ||
-      (wbytes != 2 && wbytes != 4) || (cbytes != 2 && cbytes != 4))
+      (wbytes != 2 && wbytes != 4) || (cbytes != 2 && cbytes != 4) ||
+      wbytes + cbytes == 4)  // bf16 weights and cache: plm_decode_bf16.cu
     return static_cast<int>(cudaErrorInvalidValue);
   const Plan p = make_plan(D, F, L, BINS, H, grid, wbytes);
   if (p.bytes != smem_bytes || p.x_total != xch_pairs)
@@ -881,8 +884,7 @@ extern "C" int plm_decode_fwd(const float* tc, const float* pe,
   if (wbytes == 4)
     return cbytes == 4 ? launch<float, float>(a, grid, smem_bytes, st)
                        : launch<float, bf16_t>(a, grid, smem_bytes, st);
-  return cbytes == 4 ? launch<bf16_t, float>(a, grid, smem_bytes, st)
-                     : launch<bf16_t, bf16_t>(a, grid, smem_bytes, st);
+  return launch<bf16_t, float>(a, grid, smem_bytes, st);
 }
 
 // n barriers of the earlier design in one cooperative launch of the decode

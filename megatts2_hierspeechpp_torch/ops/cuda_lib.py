@@ -12,8 +12,9 @@ Each C entry point launches on the stream it is given and returns
 `LAUNCHES` counts, per kernel wrapper and configuration, the calls that
 ran CUDA kernels (one per wrapper call, however many launches it takes):
 the vocoder kernels' bf16 configuration counts under its own `_bf16` key,
-as the decode's bf16 weights do. CPU calls, which take the plain versions,
-do not count.
+as the decode's bf16 weights and cache do (`plm_decode_bf16.cu`; the mixed
+pairs run `plm_decode.cu` and count as `plm_decode`). CPU calls, which take
+the plain versions, do not count.
 """
 from __future__ import annotations
 
@@ -62,6 +63,12 @@ _SIGNATURES = {
     # xch, codes, stamps, T, L, D, TC, H, F, BINS, go_id, grid, smem_bytes,
     # xch_pairs, wbytes, cbytes, stream
     "plm_decode_fwd": [_P] * 17 + [_I] * 13 + [_P],
+    # tc, pe, emb, wqkv, bqkv, wo, bo, ln, ff0, ff0b, ff1, ff1b, pred, cache,
+    # xch, codes, stamps, T, L, D, TC, H, F, BINS, go_id, cluster,
+    # smem_bytes, xch_pairs, stream
+    "plm_decode_bf16_fwd": [_P] * 17 + [_I] * 11 + [_P],
+    # cluster, smem_bytes, &max_active_clusters
+    "plm_decode_bf16_clusters": [_I, _I, _P],
     # iscratch, n, stream
     "plm_barrier_probe": [_P, _I, _P],
 }

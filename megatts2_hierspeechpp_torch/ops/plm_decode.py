@@ -28,16 +28,27 @@ bf16 KV cache for the earlier tokens (this token's k and v stay float32);
 biases, LayerNorm, embeddings, positions and all sums in float32. The
 plain version rounds at the same points. Their default here is float32,
 which keeps the greedy codes exact against the plain decode; the JAX
-package serves with bf16 by default, from a TPU A/B that says nothing of
-this card. That is the one deliberate difference from the JAX default.
-bf16 halves a block's share of the matrices in shared memory (`plan`).
-`plain_gap` checks greedy codes against the plain loop in either dtype;
+package serves with bf16 by default. bf16 is faster on this card too
+(plm_decode_bf16.cu), but it changes the codes at near-ties, which the
+card-against-CPU `tts` gates would have to settle first. That is the one
+deliberate difference from the JAX default.
+bf16 weights with a bf16 cache (the JAX default) launch a kernel of their
+own, `csrc/plm_decode_bf16.cu`: one thread-block cluster per layer, the
+layer's matrices resident in the cluster's shared memory, the handoffs
+inside a layer through distributed shared memory and mbarriers, between
+layers through L2 (see the source). `cluster_plan` is its per-CTA layout
+at a cluster size, `cluster_choice` the size the card can run; a shape
+that fits no size raises ValueError, with no fallback to `plm_decode.cu`.
+The mixed configurations stay on `plm_decode.cu`, where bf16 halves a
+block's share of the matrices (`plan`). `plain_gap` checks greedy codes
+against the plain loop in either dtype;
 in bf16 two orders of the same sums round a value near a bf16 boundary
 apart, so bf16 codes are held to one bf16 step of the logits' scale
 (chip_smoke.py), float32 codes to float error.
 """
 from __future__ import annotations
 
+import ctypes
 import functools
 import math
 from dataclasses import dataclass, field
@@ -56,6 +67,19 @@ MAX_PARTS = 128
 KEY_CHUNK = 32
 SMEM_LIMIT = 232_448
 STATIC_SMEM = 256
+# csrc/plm_decode_bf16.cu: the cluster sizes it takes (largest first, as
+# cluster_choice tries them), a warp's head dims (3 per lane), its key
+# chunks, its warps, and its stamps' columns per (token, layer) (see
+# phase_stamps)
+CLUSTER_SIZES = tuple(range(16, 9, -1))
+MAX_HEAD_DIM = 96
+MAX_KEY_CHUNK = 128
+KEY_CHUNK_STEP = 16
+WARPS = 16
+STAMP_COLUMNS = ("ready", "qkv_out", "qkv_in", "part_out", "part_in",
+                 "xc_out", "xc_in", "h_out", "h_in", "e_out", "xl_in",
+                 "arg_out", "wall", "ln1", "qkv_rows", "ln2", "ff0_rows")
+STAMP_COLS = len(STAMP_COLUMNS)
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -125,6 +149,118 @@ def check_plan(d: int, f: int, n_layers: int, bins: int, grid: int,
             f"{grid} (D={d}, F={f}, L={n_layers}, bins={bins}), over "
             f"{SMEM_LIMIT}")
     return layout
+
+
+@functools.lru_cache(maxsize=64)
+def cluster_plan(d: int, f: int, n_layers: int, bins: int, n_heads: int,
+                 cluster: int, weight_dtype: torch.dtype = torch.bfloat16
+                 ) -> dict:
+    """The bf16 kernel's per-CTA layout at cluster size `cluster` (`make_plan`
+    in csrc/plm_decode_bf16.cu, which checks "bytes" and "pairs" against its
+    own), or ValueError when it does not fit: the matrices' row blocks per
+    CTA ("blocks": CTA r owns rows [r * blk, r * blk + blk) of each, the
+    last ones fewer), row strides in weights ("rd", "rf": whole 16-byte
+    units), head rows padded to "hdp", key splits per head ("nsplit"), keys
+    per staged chunk ("key_chunk"), the CTA's dynamic shared memory in bytes
+    (at most SMEM_LIMIT with the static arrays) and the exchange buffer's
+    length in 64-bit pairs. Only bf16 weights have this plan."""
+    if weight_dtype != torch.bfloat16:
+        raise ValueError("plm_decode_bf16: the cluster plan is for bf16 "
+                         f"weights only, got {weight_dtype}")
+    if cluster not in CLUSTER_SIZES:
+        raise ValueError(f"plm_decode_bf16: cluster size {cluster} not in "
+                         f"{CLUSTER_SIZES}")
+    hd = d // n_heads
+    if d % n_heads or d % 4 or f % 4 or hd > MAX_HEAD_DIM or n_heads > cluster:
+        raise ValueError(f"plm_decode_bf16 does not take D={d}, F={f}, "
+                         f"H={n_heads} at cluster size {cluster}")
+    blocks = {"wqkv": _up4(_cdiv(3 * d, cluster)), "wo": _up4(_cdiv(d, cluster)),
+              "ff0": _up4(_cdiv(f, cluster)), "ff1": _up4(_cdiv(d, cluster)),
+              "pred": _up4(_cdiv(bins, cluster))}
+    rd, rf = _up(d, 8), _up(f, 8)
+    hdp, nsplit, ps = _up(hd, 8), cluster // n_heads, _up4(hd + 2)
+    weights = ((blocks["wqkv"] + blocks["wo"] + blocks["ff0"] + blocks["pred"])
+               * rd + blocks["ff1"] * rf)  # bf16 elements, a multiple of 8
+    floats = (weights // 2 + 4 * d
+              + _up4(blocks["wqkv"] + blocks["wo"] + blocks["ff0"] + blocks["ff1"])
+              + 3 * rd + _up4(3 * d) + rf        # x xc xl, qkv, h
+              + _up(max(rd, rf), 16) // 2        # the products' bf16 input
+              + n_heads * nsplit * ps + WARPS * ps    # partials, warp states
+              + WARPS * 16)                           # products' split-K sums
+    avail = max(0, SMEM_LIMIT - STATIC_SMEM - 4 * floats)
+    key_chunk = min(MAX_KEY_CHUNK, avail // (4 * hdp)) // KEY_CHUNK_STEP * KEY_CHUNK_STEP
+    if key_chunk < KEY_CHUNK_STEP:
+        raise ValueError(
+            f"plm_decode_bf16: a CTA's share does not fit its shared memory "
+            f"at cluster size {cluster} (D={d}, F={f}, bins={bins}: "
+            f"{4 * floats + STATIC_SMEM} B before the key stages, of "
+            f"{SMEM_LIMIT})")
+    return {"blocks": blocks, "rd": rd, "rf": rf, "hd": hd, "hdp": hdp,
+            "nsplit": nsplit, "key_chunk": key_chunk,
+            "bytes": 4 * floats + 4 * hdp * key_chunk,
+            "pairs": 2 * ((n_layers - 1) * d + 2 * cluster)}
+
+
+def cache_shape(n_layers: int, n_heads: int, nsplit: int, t: int,
+                hdp: int) -> tuple:
+    """The bf16 kernel's KV cache: (L, H, nsplit, cdiv(T, nsplit), 2, hdp);
+    key k of head h in split k % nsplit at slot k // nsplit."""
+    return (n_layers, n_heads, nsplit, _cdiv(t, nsplit), 2, hdp)
+
+
+def cache_index(layer: int, token: int, kv: int, head: int, dim: int,
+                shape: tuple) -> int:
+    """Flat index of (layer, token, k or v, head, dim) in a cache of
+    `shape` (cache_shape)."""
+    _, n_heads, nsplit, slots, _, hdp = shape
+    return (((((layer * n_heads + head) * nsplit + token % nsplit) * slots
+              + token // nsplit) * 2 + kv) * hdp + dim)
+
+
+def pick_cluster(d: int, f: int, n_layers: int, bins: int, n_heads: int,
+                 max_active) -> tuple[int, dict]:
+    """The largest cluster size whose plan fits and at which the card holds
+    n_layers clusters at once (max_active(size, bytes) ->
+    cudaOccupancyMaxActiveClusters): (size, plan). ValueError, with the
+    reason for each size, when none does."""
+    why = []
+    for n in CLUSTER_SIZES:
+        try:
+            layout = cluster_plan(d, f, n_layers, bins, n_heads, n)
+        except ValueError as e:
+            why.append(f"{n}: {e}")
+            continue
+        active = max_active(n, layout["bytes"])
+        if active >= n_layers:
+            return n, layout
+        why.append(f"{n}: {active} clusters resident at once, "
+                   f"{n_layers} needed")
+    raise ValueError("plm_decode_bf16: no cluster size runs on this card: "
+                     + "; ".join(why))
+
+
+_CHOICE: dict = {}
+
+
+def cluster_choice(d: int, f: int, n_layers: int, bins: int, n_heads: int,
+                   device: torch.device) -> tuple[int, dict, dict]:
+    """(cluster size, plan, {size: cudaOccupancyMaxActiveClusters}) of the
+    bf16 kernel on `device` (queried once per device and shape)."""
+    key = (torch.cuda.get_device_name(device), d, f, n_layers, bins, n_heads)
+    if key not in _CHOICE:
+        seen = {}
+
+        def max_active(n, nbytes):
+            out = ctypes.c_int(0)
+            with torch.cuda.device(device):
+                cuda_lib.call("plm_decode_bf16_clusters", n, nbytes,
+                              ctypes.byref(out))
+            seen[n] = out.value
+            return out.value
+
+        n, layout = pick_cluster(d, f, n_layers, bins, n_heads, max_active)
+        _CHOICE[key] = (n, layout, seen)
+    return _CHOICE[key]
 
 
 @dataclass
@@ -302,27 +438,17 @@ def plain_gap(w: PLMWeights, tc_latent: torch.Tensor, codes: torch.Tensor,
     return float(torch.stack(gaps).max()), float(torch.stack(scales).max())
 
 
-def _launch(w: PLMWeights, tc_latent: torch.Tensor, go_id: int,
-            stamps: Optional[torch.Tensor] = None,
-            weight_dtype: torch.dtype = torch.float32,
-            cache_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+def _kernel_inputs(w: PLMWeights, tc_latent: torch.Tensor, rd: int, rf: int,
+                   weight_dtype: torch.dtype):
+    """(pe, the weights in the kernels' argument order: emb, wqkv, bqkv, wo,
+    bo, ln, ff0, ff0b, ff1, ff1b, pred), each checked against the kernels'
+    contract: on tc_latent's device, contiguous, of its shape and dtype (the
+    matrices in weight_dtype, rows of rd or rf weights), the bulk-copied
+    ones 16-byte aligned."""
     dev = tc_latent.device
     _, t, tc_dim = tc_latent.shape
     n_layers, d = w.wo.shape[0], w.wo.shape[1]
     f, bins = w.ff0.shape[1], w.pred.shape[0]
-    h = w.n_heads
-    wbytes = _check_dtype("weight_dtype", weight_dtype)
-    cbytes = _check_dtype("cache_dtype", cache_dtype)
-    if t < 1:
-        raise ValueError("plm_decode needs T >= 1")
-    if d % 4 or f % 4 or d % h or d > 512 or tc_dim >= d or h > MAX_PARTS:
-        raise ValueError(f"plm_decode kernel does not take D={d}, F={f}, H={h}")
-    grid = min(torch.cuda.get_device_properties(dev).multi_processor_count,
-               MAX_GRID)
-    if grid < h:
-        raise ValueError(f"plm_decode needs a grid of >= {h} blocks, got {grid}")
-    layout = check_plan(d, f, n_layers, bins, grid, h, wbytes)
-    rd, rf = layout["rd"], layout["rf"]
     cuda_lib.check(tc_latent, "tc_latent", dev)
     wqkv, wo, ff0, ff1, pred = w.matrices(weight_dtype)
     tensors = (w.emb, w.pos_alpha, wqkv, w.bqkv, wo, w.bo, w.ln, ff0, w.ff0b,
@@ -340,19 +466,71 @@ def _launch(w: PLMWeights, tc_latent: torch.Tensor, go_id: int,
         if name in mats + ("ln",) and tensor.data_ptr() % 16:
             raise ValueError(f"{name} must be 16-byte aligned (bulk copies)")
     pe = _scaled_positions(w, t, d, dev).contiguous()
+    return pe, tensors[:1] + tensors[2:]
+
+
+def _launch(w: PLMWeights, tc_latent: torch.Tensor, go_id: int,
+            stamps: Optional[torch.Tensor] = None,
+            weight_dtype: torch.dtype = torch.float32,
+            cache_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    dev = tc_latent.device
+    _, t, tc_dim = tc_latent.shape
+    n_layers, d = w.wo.shape[0], w.wo.shape[1]
+    f, bins = w.ff0.shape[1], w.pred.shape[0]
+    h = w.n_heads
+    wbytes = _check_dtype("weight_dtype", weight_dtype)
+    cbytes = _check_dtype("cache_dtype", cache_dtype)
+    if t < 1:
+        raise ValueError("plm_decode needs T >= 1")
+    if wbytes == cbytes == 2:
+        return _launch_bf16(w, tc_latent, go_id, stamps)
+    if d % 4 or f % 4 or d % h or d > 512 or tc_dim >= d or h > MAX_PARTS:
+        raise ValueError(f"plm_decode kernel does not take D={d}, F={f}, H={h}")
+    grid = min(torch.cuda.get_device_properties(dev).multi_processor_count,
+               MAX_GRID)
+    if grid < h:
+        raise ValueError(f"plm_decode needs a grid of >= {h} blocks, got {grid}")
+    layout = check_plan(d, f, n_layers, bins, grid, h, wbytes)
+    pe, weights = _kernel_inputs(w, tc_latent, layout["rd"], layout["rf"],
+                                 weight_dtype)
     cache = torch.empty(n_layers, t, 2, d, dtype=cache_dtype, device=dev)
     # epochs start at 1: a zeroed buffer holds no stale pair
     xch = torch.zeros(layout["pairs"], dtype=torch.int64, device=dev)
     codes = torch.empty(t, dtype=torch.int32, device=dev)
     p = cuda_lib.ptr
-    cuda_lib.call("plm_decode_fwd", p(tc_latent), p(pe), p(w.emb), p(wqkv),
-                  p(w.bqkv), p(wo), p(w.bo), p(w.ln), p(ff0), p(w.ff0b),
-                  p(ff1), p(w.ff1b), p(pred), p(cache), p(xch), p(codes),
-                  p(stamps), t, n_layers, d, tc_dim, h, f, bins, go_id, grid,
-                  layout["bytes"], layout["pairs"], wbytes, cbytes,
-                  cuda_lib.stream(dev))
-    key = ("plm_decode" if wbytes == cbytes == 4 else "plm_decode_bf16")
-    cuda_lib.LAUNCHES[key] += 1
+    cuda_lib.call("plm_decode_fwd", p(tc_latent), p(pe), *map(p, weights),
+                  p(cache), p(xch), p(codes), p(stamps), t, n_layers, d,
+                  tc_dim, h, f, bins, go_id, grid, layout["bytes"],
+                  layout["pairs"], wbytes, cbytes, cuda_lib.stream(dev))
+    cuda_lib.LAUNCHES["plm_decode"] += 1
+    return codes[None]
+
+
+def _launch_bf16(w: PLMWeights, tc_latent: torch.Tensor, go_id: int,
+                 stamps: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """One launch of csrc/plm_decode_bf16.cu: bf16 weights and cache."""
+    dev = tc_latent.device
+    _, t, tc_dim = tc_latent.shape
+    n_layers, d = w.wo.shape[0], w.wo.shape[1]
+    f, bins = w.ff0.shape[1], w.pred.shape[0]
+    h = w.n_heads
+    if d > 512 or tc_dim >= d:
+        raise ValueError(f"plm_decode_bf16 does not take D={d}, TC={tc_dim}")
+    n, layout = cluster_choice(d, f, n_layers, bins, h, dev)[:2]
+    pe, weights = _kernel_inputs(w, tc_latent, layout["rd"], layout["rf"],
+                                 torch.bfloat16)
+    cache = torch.empty(cache_shape(n_layers, h, layout["nsplit"], t,
+                                    layout["hdp"]),
+                        dtype=torch.bfloat16, device=dev)
+    # epochs start at 1: a zeroed buffer holds no stale pair
+    xch = torch.zeros(layout["pairs"], dtype=torch.int64, device=dev)
+    codes = torch.empty(t, dtype=torch.int32, device=dev)
+    p = cuda_lib.ptr
+    cuda_lib.call("plm_decode_bf16_fwd", p(tc_latent), p(pe),
+                  *map(p, weights), p(cache), p(xch), p(codes), p(stamps), t,
+                  n_layers, d, tc_dim, h, f, bins, go_id, n, layout["bytes"],
+                  layout["pairs"], cuda_lib.stream(dev))
+    cuda_lib.LAUNCHES["plm_decode_bf16"] += 1
     return codes[None]
 
 
@@ -362,9 +540,11 @@ def plm_decode_greedy(w: PLMWeights, tc_latent: torch.Tensor,
                       cache_dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """Greedy decode, tc_latent (1, T, TC) float32 -> codes (1, T) int32.
 
-    CUDA tensors run the kernel (B=1, any T >= 1); CPU tensors run the
-    plain version. Weights and cache in float32 (the default) or bf16; a
-    launch with either in bf16 counts as `plm_decode_bf16`."""
+    CUDA tensors run a kernel (B=1, any T >= 1): bf16 weights and cache
+    csrc/plm_decode_bf16.cu, every other configuration csrc/plm_decode.cu;
+    CPU tensors run the plain version. Weights and cache in float32 (the
+    default) or bf16; a launch counts under its source: `plm_decode_bf16`
+    for bf16 weights and cache, `plm_decode` for every other pair."""
     if tc_latent.dim() != 3 or tc_latent.shape[0] != 1:
         raise ValueError(
             f"plm_decode takes tc_latent (1, T, C), got {tuple(tc_latent.shape)}")
@@ -378,18 +558,35 @@ def plm_decode_greedy(w: PLMWeights, tc_latent: torch.Tensor,
 
 
 def phase_stamps(w: PLMWeights, tc_latent: torch.Tensor,
-                 go_id: int = 1024) -> tuple[torch.Tensor, torch.Tensor]:
-    """One kernel launch that also records block 0's clocks twice per
-    phase: (codes (1, T), stamps (T, 5L + 1, 3) int64). Phase k of layer i
-    is row 5i + k (A-E), the logits the last row. Column 0: SM cycles when
-    block 0 has published the phase's outputs; column 1: SM cycles when it
-    holds the outputs of the phase that it reads next; column 2, in the
-    logits row only: %globaltimer (ns), for converting cycles to time over
-    the launch. Counts as a launch."""
+                 go_id: int = 1024,
+                 weight_dtype: torch.dtype = torch.float32,
+                 cache_dtype: torch.dtype = torch.float32
+                 ) -> tuple[torch.Tensor, torch.Tensor]:
+    """One kernel launch that also records clocks: (codes (1, T), stamps
+    int64). Counts as a launch.
+
+    float32 and the mixed configurations (plm_decode.cu): stamps (T, 5L + 1,
+    3), block 0's clocks twice per phase. Phase k of layer i is row 5i + k
+    (A-E), the logits the last row. Column 0: SM cycles when block 0 has
+    published the phase's outputs; column 1: SM cycles when it holds the
+    outputs of the phase that it reads next; column 2, in the logits row
+    only: %globaltimer (ns), for converting cycles to time over the launch.
+
+    bf16 weights and cache (plm_decode_bf16.cu): stamps (T, L, STAMP_COLS),
+    the SM clock of thread 0 of each layer's cluster's rank-0 CTA at the
+    points STAMP_COLUMNS names: x in hand ("ready"); for the qkv, partials,
+    xc and h handoffs its part handed on ("_out") and the whole in hand
+    ("_in"); E done ("e_out": published, or on the last layer computed);
+    the logits' input in hand and the argmax published (last layer only);
+    "wall": %globaltimer (ns) at "ready"; LayerNorm1 done, the QKV rows
+    done, LayerNorm2 done, the FF0 rows done."""
     t, n_layers = tc_latent.shape[1], w.wo.shape[0]
-    stamps = torch.zeros(t, 5 * n_layers + 1, 3, dtype=torch.int64,
-                         device=tc_latent.device)
-    codes = _launch(w, tc_latent.contiguous(), go_id, stamps)
+    shape = ((t, n_layers, STAMP_COLS)
+             if weight_dtype == cache_dtype == torch.bfloat16
+             else (t, 5 * n_layers + 1, 3))
+    stamps = torch.zeros(shape, dtype=torch.int64, device=tc_latent.device)
+    codes = _launch(w, tc_latent.contiguous(), go_id, stamps, weight_dtype,
+                    cache_dtype)
     return codes, stamps
 
 

@@ -20,6 +20,7 @@ on the CPU:
     within 1e-6 relative at grad_accum 4 (the checkpoint after micro-step
     2 holds a half-filled accumulation buffer)."""
 import json
+import shutil
 import os
 
 import numpy as np
@@ -259,7 +260,8 @@ def ar_runs(tmp_path_factory):
     b1_step, b1_count = b1.step, b1.accum_count
     b1_accum = [t.clone() for t in b1.accum]
     b = run("b", 2)
-    return logs, a, (b1_step, b1_count, b1_accum), b
+    yield logs, a, (b1_step, b1_count, b1_accum), b
+    shutil.rmtree(d, ignore_errors=True)  # the runs' checkpoints, 2.4 GB
 
 
 def test_train_ar_cli_restart_inside_accumulation(ar_runs):

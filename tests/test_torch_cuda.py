@@ -344,11 +344,13 @@ def test_plm_decode_kernel_is_deterministic(dev):
                                      ("f32", "bf16")])
 def test_plm_decode_bf16_kernel_matches_its_plain_twin(dev, t, wdt, cdt):
     """The bf16 configurations (weights, KV cache or both in bf16): one
-    launch, counted as plm_decode_bf16, codes that pass the teacher-forced
+    launch, counted under its source (plm_decode_bf16 for bf16 weights and
+    cache, plm_decode for a mixed pair), codes that pass the teacher-forced
     check against the plain twin in the same dtypes (gap <= 2^-8 x
     max|logits|, see the module docstring), two launches identical."""
     dt = {"bf16": torch.bfloat16, "f32": torch.float32}
     wd, cd = dt[wdt], dt[cdt]
+    both = wdt == cdt == "bf16"
     model = plm.ProsodyLM(seed=5, device="cuda")
     tc = _rand(np.random.default_rng(t + 7), dev, 1, t, 256)
     w = model.packed()
@@ -356,8 +358,9 @@ def test_plm_decode_bf16_kernel_matches_its_plain_twin(dev, t, wdt, cdt):
     with torch.inference_mode():
         got = plm_decode_greedy(w, tc, model.go_id, wd, cd)
         torch.cuda.synchronize()
-        assert cuda_lib.LAUNCHES == dict(cuda_lib.LAUNCHES, plm_decode=0,
-                                         plm_decode_bf16=1)
+        assert cuda_lib.LAUNCHES == dict(cuda_lib.LAUNCHES,
+                                         plm_decode=int(not both),
+                                         plm_decode_bf16=int(both))
         assert torch.equal(plm_decode_greedy(w, tc, model.go_id, wd, cd), got)
         gap, scale = plain_gap(w, tc, got, model.go_id, wd, cd)
     assert got.shape == (1, t) and got.dtype == torch.int32

@@ -26,6 +26,7 @@ attention within JAX's own bounds (tests/test_train_misc.py: loss rtol
 relative; batches and the resumed run's losses equal."""
 import json
 import os
+import shutil
 
 import numpy as np
 import optax
@@ -93,6 +94,15 @@ def _t(a):
 def _stats(model):
     return {k: v.clone() for k, v in model.state_dict().items()
             if k.endswith(("running_mean", "running_var"))}
+
+
+@pytest.fixture(autouse=True)
+def _remove_run_dirs(tmp_path):
+    """Each test's run directories (checkpoints at published widths) are
+    removed once its asserts have run: a whole Tier-1 run would otherwise
+    fill a small /tmp."""
+    yield
+    shutil.rmtree(tmp_path, ignore_errors=True)
 
 
 def test_phase_losses_match_jax():

@@ -12,6 +12,7 @@ resumes on both ranks and ends equal on both; s1 at world 2 from that
 checkpoint ends with both ranks' PLMs equal."""
 import json
 import os
+import shutil
 
 import numpy as np
 import pytest
@@ -23,11 +24,21 @@ from tests.test_torch_dp_mesh import free_port
 from tests.test_torch_train_s2_cli import small_config
 
 
+@pytest.fixture(autouse=True)
+def _remove_run_dirs(tmp_path):
+    """Each test's run directories (checkpoints at published widths) are
+    removed once its asserts have run: a whole Tier-1 run would otherwise
+    fill a small /tmp."""
+    yield
+    shutil.rmtree(tmp_path, ignore_errors=True)
+
+
 @pytest.fixture(scope="module")
 def corpus(tmp_path_factory):
     d = str(tmp_path_factory.mktemp("dpcorpus"))
     make_synth_corpus.make_corpus(d, n=8, seed=3, holdout=2)
-    return d
+    yield d
+    shutil.rmtree(d, ignore_errors=True)
 
 
 def run(tmp_path, module, argv, attr):

@@ -18,6 +18,7 @@ stage's gradients against jax.grad within rtol 1e-4, atol 1e-4 x the
 largest; batches and the resumed run's losses equal."""
 import json
 import os
+import shutil
 
 import numpy as np
 import optax
@@ -93,6 +94,15 @@ def sr_batch(out_sr, b=B, seed=41):
 
 def _t(a):
     return torch.from_numpy(np.asarray(a, np.float32))
+
+
+@pytest.fixture(autouse=True)
+def _remove_run_dirs(tmp_path):
+    """Each test's run directories (checkpoints at published widths) are
+    removed once its asserts have run: a whole Tier-1 run would otherwise
+    fill a small /tmp."""
+    yield
+    shutil.rmtree(tmp_path, ignore_errors=True)
 
 
 @pytest.mark.parametrize("out_sr", [48000, 24000])

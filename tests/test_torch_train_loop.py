@@ -12,6 +12,7 @@ wavs, durations, f0 and filelist exactly, its mels and w2v features within
 1e-5 of the largest value (the log-mel of two FFT libraries)."""
 import json
 import os
+import shutil
 import sys
 from pathlib import Path
 
@@ -44,6 +45,15 @@ REPO = Path(__file__).resolve().parents[1]
 
 
 # ---- optimizer ----
+
+@pytest.fixture(autouse=True)
+def _remove_run_dirs(tmp_path):
+    """Each test's run directories (checkpoints at published widths) are
+    removed once its asserts have run: a whole Tier-1 run would otherwise
+    fill a small /tmp."""
+    yield
+    shutil.rmtree(tmp_path, ignore_errors=True)
+
 
 @pytest.mark.parametrize("clip", [None, 0.5])
 def test_adamw_with_decay_matches_optax(clip):

@@ -50,11 +50,21 @@ DEPTH = dict(text_layers=1, mel_enc_layers=1, w2v_enc_layers=1,
 TEXT = "sil n i3 h ao3 #1 sp sh iii4 j ie4 #4 sil"
 
 
+@pytest.fixture(autouse=True)
+def _remove_run_dirs(tmp_path):
+    """Each test's run directories (checkpoints at published widths) are
+    removed once its asserts have run: a whole Tier-1 run would otherwise
+    fill a small /tmp."""
+    yield
+    shutil.rmtree(tmp_path, ignore_errors=True)
+
+
 @pytest.fixture(scope="module")
 def corpus(tmp_path_factory):
     d = str(tmp_path_factory.mktemp("s2corpus"))
     make_synth_corpus.make_corpus(d, n=6, seed=3, holdout=2)
-    return d
+    yield d
+    shutil.rmtree(d, ignore_errors=True)
 
 
 def small_config(path, corpus_dir, **train):
@@ -87,7 +97,8 @@ def s2_runs(corpus, tmp_path_factory):
     b1 = cli_s2.main(["-c", cfg1, "-m", "b", "--logs_dir", logs, "--device", "cpu"])
     b1_step = b1.step
     b = cli_s2.main(["-c", cfg2, "-m", "b", "--logs_dir", logs, "--device", "cpu"])
-    return logs, cfg2, a, b1_step, b
+    yield logs, cfg2, a, b1_step, b
+    shutil.rmtree(tmp, ignore_errors=True)  # the runs' checkpoints, 2.3 GB
 
 
 def test_train_s2_kmeans_restart_and_eval(s2_runs, corpus):
@@ -237,8 +248,9 @@ def train_dirs(s2_runs, corpus, tmp_path_factory):
     sr = SpeechSR(8, 3, 1, seed=21, device="cpu").state_dict()
     pth = str(tmp / "sr.pth")
     torch.save({"model": {f"dec.{k}": v for k, v in sr.items()}}, pth)
-    return (os.path.join(logs, "a"), os.path.join(logs, "s1_ft"),
-            os.path.join(logs, "voc"), pth)
+    yield (os.path.join(logs, "a"), os.path.join(logs, "s1_ft"),
+           os.path.join(logs, "voc"), pth)
+    shutil.rmtree(tmp, ignore_errors=True)
 
 
 def test_pipeline_from_train_dirs(train_dirs):

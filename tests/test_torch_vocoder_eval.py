@@ -10,6 +10,7 @@ relative (a mean over the log-mels of the two waveforms, which agree
 within the modules' 1e-4)."""
 import json
 import os
+import shutil
 
 import numpy as np
 import pytest
@@ -24,6 +25,15 @@ from tests.test_torch_kernels import few_torch_threads  # noqa: F401
 from tests.test_torch_train_loop import _small_config
 from tests.test_torch_train_modules import SMALL, jax_vocoder_params
 from tests.test_torch_train_step import step_batch
+
+
+@pytest.fixture(autouse=True)
+def _remove_run_dirs(tmp_path):
+    """Each test's run directories (checkpoints at published widths) are
+    removed once its asserts have run: a whole Tier-1 run would otherwise
+    fill a small /tmp."""
+    yield
+    shutil.rmtree(tmp_path, ignore_errors=True)
 
 
 def test_vocoder_eval_fn_matches_jax(tmp_path):
