@@ -19,15 +19,18 @@ Phases, in order; any failure exits non-zero:
      one snake_conv launch at every distinct (C, T, k, d) of a 500-frame
      request, beside a cuDNN conv1d of the same conv (the conv alone), and
      their sum per request; the PLM decode kernel at full width (d 276, 4
-     layers, 1024 bins) at T = 500, 1 and 37, its codes held by the
-     teacher-forced check, and a bf16 latent through models/plm.decode (one
-     launch, the codes of its float32 cast); its bf16 weight / cache configuration at T = 500
+     layers, 1024 bins) in float32, named, at T = 500, 1 and 37, its codes
+     held by the teacher-forced check, and a bf16 latent through
+     models/plm.decode (one plm_decode_bf16 launch, the served default, the
+     codes of its float32 cast); its bf16 weight / cache configuration at T = 500
      (ms, teacher-forced gap against the bf16 plain twin, token agreement
      with float32, 10 repeats identical), and the per-row greedy decode of
      a batch of 4 in float32 and bf16 (one launch per row); the three
      vocoder kernels' bf16 configuration (bf16 in and out, float32 inside,
-     each conv on snake_conv_bf16.cu's wgmma from packed bf16 weights) at
-     the same serving shapes against their bf16 twins (`kernel_bf16` lines:
+     each conv on snake_conv_bf16.cu's wgmma from packed bf16 weights, the
+     AA-snake on aa_snake_bf16.cu) at the same serving shapes, the AA-snake
+     also at bench.py's, the eval's and the training step's, against their
+     bf16 twins (`kernel_bf16` lines: the AA-snake with its plan sweep;
      bf16_check, ms, device ms, the twin's ms, the bf16 bound beside the
      3xTF32 one, cuDNN's bf16 conv1d of the same convs alone, and the
      kernel's tile plan on the card against the mirror in ops/ampblock.py
@@ -44,7 +47,10 @@ Phases, in order; any failure exits non-zero:
      prompt and three Mandarin texts of 2/5/10 s at a read-speech syllable
      rate, whose length_scale is chosen by the duration pre-pass to land
      near 100/250/500 frames; each output, the kernel calls (slice-1 counts
-     plus one plm_decode), ms per request, and ms per stage from a second
+     plus one plm_decode_bf16: the decode at the kernel's defaults, bf16
+     weights and cache, as the JAX package serves it), the served codes'
+     teacher-forced gap against the bf16 plain twin (within 2^-8 x
+     max|logits|), ms per request, and ms per stage from a second
      run of the public stages one by one under CUDA events; these requests
      pass exact=True (no length buckets), as in earlier runs;
   6. the 500-frame synthesize and tts requests under torch.profiler: device
@@ -159,12 +165,13 @@ Phases, in order; any failure exits non-zero:
      pipeline of phase 11's bf16 s2 and s1 runs, phase 10's bf16 vocoder
      run and this SpeechSR-48k run, whose state_dicts must equal the runs'
      checkpoints, and serves one 10 s `tts` request (exact=True) at 48 kHz:
-     all four kernels must launch, the decode's teacher-forced gap within
-     1e-4 x max|logit|, the trained PLM loaded with its checkpoint decodes
-     the same codes; then the same pipeline at dtype=bfloat16 serves the
-     request once more (the vocoder kernels' bf16 configuration, and one
-     float32 plm_decode launch on the bf16 latent, its gap against the
-     float32 twin; its launch shapes join the `new_shape` lines);
+     all four kernels must launch, the served codes' teacher-forced gap
+     against the bf16 plain twin within 2^-8 x max|logit|, the trained PLM
+     loaded with its checkpoint decodes the same codes; then the same
+     pipeline at dtype=bfloat16 serves the request once more (the vocoder
+     kernels' bf16 configuration, and one plm_decode_bf16 launch on the
+     bf16 latent, the same gate; its launch shapes join the `new_shape`
+     lines);
  13. MP-SENet denoiser training: cli/train_denoiser.main at its defaults
      (B = 8, 2 s, dense_channel 64, 4 TS blocks, remat, attn_chunk 64), 3
      steps, a checkpoint, 3 resumed, the eval hook at steps 3 and 6: step
@@ -243,7 +250,8 @@ Phases, in order; any failure exits non-zero:
      step. Then ProsodyLM (greedy, T = 500) and Text2Semantic (the 250
      tokens of `ar_decode`'s sentence, top_k 3, seeded host draws) decoded
      tensor-parallel, half the heads on each rank: tokens equal the
-     one-card decodes' (the plm_decode kernel, `t2s_decode`); host ms per
+     one-card decodes' (the float32 plm_decode kernel, named: the sharded
+     decode is the float32 plain loop; `t2s_decode`); host ms per
      token of both;
  21. `mas`: monotonic alignment search, the torch version on the card
      against the native C++ kernel at B = 8, 500 x 120 with ragged
@@ -251,9 +259,9 @@ Phases, in order; any failure exits non-zero:
 Then the run's seconds, and one JSON line with every kernel's numbers (launches: the f32 rows
 from the tts requests of phase 5, or one float32 training step of phase 10
 where that count is larger, and the serve_trained request's beside them;
-the decode's float32 row also with its launches on the bf16-served
-request and in the 48 kHz infer_tts run;
-the decode's bf16 row from its batch decode of phase 3; every row's
+the decode's bf16 row (the served decode) from the tts requests too, with
+its launches on the bf16-served request and in the 48 kHz infer_tts run;
+the decode's float32 row from its float32 batch decode of phase 3; every row's
 launches in one rank's data-parallel vocoder step of phase 20
 (`launches_dp_step`); the three _bf16
 rows from one bf16_forward vocoder call, with their launches per bf16
@@ -284,9 +292,10 @@ EXPECTED_CALLS = {"aa_snakebeta": 19, "ampblock": 6, "amp_triple": 5,
                   "plm_decode": 0, "plm_decode_bf16": 0,
                   "aa_snakebeta_bf16": 0, "ampblock_bf16": 0,
                   "amp_triple_bf16": 0}
-# the kernels of the serving path (float32 decode, the port's default)
-PATH_KERNELS = ("aa_snakebeta", "ampblock", "amp_triple", "plm_decode")
-TTS_CALLS = dict(EXPECTED_CALLS, plm_decode=1)
+# the kernels of the serving path: the decode at the kernel's defaults, bf16
+# weights and cache (plm_decode_bf16.cu), as the JAX decode serves it
+PATH_KERNELS = ("aa_snakebeta", "ampblock", "amp_triple", "plm_decode_bf16")
+TTS_CALLS = dict(EXPECTED_CALLS, plm_decode_bf16=1)
 PLM_T = (500, 1, 37)    # decode lengths of phase 3; the first is the main path's
 TF_MARGIN = 1e-4        # teacher-forced gap, x max|logits|
 # The bf16 configuration's gap against its plain twin: one bf16 step (2^-8)
@@ -355,7 +364,7 @@ SOURCES = {  # launch-count key: (kernel, source, TPU kernel it replaces)
     # the vocoder kernels' bf16 configuration (bf16 in and out, float32
     # inside, each conv on the tensor cores' wgmma from bf16 operands)
     "aa_snakebeta_bf16": ("aa_snakebeta_bf16",
-                          "megatts2_hierspeechpp_torch/csrc/aa_snake.cu",
+                          "megatts2_hierspeechpp_torch/csrc/aa_snake_bf16.cu",
                           "megatts2_hierspeechpp_tpu/ops/pallas_snake.py:93"),
     "ampblock_bf16": ("ampblock_bf16",
                       "megatts2_hierspeechpp_torch/csrc/snake_conv_bf16.cu",
@@ -365,6 +374,14 @@ SOURCES = {  # launch-count key: (kernel, source, TPU kernel it replaces)
                         "megatts2_hierspeechpp_tpu/ops/pallas_amp_triple.py:60"),
 }
 BF16_KERNELS = ("aa_snakebeta_bf16", "ampblock_bf16", "amp_triple_bf16")
+# (B, T, C) of the bf16 AA-snake's launches (kernel_bf16 lines): a 500-frame
+# request's rows (4 x 500 samples), bench.py's vocoder at B = 4 x 1000
+# frames, the vocoder CLI's eval (B = 32, 768 samples) and its training
+# step (B = 32, 128 samples), at the widths each runs
+SNAKE_BF16_SHAPES = ((1, 4 * T_FRAMES, 256), (1, 4 * T_FRAMES, 64),
+                     (4, 4000, 256), (4, 4000, 64), (32, 768, 256),
+                     (32, 768, 64), (32, 128, 192), (32, 128, 256),
+                     (32, 128, 64))
 
 
 def fail(msg: str):
@@ -558,6 +575,29 @@ def snake_sweep(torch, args, ref, tol: float) -> dict:
     return out
 
 
+def snake_bf16_sweep(torch, x, a, be, ib, twin32) -> dict:
+    """The bf16 AA-snake (aa_snake_bf16.cu) at one shape with each segment
+    length it is planned for: device ms per launch (profiler, 10 launches;
+    null where it recorded too few) and the error against the twin before
+    its final rounding, each held to BF16_MARGIN x max|twin| like the
+    default plan."""
+    from megatts2_hierspeechpp_torch.ops import snake
+
+    scale = twin32.abs().max().item()
+    runs = {f"seg={s}": lambda s=s: snake._launch(x, a, be, ib, seg=s)
+            for s in snake.BF16_SEGS}
+    out = {}
+    for label, fn in runs.items():
+        err = (fn().float() - twin32).abs().max().item()
+        if not err <= BF16_MARGIN * scale:
+            fail(f"aa_snakebeta_bf16 {label} at {tuple(x.shape)}: max abs err "
+                 f"{err} > {BF16_MARGIN} x {scale}")
+        out[label] = {"device_ms": device_ms(torch, fn, ("aa_snakebeta",), 10,
+                                             required=False),
+                      "max_abs_err": err}
+    return out
+
+
 def plan_check(b: int, t: int, c: int, k: int, d: int) -> dict:
     """The bf16 snake_conv launch plan the card runs at this shape against
     its mirror in ops/ampblock.py (fails the run where they differ)."""
@@ -726,11 +766,14 @@ def kernel_phase(torch, dev):
 
 def kernel_bf16_phase(torch, dev):
     """The three vocoder kernels' bf16 configuration at the serving path's
-    shapes (B = 1, T_FRAMES frames, the shapes of kernel_phase), bf16 x,
-    against their bf16 twins (bf16_check): error, ms (CUDA events around
-    the wrapper), device ms per call (profiler, the wrapper's launches
-    summed), the twin's ms, the bf16 bound and the 3xTF32 configuration's
-    bound of the same shape. The AMPBlock and the stage: held with the
+    shapes (B = 1, T_FRAMES frames, the shapes of kernel_phase; the
+    AA-snake also at bench.py's, the eval's and the training step's,
+    SNAKE_BF16_SHAPES), bf16 x, against their bf16 twins (bf16_check):
+    error, ms (CUDA events around the wrapper), device ms per call
+    (profiler, the wrapper's launches summed), the twin's ms, the bf16
+    bound and the 3xTF32 configuration's bound of the same shape. The
+    AA-snake with its plan and snake_bf16_sweep (every segment). The
+    AMPBlock and the stage: held with the
     weights bare (packed in the call) and packed once (as the modules
     cache them), timed packed; each snake_conv launch's tile plan on the
     card against its mirror (plan_check); beside them cuDNN's bf16 conv1d
@@ -742,7 +785,7 @@ def kernel_bf16_phase(torch, dev):
     from megatts2_hierspeechpp_torch.ops.ampblock import (
         composed_ampblock, fused_ampblock, pack_bf16)
     from megatts2_hierspeechpp_torch.ops.snake import (
-        composed_snakebeta, fused_aa_snakebeta)
+        composed_snakebeta, fused_aa_snakebeta, inverse_beta, snake_bf16_plan)
 
     gen = torch.Generator().manual_seed(3)
 
@@ -764,14 +807,14 @@ def kernel_bf16_phase(torch, dev):
     # bytes, bf16 bytes, flops, conv flops, device kernel names, the fused
     # fn on packed weights, (C, T, the snake_conv launches' (k, d)))
     cases = []
-    for c in (256, 64):
-        x, a, b = randn(1, 4 * T, c).to(bf), pos(c), pos(c)
-        n = 4 * T * c
-        cases.append(("aa_snakebeta", f"C={c} T={4 * T}", x, (a, b),
+    for bb, t, c in SNAKE_BF16_SHAPES:
+        x, a, b = randn(bb, t, c).to(bf), pos(c), pos(c)
+        n = bb * t * c
+        cases.append(("aa_snakebeta", f"B={bb} T={t} C={c}", x, (a, b),
                       lambda x=x, a=a, b=b: fused_aa_snakebeta(x, a, b),
                       lambda x=x, a=a, b=b: composed_snakebeta(x, a, b), 1,
                       4.0 * (2 * n + 2 * c), 2.0 * 2 * n + 8.0 * c,
-                      SNAKE_FLOPS * n, 0.0, ("aa_snakebeta_kernel",), None,
+                      SNAKE_FLOPS * n, 0.0, ("aa_snakebeta_bf16_kernel",), None,
                       None))
     for c, t, k in [(128, 20 * T, k) for k in (3, 7, 11)] + [
             (128, 2 * T, k) for k in (3, 5, 7)]:
@@ -828,6 +871,11 @@ def kernel_bf16_phase(torch, dev):
             twin32, f32, chain = bf16_twin(torch, kind, x, twin_args)
             torch.cuda.synchronize()
             check = bf16_check(y, twin32, f32, chain)
+            if kind == "aa_snakebeta":  # its plans
+                a, b = twin_args
+                extra = {"plan": snake_bf16_plan(*x.shape),
+                         "sweep": snake_bf16_sweep(torch, x, a, b,
+                                                   inverse_beta(b), twin32)}
             if fused_packed is not None:  # packed once, as the modules do
                 check_p = bf16_check(fused_packed(), twin32, f32, chain)
                 if not check_p["ok"]:
@@ -1191,7 +1239,7 @@ def plm_split(torch, w, tc, go_id: int) -> dict:
 
     t = tc.shape[1]
     with torch.inference_mode():
-        _, stamps = phase_stamps(w, tc, go_id)
+        _, stamps = phase_stamps(w, tc, go_id, torch.float32, torch.float32)
         torch.cuda.synchronize()
     st = stamps.cpu().numpy().astype(np.float64)  # (T, phases, 3)
     per = st.shape[1]
@@ -1233,16 +1281,18 @@ def plm_phase(torch, dev):
 
     model = ProsodyLM(seed=99, device=dev)
     w = model.packed()
+    f32 = (torch.float32, torch.float32)  # this phase's subject: plm_decode.cu
     gen = torch.Generator().manual_seed(5)
     lines = []
     for t in PLM_T:
         tc = torch.randn(1, t, 256, generator=gen).to(dev)
         with torch.inference_mode():
-            codes = plm_decode_greedy(w, tc, model.go_id)
+            codes = plm_decode_greedy(w, tc, model.go_id, *f32)
             ref = plain_decode(w, tc, model.go_id)
             gap, scale = teacher_forced_gap(model, tc, codes)
             agree = (codes == ref).float().mean().item()
-            ms = time_ms(torch, lambda: plm_decode_greedy(w, tc, model.go_id), 5)
+            ms = time_ms(torch, lambda: plm_decode_greedy(w, tc, model.go_id,
+                                                          *f32), 5)
             plain_ms = time_ms(torch, lambda: plain_decode(w, tc, model.go_id),
                                2 if t > 100 else 5)
         ok = bool(math.isfinite(gap) and gap <= TF_MARGIN * scale
@@ -1261,7 +1311,7 @@ def plm_phase(torch, dev):
         if t == PLM_T[0]:
             line["split"] = plm_split(torch, w, tc, model.go_id)
             with torch.inference_mode():
-                reps = [plm_decode_greedy(w, tc, model.go_id)
+                reps = [plm_decode_greedy(w, tc, model.go_id, *f32)
                         for _ in range(PLM_REPEATS)]
             same = sum(bool(torch.equal(r, codes)) for r in reps)
             line["repeats_identical"] = f"{same}/{PLM_REPEATS}"
@@ -1280,7 +1330,8 @@ def plm_phase(torch, dev):
 def plm_bf16_latent_gate(torch, model, tc):
     """models/plm.decode of a bf16 latent (a bf16 TTV's) launches the
     kernel once, on the latent taken to float32, as the JAX kernel takes it:
-    one plm_decode launch, the codes of the float32 cast's decode."""
+    one launch of the served decode (plm_decode_bf16, the kernel's
+    defaults), the codes of the float32 cast's decode."""
     from megatts2_hierspeechpp_torch.models.plm import decode
     from megatts2_hierspeechpp_torch.ops import cuda_lib
 
@@ -1296,7 +1347,7 @@ def plm_bf16_latent_gate(torch, model, tc):
     print(json.dumps({"phase": "plm_bf16_latent", "T": tc.shape[1],
                       "calls": counts, "codes_equal_float32_cast": same}),
           flush=True)
-    if counts["plm_decode"] != 1 or sum(counts.values()) != 1 or not same:
+    if counts["plm_decode_bf16"] != 1 or sum(counts.values()) != 1 or not same:
         fail(f"plm_decode of a bf16 latent: launches {counts}, codes equal "
              f"the float32 cast's {same}")
 
@@ -1323,7 +1374,7 @@ def plm_bf16_phase(torch, dev):
     from megatts2_hierspeechpp_torch.ops.plm_decode import (
         cluster_choice, plain_decode, plain_gap, plm_decode_greedy)
 
-    bf = torch.bfloat16
+    bf, fl = torch.bfloat16, torch.float32
     model = ProsodyLM(seed=99, device=dev)
     w = model.packed()
     cpu_w = ProsodyLM(seed=99, device="cpu").packed()
@@ -1346,9 +1397,9 @@ def plm_bf16_phase(torch, dev):
                              "gap": plain_gap(w, tc, cpu_twin, go, bf, bf)[0]},
                 "max_abs_ref": scale})
             if i == 0:
-                first, tc0, f32 = codes, tc, plm_decode_greedy(w, tc, go)
+                first, tc0, f32 = codes, tc, plm_decode_greedy(w, tc, go, fl, fl)
         ms = time_ms(torch, lambda: plm_decode_greedy(w, tc0, go, bf, bf), 5)
-        f32_ms = time_ms(torch, lambda: plm_decode_greedy(w, tc0, go), 5)
+        f32_ms = time_ms(torch, lambda: plm_decode_greedy(w, tc0, go, fl, fl), 5)
         plain_ms = time_ms(torch, lambda: plain_decode(
             w, tc0, go, weight_dtype=bf, cache_dtype=bf), 1)
         same = sum(bool(torch.equal(plm_decode_greedy(w, tc0, go, bf, bf), first))
@@ -1379,7 +1430,7 @@ def plm_bf16_phase(torch, dev):
             cl = plm_decode_greedy(w, tcl, go, bf, bf)
             gl, sl = plain_gap(w, tcl, cl, go, bf, bf)
             ms_l = time_ms(torch, lambda: plm_decode_greedy(w, tcl, go, bf, bf), 3)
-            f32_l = time_ms(torch, lambda: plm_decode_greedy(w, tcl, go), 3)
+            f32_l = time_ms(torch, lambda: plm_decode_greedy(w, tcl, go, fl, fl), 3)
         line["lengths"].append({"T": tl, "ms": ms_l, "f32_ms": f32_l,
                                 "max_abs_err": gl, "max_abs_ref": sl})
         if not gl <= BF16_MARGIN * sl:
@@ -1424,8 +1475,7 @@ def plm_bf16_phase(torch, dev):
         if not gap_b <= margin * scale_b:
             fail(f"per-row decode {dt}: teacher-forced gap {gap_b} > "
                  f"{margin} x {scale_b}")
-        if dt == bf:
-            line["launches"] = counts[key]
+        line["launches" if dt == bf else "launches_f32"] = counts[key]
     return line
 
 
@@ -1583,9 +1633,63 @@ def tts_stages(torch, pipe, prompt, text, ls, denoise_ratio: float = 0.0):
     return ms
 
 
+class ServedCodes:
+    """Every models/plm.decode call made inside the `with` block (the
+    pipeline looks decode up on its module at call time, so a shim there
+    sees each call, from any thread): the model, the latent in float32 and
+    the codes served. `gap` holds the greedy ones to the served decode's
+    gate: their teacher-forced gap against the bf16 plain twin (plain_gap
+    at the kernel's defaults, bf16 weights and cache) within BF16_MARGIN x
+    max|logits|, worst over the calls (fails the run above it)."""
+
+    def __init__(self, label):
+        from megatts2_hierspeechpp_torch.models import plm
+
+        self.label, self.lib, self.calls = label, plm, []
+
+    def __enter__(self):
+        orig = self.orig = self.lib.decode
+
+        def shim(model, tc, *args, **kw):
+            codes = orig(model, tc, *args, **kw)
+            if not (args or kw.get("top_k")):   # greedy: the kernel's route
+                self.calls.append((model, tc.float(), codes))
+            return codes
+
+        self.lib.decode = shim
+        return self
+
+    def __exit__(self, *exc):
+        self.lib.decode = self.orig
+
+    def gap(self, torch) -> dict:
+        from megatts2_hierspeechpp_torch.ops.plm_decode import plain_gap
+
+        if not self.calls:
+            fail(f"{self.label}: no greedy decode was served")
+        bf = torch.bfloat16
+        worst = None
+        with torch.inference_mode():
+            for model, tc, codes in self.calls:
+                g, scale = plain_gap(model.packed(), tc, codes, model.go_id,
+                                     bf, bf)
+                if worst is None or g / scale > worst[0] / worst[1]:
+                    worst = (g, scale)
+        out = {"decodes": len(self.calls), "max_abs_err": worst[0],
+               "max_abs_logit": worst[1],
+               "tolerance": f"teacher-forced gap vs the bf16 plain twin <= "
+                            f"{BF16_MARGIN:g} x max|logits|"}
+        if not worst[0] <= BF16_MARGIN * worst[1]:
+            fail(f"{self.label}: served codes' teacher-forced gap {out}")
+        self.calls.clear()
+        return out
+
+
 def tts_phase(torch, pipe, prompt):
     """The whole zero-shot path, three requests near 100/250/500 frames, each
-    shape warmed up first; then each request's stages timed one by one."""
+    shape warmed up first; each request's served codes held at the bf16
+    decode's gate (ServedCodes, after the timed requests); then each
+    request's stages timed one by one."""
     from megatts2_hierspeechpp_torch.data.text import process_text
     from megatts2_hierspeechpp_torch.ops import cuda_lib
 
@@ -1596,12 +1700,14 @@ def tts_phase(torch, pipe, prompt):
     torch.cuda.synchronize()
     cuda_lib.reset_launches()
     before = dict(cuda_lib.LAUNCHES)
-    lines = []
+    lines, served = [], []
     for f, text, ls, n in reqs:
         t0 = time.perf_counter()
-        out = pipe.tts(text, prompt=prompt, length_scale=ls, output_sr=48000,
-                       exact=True)
+        with ServedCodes(f"tts T={n}") as codes:
+            out = pipe.tts(text, prompt=prompt, length_scale=ls,
+                           output_sr=48000, exact=True)
         ms = 1e3 * (time.perf_counter() - t0)  # ends with a device-to-host copy
+        served.append(codes)
         counts = {k: cuda_lib.LAUNCHES[k] - before[k] for k in before}
         before = dict(cuda_lib.LAUNCHES)
         peak = float(np.abs(out).max())
@@ -1624,7 +1730,8 @@ def tts_phase(torch, pipe, prompt):
             print(json.dumps(line), flush=True)
             fail(f"tts T={n}: {problem}")
     launches = dict(cuda_lib.LAUNCHES)
-    for line, (_, text, ls, _) in zip(lines, reqs):
+    for line, (_, text, ls, _), codes in zip(lines, reqs, served):
+        line["served_gap"] = codes.gap(torch)
         line["stages_ms"] = tts_stages(torch, pipe, prompt, text, ls)
         print(json.dumps(line), flush=True)
     return launches, reqs
@@ -1655,7 +1762,9 @@ class LaunchShapes:
 
     def _note(self, name, a):
         if name == "aa_snakebeta_fwd":
-            key = ("aa_snakebeta", a[4], a[5], a[6], a[9])
+            key = ("aa_snakebeta", a[4], a[5], a[6], 4)
+        elif name == "aa_snakebeta_bf16_fwd":
+            key = ("aa_snakebeta", a[4], a[5], a[6], 2)
         elif name in ("snake_conv_fwd", "snake_conv_bf16_fwd"):
             b, t, cin, cout, k, d = a[7:13]
             io = a[13] if name == "snake_conv_bf16_fwd" else 0
@@ -1727,17 +1836,91 @@ def serve_texts(pipe, prompt, ls, n: int):
     fail(f"no {n} texts predict {SERVE_FRAMES} frames at length_scale {ls}")
 
 
-def check_rows(label, outs, singles, tol):
-    """Each batch row against its own tts call: same length, within tol x
-    its peak. Returns the worst error over the peak."""
-    worst = 0.0
-    for i, (o, s) in enumerate(zip(outs, singles)):
+def tie_margin(torch, model, tc, prefix, a: int, b: int) -> float:
+    """The bf16 twin (plain loop, bf16 weights and cache) fed `prefix` on
+    the latent tc (1, T, C): at the next step, |logit[a] - logit[b]| /
+    max|logits|. The step reads the latent only up to itself, so the loop
+    stops there."""
+    from megatts2_hierspeechpp_torch.ops.plm_decode import _plain_loop
+
+    k = prefix.shape[0]
+    prefix = prefix.to(tc.device).long()
+    got = []
+
+    def pick(step, logits):
+        if step == k:
+            got.append(float((logits[0, a] - logits[0, b]).abs()
+                             / logits.abs().max()))
+            return prefix.new_full((1,), a)
+        return prefix[step:step + 1]
+
+    with torch.inference_mode():
+        _plain_loop(model.packed(), tc[:, :k + 1], model.go_id, pick,
+                    torch.bfloat16, torch.bfloat16)
+    return got[0]
+
+
+def check_rows(torch, pipe, label, args, prompt, kw, outs, singles, frames,
+               batch, alone) -> dict:
+    """Each batch row against its own tts(exact=False) call (same length,
+    within SERVE_TOL x its peak). `batch` and `alone` are the ServedCodes of
+    the batch and of the single calls, `frames` each row's valid frames.
+
+    Under the bf16 decode a batch row need not equal its own call: the
+    batch's latent and the single call's differ in their last bits
+    (batched and single kernels sum in other orders), and the bf16
+    decode's roundings can carry that to another code at a near tie, after
+    which every later step differs. So a row whose codes equal its own
+    call's over its valid frames is held as it is (free running). A row
+    whose codes differ must do so first at a near tie: at the first step
+    that differs, the two codes' logits of the bf16 twin, fed the codes
+    before it, lie within BF16_MARGIN x max|logits| on the batch's latent
+    or on the single call's (tie_margin). Such a row is held against its
+    own call fed the row's codes, at the same SERVE_TOL; its free-running
+    difference is reported only. Both calls' codes pass the bf16 decode's
+    gate (`served_gap`, `own_tts_served_gap`). Codes of another length fail.
+    Returns the line's fields."""
+    if len(batch.calls) != 1 or len(alone.calls) != len(outs):
+        fail(f"{label}: {len(batch.calls)} decodes in one tts_batch call, "
+             f"{len(alone.calls)} in {len(outs)} single calls")
+    model, tcs, rows = batch.calls[0]
+    prompts = args.get("prompts") or [prompt] * len(outs)
+    worst, free, flipped = 0.0, 0.0, []
+    for i, (o, s, text, p) in enumerate(zip(outs, singles, args["texts"],
+                                            prompts)):
         if o.shape != s.shape or not np.isfinite(o).all():
             fail(f"{label} row {i}: {o.shape} vs its own tts {s.shape}")
-        worst = max(worst, float(np.abs(o - s).max() / np.abs(s).max()))
-    if not worst <= tol:
-        fail(f"{label}: a row differs from its own tts by {worst} x its peak")
-    return worst
+        err = float(np.abs(o - s).max() / np.abs(s).max())
+        free = max(free, err)
+        _, tc_own, own = alone.calls[i]
+        own, row, n = own[0], rows[i], frames[i]
+        if own.shape != row.shape:
+            fail(f"{label} row {i}: codes {tuple(row.shape)} vs its own "
+                 f"tts's {tuple(own.shape)}")
+        differ = torch.nonzero(own[:n] != row[:n])
+        if len(differ):
+            k = int(differ[0, 0])
+            a, b = int(row[k]), int(own[k])
+            margin = min(tie_margin(torch, model, tc, row[:k], a, b)
+                         for tc in (tcs[i:i + 1], tc_own))
+            flipped.append({"row": i, "step": k, "codes": [a, b],
+                            "tie_margin": margin})
+            if not margin <= BF16_MARGIN:
+                fail(f"{label} row {i}: codes differ from its own tts's at "
+                     f"step {k} ({a} vs {b}) by {margin} x max|logits|, "
+                     f"not a near tie (<= {BF16_MARGIN:g})")
+            s = pipe.tts(text, prompt=p, codes=row[None].cpu().numpy(), **kw)
+            if o.shape != s.shape:
+                fail(f"{label} row {i}: {o.shape} vs its own tts given its "
+                     f"codes {s.shape}")
+            err = float(np.abs(o - s).max() / np.abs(s).max())
+        worst = max(worst, err)
+    if not worst <= SERVE_TOL:
+        fail(f"{label}: a row differs from its own tts by {worst} x its peak "
+             f"(rows with other codes, fed their codes: {flipped})")
+    return {"max_err_vs_own_tts": worst, "rows_codes_differ": flipped,
+            "max_err_vs_own_tts_free_running": free,
+            "own_tts_served_gap": alone.gap(torch)}
 
 
 def serve_batch_phase(torch, pipe, prompt, ls, shapes):
@@ -1745,8 +1928,10 @@ def serve_batch_phase(torch, pipe, prompt, ls, shapes):
     texts with one shared prompt, then SPEAKER_ROWS of them with one
     bucketed synthetic speaker each (prepare_prompt(bucket=True)). Each
     batch is warmed up, then run once with its counts zeroed (one tts
-    call's, with a plm_decode launch per row) and timed on the host clock;
-    each row is held against its own tts(exact=False) call. Last, the
+    call's, with a plm_decode_bf16 launch per row) and timed on the host
+    clock; each row is held against its own tts(exact=False) call
+    (check_rows: fed the row's codes where a checked near tie flipped), and the
+    batch's served codes at the bf16 decode's gate (ServedCodes). Last, the
     shared-prompt batch once more under the profiler."""
     from megatts2_hierspeechpp_torch.ops import cuda_lib
 
@@ -1762,22 +1947,27 @@ def serve_batch_phase(torch, pipe, prompt, ls, shapes):
         b = len(args["texts"])
         pipe.tts_batch(**args, **kw)  # warm-up
         t0 = time.perf_counter()
-        outs, counts = run_path(torch, cuda_lib, shapes, f"serve_batch B={b}",
-                                lambda: pipe.tts_batch(**args, **kw))
+        with ServedCodes(f"serve_batch {label}") as codes:
+            outs, counts = run_path(torch, cuda_lib, shapes,
+                                    f"serve_batch B={b}",
+                                    lambda: pipe.tts_batch(**args, **kw))
         ms = 1e3 * (time.perf_counter() - t0)
-        singles, _ = run_path(
-            torch, cuda_lib, shapes, "tts, bucketed",
-            lambda: [pipe.tts(t, prompt=p, **kw) for t, p in zip(
-                args["texts"], args.get("prompts") or [prompt] * b)])
-        want = dict(TTS_CALLS, plm_decode=b)
-        audio_s = sum(len(o) for o in outs) / 48000
+        with ServedCodes(f"serve_batch {label}, own tts") as alone:
+            singles, _ = run_path(
+                torch, cuda_lib, shapes, "tts, bucketed",
+                lambda: [pipe.tts(t, prompt=p, **kw) for t, p in zip(
+                    args["texts"], args.get("prompts") or [prompt] * b)])
         frames = [int(f) for f in pipe.duration(
             args["texts"], args.get("prompts") or prompt, ls)]
+        rows = check_rows(torch, pipe, label, args, prompt, kw, outs, singles,
+                          frames, codes, alone)
+        want = dict(TTS_CALLS, plm_decode_bf16=b)
+        audio_s = sum(len(o) for o in outs) / 48000
         line = {"phase": "serve_batch", "prompts": label, "rows": b,
                 "frames": frames, "ms": ms, "audio_s": audio_s,
                 "audio_s_per_s": audio_s / (ms / 1e3), "calls": counts,
-                "max_err_vs_own_tts": check_rows(label, outs, singles, SERVE_TOL),
-                "tolerance": f"{SERVE_TOL:g} x the row's peak"}
+                **rows, "tolerance": f"{SERVE_TOL:g} x the row's peak",
+                "served_gap": codes.gap(torch)}
         print(json.dumps(line), flush=True)
         if counts != want:
             fail(f"serve_batch {label}: kernel calls {counts}, expected {want}")
@@ -1797,7 +1987,8 @@ def serve_stream_phase(torch, pipe, prompt, req, shapes):
     the end: there the bucketed tts runs SpeechSR over the bucket's padding
     frames and the stream's last piece ends at the sequence edge, as the
     JAX stream does (tests/test_torch_serving.py holds the port's tail to
-    the JAX one's)."""
+    the JAX one's). The stream's served codes at the bf16 decode's gate
+    (ServedCodes)."""
     from megatts2_hierspeechpp_torch.ops import cuda_lib
 
     _, text, ls, n = req
@@ -1813,8 +2004,9 @@ def serve_stream_phase(torch, pipe, prompt, req, shapes):
                 chunks.append(c)
             return chunks, marks
 
-        (chunks, marks), counts = run_path(
-            torch, cuda_lib, shapes, f"serve_stream {sr} Hz", stream)
+        with ServedCodes(f"serve_stream {sr} Hz") as codes:
+            (chunks, marks), counts = run_path(
+                torch, cuda_lib, shapes, f"serve_stream {sr} Hz", stream)
         full = pipe.tts(text, prompt=prompt, **kw)
         wav = np.concatenate(chunks)
         if wav.shape != full.shape or not np.isfinite(wav).all():
@@ -1823,7 +2015,7 @@ def serve_stream_phase(torch, pipe, prompt, req, shapes):
                 "chunk_frames": STREAM_CHUNK, "halo_frames": STREAM_HALO,
                 "chunks": len(chunks), "chunk_samples": [len(c) for c in chunks],
                 "first_chunk_ms": marks[0], "last_chunk_ms": marks[-1],
-                "calls": counts}
+                "calls": counts, "served_gap": codes.gap(torch)}
         if sr == 16000:
             err = float(np.abs(wav / np.abs(wav).max() * 0.999 - full).max())
             line.update(max_err_normalised=err, tolerance=STREAM_TOL)
@@ -1849,7 +2041,8 @@ def serve_server_phase(torch, pipe, reqs, shapes):
     """TTSServer(max_batch=SERVER_REQUESTS): SERVER_REQUESTS requests from
     SERVER_THREADS threads for SERVER_SPEAKERS bucketed speakers (3.5-5 s
     texts, 48 kHz). Every future must give a finite waveform of its own tts
-    call's length. Prints ms per request and the number of tts_batch and
+    call's length, and the served codes pass the bf16 decode's gate
+    (ServedCodes). Prints ms per request and the number of tts_batch and
     tts calls."""
     import threading
 
@@ -1903,7 +2096,9 @@ def serve_server_phase(torch, pipe, reqs, shapes):
         serve()  # warm-up
         calls.update(tts_batch=0, tts=0)
         t0 = time.perf_counter()
-        outs, counts = run_path(torch, cuda_lib, shapes, "serve_server", serve)
+        with ServedCodes("serve_server") as codes:
+            outs, counts = run_path(torch, cuda_lib, shapes, "serve_server",
+                                    serve)
         ms = 1e3 * (time.perf_counter() - t0)
     finally:
         for k in calls:
@@ -1913,7 +2108,8 @@ def serve_server_phase(torch, pipe, reqs, shapes):
             "threads": SERVER_THREADS, "speakers": SERVER_SPEAKERS,
             "ms": ms, "ms_per_request": ms / SERVER_REQUESTS,
             "audio_s": sum(lens) / 48000, "pipeline_calls": dict(calls),
-            "calls": counts, "samples": [len(o) for o in outs]}
+            "calls": counts, "samples": [len(o) for o in outs],
+            "served_gap": codes.gap(torch)}
     print(json.dumps(line), flush=True)
     for i, (o, n) in enumerate(zip(outs, lens)):
         if o.shape != (n,) or not np.isfinite(o).all():
@@ -1937,14 +2133,16 @@ def new_shapes_phase(torch, dev, shapes):
     one launch and one plain call each. The AA-snake and the epilogue (whose
     plans were picked at B=1, T=2000) also with their device ms per launch
     (profiler; "device_ms": null where the profiler recorded too few of
-    the launches, which it does late in a long run), and snake_conv at the
+    the launches, which it does late in a long run; a bf16 AA-snake also
+    with its plan), and snake_conv at the
     shapes of DEVICE_MS_PATHS (profiler, summed per B, T, C; null unless it
     recorded every launch shape) and at every bf16 shape ("events_ms",
     back_to_back_ms summed per B, T, C). One line per kernel, shape and dtype
     (snake_conv: per B, T, C), with the worst error over the tolerance, the
     bound and the plain version's ms (CUDA events, a second call after the
-    one compared; for snake_conv both summed over the launch shapes). A
-    bf16 launch (the bf16 configuration) is held as bf16_check holds one
+    one compared; for snake_conv both summed over the launch shapes); the
+    inputs are drawn on the card from one seed. A bf16 launch (the bf16
+    configuration) is held as bf16_check holds one
     rounding: within BF16_MARGIN x max|ref| of the bf16 twin before its
     final rounding; a bf16 snake_conv launch that writes float32 also by its
     mean error (MMA_F32_MEAN_TOL), with what a bf16-rounded output would
@@ -1963,12 +2161,14 @@ def new_shapes_phase(torch, dev, shapes):
         plain_gap, plm_decode_greedy)
     from megatts2_hierspeechpp_torch.ops.resample import activation1d
     from megatts2_hierspeechpp_torch.ops.snake import (
-        composed_snakebeta, fused_aa_snakebeta, inverse_beta)
+        composed_snakebeta, fused_aa_snakebeta, inverse_beta, snake_bf16_plan)
 
-    gen = torch.Generator().manual_seed(17)
+    # inputs drawn on the card: 1740 launch shapes, some of 30 M values,
+    # whose draws on the host took most of this phase
+    gen = torch.Generator(device=dev).manual_seed(17)
 
     def randn(*shape, scale=1.0):
-        return (torch.randn(shape, generator=gen) * scale).to(dev)
+        return torch.randn(shape, generator=gen, device=dev) * scale
 
     def pos(*shape):
         return torch.exp(randn(*shape, scale=0.2))
@@ -2002,6 +2202,8 @@ def new_shapes_phase(torch, dev, shapes):
                                                 required=False))
                 line["bound_ms"], line["bound_by"] = (bound_ms if ab == 4 else bound_ms_bf16)(
                     ab * (2.0 * n) + 8.0 * c, SNAKE_FLOPS * n)
+                if ab == 2:
+                    line["plan"] = snake_bf16_plan(b, t, c)
             elif kind in ("triple_avg", "triple_post"):
                 _, b, t, c, yb = key
                 dt = bf if yb == 2 else torch.float32
@@ -2140,8 +2342,8 @@ def new_shapes_phase(torch, dev, shapes):
 
 
 GROUPS = (  # (group, substrings of kernel names), first match wins
-    ("plm_decode (ours)", ("plm_decode_kernel",)),
-    ("aa_snakebeta (ours)", ("aa_snakebeta_kernel",)),
+    ("plm_decode (ours)", ("plm_decode_kernel", "plm_decode_bf16_kernel")),
+    ("aa_snakebeta (ours)", ("aa_snakebeta_kernel", "aa_snakebeta_bf16_kernel")),
     ("snake_conv (ours)", ("snake_conv_kernel", "snake_conv_bf16_kernel")),
     ("triple_epilogue (ours)", ("triple_avg_kernel", "triple_post_kernel")),
     # cuDNN runs a small-batch LSTM as one cell kernel and one gemv per step
@@ -2658,8 +2860,8 @@ TRAIN_BWD_TOL = 1e-4        # a kernel's gradients against autograd of its
                             # plain version (the bf16 twin for bf16 x), x
                             # max|ref| of each tensor, cuDNN deterministic
 TRAIN_FWD_TOL = {"aa_snakebeta": 1e-5, "ampblock": 1e-4, "amp_triple": 1e-4}
-OURS = ("aa_snakebeta_kernel", "snake_conv_kernel", "snake_conv_bf16_kernel",
-        "triple_avg_kernel", "triple_post_kernel")
+OURS = ("aa_snakebeta_kernel", "aa_snakebeta_bf16_kernel", "snake_conv_kernel",
+        "snake_conv_bf16_kernel", "triple_avg_kernel", "triple_post_kernel")
 TRAIN_GROUPS = (  # the rest of a step's kernels, first match wins
     ("optimizer (foreach)", ("multi_tensor_apply",)),
     ("cuDNN/cuBLAS conv+gemm", ("conv", "cudnn", "xmma", "gemm", "sgemm",
@@ -3838,8 +4040,10 @@ def serve_trained_phase(torch, dev, shapes, audio, state, batch, runs):
     s tts request (exact=True) at 48 kHz, first at float32 compute, then
     once more at dtype=bfloat16. Gates: every model's state_dict equals its
     run's latest checkpoint; all four kernels launch (in bf16 the vocoder
-    kernels' bf16 configuration and still one float32 plm_decode); the
-    decode's teacher-forced gap against the float32 plain twin; the s1
+    kernels' bf16 configuration), the decode as served, once
+    (plm_decode_bf16, the kernel's defaults, in both); the served codes'
+    teacher-forced gap against the bf16 plain twin within BF16_MARGIN x
+    max|logits| (plain_gap; the float32 model's own gap is reported); the s1
     run's in-memory PLM, packed, then stepped once more (an optimizer's
     in-place update: its decode weights must be packed anew), then loaded
     with the checkpoint, decodes the pipeline's codes; after the bf16
@@ -3854,6 +4058,7 @@ def serve_trained_phase(torch, dev, shapes, audio, state, batch, runs):
     from megatts2_hierspeechpp_torch.models.plm import decode, teacher_forced_gap
     from megatts2_hierspeechpp_torch.models.vocoder import serving_state_dict
     from megatts2_hierspeechpp_torch.ops import cuda_lib
+    from megatts2_hierspeechpp_torch.ops.plm_decode import plain_gap
     from megatts2_hierspeechpp_torch.train import checkpoints as ckpt_lib
     from megatts2_hierspeechpp_torch.train import s1
 
@@ -3895,17 +4100,22 @@ def serve_trained_phase(torch, dev, shapes, audio, state, batch, runs):
         t0 = time.perf_counter()
         (out, ac, _), counts = run_path(torch, cuda_lib, shapes, label, request)
         ms = 1e3 * (time.perf_counter() - t0)
-        gap, scale = teacher_forced_gap(f32_plm, ac.x_frame.float(), ac.codes)
+        bf = torch.bfloat16
+        gap, scale = plain_gap(pipe.plm.packed(), ac.x_frame.float(), ac.codes,
+                               pipe.plm.go_id, bf, bf)
+        gap32 = teacher_forced_gap(f32_plm, ac.x_frame.float(), ac.codes)[0]
         line = {"phase": label, "runs": list(runs), "build_s": build_s,
                 "frames": ac.frames, "target_frames": f, "length_scale": ls,
                 "ms": ms, "samples": int(out.shape[0]),
                 "audio_s_per_s": (out.shape[0] / 48000) / (ms / 1e3),
                 "calls": counts, "latent_dtype": str(ac.x_frame.dtype),
                 "tf_gap": gap, "max_abs_logit": scale,
-                "tolerance": f"{TF_MARGIN:g} x max|logit|",
+                "tolerance": f"teacher-forced gap vs the bf16 plain twin <= "
+                             f"{BF16_MARGIN:g} x max|logit|",
+                "tf_gap_float32_model": gap32,
                 "state_dicts_equal_checkpoints": True}
         kernels = (PATH_KERNELS if dtype is None
-                   else BF16_KERNELS + ("plm_decode",))
+                   else BF16_KERNELS + ("plm_decode_bf16",))
         if dtype is None:
             plm.load_state_dict(raw[s1_dir]["plm"])
             same = bool(torch.equal(decode(plm, ac.x_frame).cpu(), ac.codes.cpu()))
@@ -3913,12 +4123,12 @@ def serve_trained_phase(torch, dev, shapes, audio, state, batch, runs):
                         codes_equal_trained_plm_loaded=same)
         print(json.dumps(line), flush=True)
         lines[label] = line
-        if min(counts[k] for k in kernels) < 1 or counts["plm_decode"] != 1:
+        if min(counts[k] for k in kernels) < 1 or counts["plm_decode_bf16"] != 1:
             fail(f"{label}: a kernel was not launched ({kernels}): {counts}")
         if out.shape != (960 * ac.frames,) or not np.isfinite(out).all():
             fail(f"{label}: output {out.shape}, finite {np.isfinite(out).all()}")
-        if not gap <= TF_MARGIN * scale:
-            fail(f"{label}: teacher-forced gap {gap} > {TF_MARGIN} x {scale}")
+        if not gap <= BF16_MARGIN * scale:
+            fail(f"{label}: teacher-forced gap {gap} > {BF16_MARGIN} x {scale}")
         if dtype is None and not (repacked and moved):
             fail(f"serve_trained: the decode weights were not packed anew after "
                  f"an optimizer step (repacked {repacked}, moved {moved})")
@@ -5623,9 +5833,12 @@ def dp_gloo2_phase(torch, dev, tmp, corpus, card):
     with torch.inference_mode():
         plm = ProsodyLM(seed=99, device=dev)
         tct = torch.from_numpy(tc).to(dev)
+        # the sharded decode is the plain float32 loop: its one-card
+        # reference is the float32 kernel, named (not the bf16 default)
+        f32 = dict(weight_dtype=torch.float32, cache_dtype=torch.float32)
         cuda_lib.reset_launches()
-        decode(plm, tct)
-        plm_codes, plm_ms = event_ms(torch, lambda: decode(plm, tct))
+        decode(plm, tct, **f32)
+        plm_codes, plm_ms = event_ms(torch, lambda: decode(plm, tct, **f32))
         plm_launches = cuda_lib.LAUNCHES["plm_decode"]
         model = t2s.Text2Semantic(**build, device=dev)
         on = [torch.from_numpy(v).to(dev) for v in inputs]
@@ -5774,7 +5987,9 @@ def main() -> int:
     launches, reqs = tts_phase(torch, pipe, prompt)
     if min(launches[k] for k in PATH_KERNELS) < 1:
         fail(f"a kernel was not launched on the tts path: {launches}")
-    launches["plm_decode_bf16"] = bf16["launches"]
+    # the float32 decode's launches: its own path, the per-row batch decode
+    # with float32 named (plm_batch)
+    launches["plm_decode"] = bf16["launches_f32"]
     t = REQUEST_FRAMES[-1]
     w2v, mask, lf0 = (torch.from_numpy(a) for a in inputs[t])
     profile_phase(torch, "synthesize", t, lambda: pipe.synthesize(
@@ -5837,6 +6052,7 @@ def main() -> int:
     clock("mas")
     torch.cuda.empty_cache()
     new_shapes_phase(torch, dev, shapes)
+    clock("new_shapes")
 
     # ms: CUDA events around the wrapper on every row, as in earlier runs;
     # device_ms: the kernel's own time (profiler) where the phase took it
@@ -5853,8 +6069,8 @@ def main() -> int:
             "bound_ms": slowest["bound_ms"], "bound_by": slowest["bound_by"],
             "bound_ms_f32": slowest.get("bound_ms_f32"),
             "library_ms": None, "shape": slowest["shape"],
-            "launches_from": ("models/plm.decode, bf16, B=4 per row"
-                              if key == "plm_decode_bf16" else
+            "launches_from": ("models/plm.decode, float32 named, B=4 per row"
+                              if key == "plm_decode" else
                               "tts requests, phase 5"),
             "launches_dp_step": dp_launches.get(key, 0),
         })
@@ -5871,7 +6087,7 @@ def main() -> int:
                            launches_from="train_vocoder fp32, one B=32 step, phase 10")
         if key in serve_launches:
             out[-1]["launches_serve_trained"] = serve_launches[key]
-        if key == "plm_decode":
+        if key == "plm_decode_bf16":
             out[-1]["launches_serve_trained_bf16"] = serve16_launches[key]
             out[-1]["launches_cli_serving"] = cli_launches[key]
         if key == "amp_triple":

@@ -1,6 +1,5 @@
-// Anti-aliased SnakeBeta, y = down2(s(up2(x))), on (B, T, C) float32 or
-// bf16 (x and y of one type; every tap and the snake in float32, alpha and
-// 1/beta float32, as the TPU kernel's bf16 configuration computes).
+// Anti-aliased SnakeBeta, y = down2(s(up2(x))), on (B, T, C) float32
+// (the bf16 configuration is aa_snake_bf16.cu).
 //
 // Replaces megatts2_hierspeechpp_tpu/ops/pallas_snake.py (_kernel,
 // _kernel_tr). Bound by bytes on the H100 (read x, write y), but on the
@@ -29,12 +28,12 @@ constexpr int kThreads = 128;  // 4 warps: 4 time segments of 32 channels
 // Block: 32 channels (one per lane) x 4 consecutive segments of R outputs
 // (one per warp), so the 10 halo rows two segments share come from L1.
 // Blocks run channel chunk fastest, then segment group, then batch row.
-template <int R, typename Act>
+template <int R>
 __global__ void __launch_bounds__(kThreads)
-aa_snakebeta_kernel(const Act* __restrict__ x,
+aa_snakebeta_kernel(const float* __restrict__ x,
                     const float* __restrict__ alpha,
                     const float* __restrict__ inv_beta,
-                    Act* __restrict__ y, int B, int T, int C) {
+                    float* __restrict__ y, int B, int T, int C) {
   const int chunks = (C + 31) / 32, segs = (T + R - 1) / R;
   const int groups = (segs + 3) / 4;
   const int c = (blockIdx.x % chunks) * 32 + (threadIdx.x & 31);
@@ -43,8 +42,8 @@ aa_snakebeta_kernel(const Act* __restrict__ x,
   const int b = rest / groups;
   if (c >= C || seg >= segs || b >= B) return;
   const int t0 = seg * R;
-  const Act* xb = x + (size_t)b * T * C + c;
-  Act* yb = y + (size_t)b * T * C + c;
+  const float* xb = x + (size_t)b * T * C + c;
+  float* yb = y + (size_t)b * T * C + c;
   const float al = __ldg(alpha + c), ib = __ldg(inv_beta + c);
 
   float xw[R + 10];
@@ -64,39 +63,30 @@ aa_snakebeta_kernel(const Act* __restrict__ x,
   }
 }
 
-template <int R, typename Act>
+template <int R>
 int launch(const void* x, const float* alpha, const float* inv_beta, void* y,
            int B, int T, int C, int blocks, cudaStream_t stream) {
-  aa_snakebeta_kernel<R, Act><<<blocks, kThreads, 0, stream>>>(
-      static_cast<const Act*>(x), alpha, inv_beta, static_cast<Act*>(y), B, T,
-      C);
+  aa_snakebeta_kernel<R><<<blocks, kThreads, 0, stream>>>(
+      static_cast<const float*>(x), alpha, inv_beta, static_cast<float*>(y), B,
+      T, C);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // rows (R) in {4, 8}; blocks must be the grid of that plan,
-// B * ceil(ceil(T / R) / 4) * ceil(C / 32); act_bytes 4 (float32 x and y)
-// or 2 (bf16).
+// B * ceil(ceil(T / R) / 4) * ceil(C / 32).
 extern "C" int aa_snakebeta_fwd(const void* x, const float* alpha,
                                 const float* inv_beta, void* y, int B, int T,
-                                int C, int rows, int blocks, int act_bytes,
-                                void* stream) {
+                                int C, int rows, int blocks, void* stream) {
   if (B < 1 || T < 1 || C < 1 || rows < 1) return (int)cudaErrorInvalidValue;
   const long long want = (long long)B * (((T + rows - 1) / rows + 3) / 4) *
                          ((C + 31) / 32);
   if (blocks != want) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  if (act_bytes == 4) {
-    switch (rows) {
-      case 4: return launch<4, float>(x, alpha, inv_beta, y, B, T, C, blocks, s);
-      case 8: return launch<8, float>(x, alpha, inv_beta, y, B, T, C, blocks, s);
-    }
-  } else if (act_bytes == 2) {
-    switch (rows) {
-      case 4: return launch<4, bf16>(x, alpha, inv_beta, y, B, T, C, blocks, s);
-      case 8: return launch<8, bf16>(x, alpha, inv_beta, y, B, T, C, blocks, s);
-    }
+  switch (rows) {
+    case 4: return launch<4>(x, alpha, inv_beta, y, B, T, C, blocks, s);
+    case 8: return launch<8>(x, alpha, inv_beta, y, B, T, C, blocks, s);
   }
   return (int)cudaErrorInvalidValue;
 }

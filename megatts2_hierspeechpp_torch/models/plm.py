@@ -16,13 +16,13 @@ valid positions, its per-frame log value, top-10 accuracy);
 the same input, no causal mask), kept for its checkpoints.
 
 `decode` dispatches as the JAX `decode` does: a greedy latent (taken to
-float32, as the JAX kernel takes a bf16 one) goes to the kernel wrapper
-(`ops/plm_decode.py`), which launches the hand-written kernel on a CUDA
-tensor and takes its plain version on a CPU one; a batch
-of B rows is B such calls, one per row (greedy causal decode is independent
-per row, as the JAX B > 1 scan computes it); top-k sampling takes the plain
-KV-cached loop over the whole batch. Weights and KV cache are float32 unless
-the caller asks for bf16 (ops/plm_decode.py says why that is the default).
+float32, as the JAX kernel takes a bf16 one) on the card goes to the
+kernel wrapper (`ops/plm_decode.py`) at the kernel's defaults, bf16
+weights and bf16 KV cache, the JAX package's serving configuration; a
+batch of B rows is B such calls, one per row (greedy causal decode is
+independent per row). On the CPU the greedy rows, and top-k sampling
+anywhere, take the plain KV-cached loop in float32, the JAX float32
+scan's counterpart. A caller's weight / cache dtypes hold on every route.
 
 `dtype` (None: float32) is the JAX modules' compute dtype of the training
 forwards: the projections, the attention products and the softmax take it
@@ -311,19 +311,31 @@ def teacher_forced_gap(model: ProsodyLM, tc_latent: torch.Tensor,
 def decode(model: ProsodyLM, tc_latent: torch.Tensor, top_k: int = 0,
            temperature: float = 1.0,
            generator: Optional[torch.Generator] = None,
-           weight_dtype: torch.dtype = torch.float32,
-           cache_dtype: torch.dtype = torch.float32) -> torch.Tensor:
-    """tc_latent (B, T, 256) -> codes (B, T) int32: greedy when top_k == 0
-    (one kernel call per row), else top-k sampling from `generator` (a
-    torch.Generator on tc_latent's device). A latent of a lower float
-    dtype (a bf16 TTV's) is taken to float32 first, as the JAX kernel
-    takes it (ops/pallas_plm_decode.py:310)."""
+           weight_dtype: Optional[torch.dtype] = None,
+           cache_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """tc_latent (B, T, 256) -> codes (B, T) int32: greedy when top_k == 0,
+    else top-k sampling from `generator` (a torch.Generator on tc_latent's
+    device). A latent of a lower float dtype (a bf16 TTV's) is taken to
+    float32 first, as the JAX kernel takes it
+    (ops/pallas_plm_decode.py:310).
+
+    Routed as the JAX `decode` routes it: a greedy decode on the card runs
+    the decode kernel once per row at the kernel's defaults, bf16 weights
+    and bf16 cache (plm_decode_bf16.cu), as JAX sends a B = 1 greedy decode
+    to its kernel; on the CPU (row by row) and for sampling the plain loop
+    runs in float32, the counterpart of the JAX float32 scan. An explicit
+    `weight_dtype` / `cache_dtype` holds on either route. (JAX decodes a
+    B > 1 batch in its scan; here each row is decoded as JAX decodes a
+    B = 1 request.)"""
     w = model.packed()
     tc_latent = tc_latent.float()
-    if top_k == 0:
-        return torch.cat([
-            plm_decode_greedy(w, tc_latent[i:i + 1], model.go_id,
-                              weight_dtype, cache_dtype)
-            for i in range(tc_latent.shape[0])])
-    return plain_decode(w, tc_latent, model.go_id, top_k, temperature,
-                        generator, weight_dtype, cache_dtype)
+    f32 = torch.float32
+    if top_k:
+        return plain_decode(w, tc_latent, model.go_id, top_k, temperature,
+                            generator, weight_dtype or f32, cache_dtype or f32)
+    if tc_latent.device.type == "cpu":
+        weight_dtype, cache_dtype = weight_dtype or f32, cache_dtype or f32
+    dts = {k: v for k, v in (("weight_dtype", weight_dtype),
+                             ("cache_dtype", cache_dtype)) if v is not None}
+    return torch.cat([plm_decode_greedy(w, tc_latent[i:i + 1], model.go_id, **dts)
+                      for i in range(tc_latent.shape[0])])

@@ -11,10 +11,11 @@ Each C entry point launches on the stream it is given and returns
 
 `LAUNCHES` counts, per kernel wrapper and configuration, the calls that
 ran CUDA kernels (one per wrapper call, however many launches it takes):
-the vocoder kernels' bf16 configuration counts under its own `_bf16` key,
-as the decode's bf16 weights and cache do (`plm_decode_bf16.cu`; the mixed
-pairs run `plm_decode.cu` and count as `plm_decode`). CPU calls, which take
-the plain versions, do not count.
+the vocoder kernels' bf16 configuration counts under its own `_bf16` key
+(the AA-snake's runs `aa_snake_bf16.cu`), as the decode's bf16 weights and
+cache do (`plm_decode_bf16.cu`; the mixed pairs run `plm_decode.cu` and
+count as `plm_decode`). CPU calls, which take the plain versions, do not
+count.
 """
 from __future__ import annotations
 
@@ -43,8 +44,10 @@ ACT_DTYPES = (torch.float32, torch.bfloat16)
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
-    # x, alpha, inv_beta, y, B, T, C, rows, blocks, act_bytes, stream
-    "aa_snakebeta_fwd": [_P] * 4 + [_I] * 6 + [_P],
+    # x, alpha, inv_beta, y, B, T, C, rows, blocks, stream
+    "aa_snakebeta_fwd": [_P] * 4 + [_I] * 5 + [_P],
+    # x, alpha, inv_beta, y, B, T, C, seg, pack, blocks, stream
+    "aa_snakebeta_bf16_fwd": [_P] * 4 + [_I] * 6 + [_P],
     # x, alpha, inv_beta, w, bias, res, y, B, T, Cin, Cout, K, dil, stream
     "snake_conv_fwd": [_P] * 7 + [_I] * 6 + [_P],
     # B, T, Cout, K, dil, &tm, &tn

@@ -26,12 +26,11 @@ matrices (wqkv, wo, ff0, ff1, pred) with every product's vector rounded to
 bf16 first (the LayerNorm outputs, att, h, and x before the logits), and a
 bf16 KV cache for the earlier tokens (this token's k and v stay float32);
 biases, LayerNorm, embeddings, positions and all sums in float32. The
-plain version rounds at the same points. Their default here is float32,
-which keeps the greedy codes exact against the plain decode; the JAX
-package serves with bf16 by default. bf16 is faster on this card too
-(plm_decode_bf16.cu), but it changes the codes at near-ties, which the
-card-against-CPU `tts` gates would have to settle first. That is the one
-deliberate difference from the JAX default.
+plain version rounds at the same points. `plm_decode_greedy` takes the
+TPU kernel's defaults, bf16 weights and bf16 cache, its serving
+configuration; `plain_decode` and `plain_gap` keep float32, the
+counterpart of the JAX package's float32 scan (the CPU, sampling and the
+tensor-parallel decode run it).
 bf16 weights with a bf16 cache (the JAX default) launch a kernel of their
 own, `csrc/plm_decode_bf16.cu`: one thread-block cluster per layer, the
 layer's matrices resident in the cluster's shared memory, the handoffs
@@ -470,9 +469,8 @@ def _kernel_inputs(w: PLMWeights, tc_latent: torch.Tensor, rd: int, rf: int,
 
 
 def _launch(w: PLMWeights, tc_latent: torch.Tensor, go_id: int,
-            stamps: Optional[torch.Tensor] = None,
-            weight_dtype: torch.dtype = torch.float32,
-            cache_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+            stamps: Optional[torch.Tensor], weight_dtype: torch.dtype,
+            cache_dtype: torch.dtype) -> torch.Tensor:
     dev = tc_latent.device
     _, t, tc_dim = tc_latent.shape
     n_layers, d = w.wo.shape[0], w.wo.shape[1]
@@ -536,15 +534,17 @@ def _launch_bf16(w: PLMWeights, tc_latent: torch.Tensor, go_id: int,
 
 def plm_decode_greedy(w: PLMWeights, tc_latent: torch.Tensor,
                       go_id: int = 1024,
-                      weight_dtype: torch.dtype = torch.float32,
-                      cache_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+                      weight_dtype: torch.dtype = torch.bfloat16,
+                      cache_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
     """Greedy decode, tc_latent (1, T, TC) float32 -> codes (1, T) int32.
 
     CUDA tensors run a kernel (B=1, any T >= 1): bf16 weights and cache
     csrc/plm_decode_bf16.cu, every other configuration csrc/plm_decode.cu;
-    CPU tensors run the plain version. Weights and cache in float32 (the
-    default) or bf16; a launch counts under its source: `plm_decode_bf16`
-    for bf16 weights and cache, `plm_decode` for every other pair."""
+    CPU tensors run the plain version in the same dtypes. Weights and cache
+    in bf16 (the default, the TPU kernel's serving configuration,
+    `pallas_plm_decode.plm_decode_greedy`) or float32; a launch counts
+    under its source: `plm_decode_bf16` for bf16 weights and cache,
+    `plm_decode` for every other pair."""
     if tc_latent.dim() != 3 or tc_latent.shape[0] != 1:
         raise ValueError(
             f"plm_decode takes tc_latent (1, T, C), got {tuple(tc_latent.shape)}")
@@ -559,11 +559,11 @@ def plm_decode_greedy(w: PLMWeights, tc_latent: torch.Tensor,
 
 def phase_stamps(w: PLMWeights, tc_latent: torch.Tensor,
                  go_id: int = 1024,
-                 weight_dtype: torch.dtype = torch.float32,
-                 cache_dtype: torch.dtype = torch.float32
+                 weight_dtype: torch.dtype = torch.bfloat16,
+                 cache_dtype: torch.dtype = torch.bfloat16
                  ) -> tuple[torch.Tensor, torch.Tensor]:
     """One kernel launch that also records clocks: (codes (1, T), stamps
-    int64). Counts as a launch.
+    int64). Counts as a launch. The dtypes default as plm_decode_greedy's.
 
     float32 and the mixed configurations (plm_decode.cu): stamps (T, 5L + 1,
     3), block 0's clocks twice per phase. Phase k of layer i is row 5i + k

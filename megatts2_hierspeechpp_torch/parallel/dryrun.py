@@ -283,8 +283,11 @@ def dryrun_steps(rank: int, world: int, device: str = "cuda",
 def tp_decode_check(rank: int, world: int, device: str = "cuda",
                     t: int = 24) -> dict:
     """The tensor-parallel ProsodyLM decode (greedy and top-k 5) and the
-    sharded teacher-forced loss against the one-card ones, on every rank.
-    Returns the codes and the losses."""
+    sharded teacher-forced loss against the one-card ones, on every rank:
+    the sharded decode is the plain float32 loop, so its one-card greedy
+    reference names float32 weights and cache (on the card the float32
+    kernel, not the bf16 serving default). Returns the codes and the
+    losses."""
     from megatts2_hierspeechpp_torch.models.plm import ProsodyLM, decode
     from megatts2_hierspeechpp_torch.ops.plm_decode import plain_decode
     from megatts2_hierspeechpp_torch.parallel.tp import row_sum, shard_module
@@ -303,7 +306,8 @@ def tp_decode_check(rank: int, world: int, device: str = "cuda",
     with torch.no_grad():
         loss = float(shard.loss_dict(tc, codes, lens)["loss"])
         want_loss = float(plm.loss_dict(tc, codes, lens)["loss"])
-    want = torch.cat([decode(plm, tc[i:i + 1]) for i in range(2)])
+    f32 = dict(weight_dtype=torch.float32, cache_dtype=torch.float32)
+    want = torch.cat([decode(plm, tc[i:i + 1], **f32) for i in range(2)])
     want_topk = decode(plm, tc, top_k=5,
                        generator=torch.Generator(device).manual_seed(3))
     return {"greedy_equal": bool(torch.equal(greedy, want)),

@@ -303,20 +303,23 @@ def test_epilogue_and_snake_are_deterministic(dev):
 @pytest.mark.parametrize("t", [1, 37, 300, 500, 1100])
 def test_plm_decode_kernel_matches_plain(dev, t):
     """The persistent decode kernel at full width (d = 276, 4 layers, 1024
-    bins): one launch, codes that pass the teacher-forced check, mostly the
-    plain greedy decode's codes. At T = 1100 the keys outgrow 32 splits of
-    32, so a split holds more than one 32-key chunk."""
+    bins) in float32 (named: the wrapper's default is the bf16 serving
+    configuration): one launch, codes that pass the teacher-forced check,
+    mostly the plain greedy decode's codes. At T = 1100 the keys outgrow 32
+    splits of 32, so a split holds more than one 32-key chunk."""
     model = plm.ProsodyLM(seed=3, device="cuda")
     rng = np.random.default_rng(t)
     tc = _rand(rng, dev, 1, t, 256)
     w = model.packed()
+    f32 = torch.float32
     cuda_lib.reset_launches()
     with torch.inference_mode():
-        got = plm_decode_greedy(w, tc, model.go_id)
+        got = plm_decode_greedy(w, tc, model.go_id, f32, f32)
         torch.cuda.synchronize()
         assert cuda_lib.LAUNCHES["plm_decode"] == 1
         want = plain_decode(w, tc, model.go_id)
-        assert torch.equal(plm.decode(model, tc), got)
+        assert torch.equal(plm.decode(model, tc, weight_dtype=f32,
+                                      cache_dtype=f32), got)
     assert cuda_lib.LAUNCHES["plm_decode"] == 2
     assert got.shape == (1, t) and got.dtype == torch.int32
     gap, scale = plm.teacher_forced_gap(model, tc, got)
@@ -332,10 +335,12 @@ def test_plm_decode_kernel_is_deterministic(dev):
     model = plm.ProsodyLM(seed=4, device="cuda")
     tc = _rand(np.random.default_rng(500), dev, 1, 500, 256)
     w = model.packed()
+    f32 = torch.float32
     with torch.inference_mode():
-        first = plm_decode_greedy(w, tc, model.go_id)
+        first = plm_decode_greedy(w, tc, model.go_id, f32, f32)
         for _ in range(9):
-            assert torch.equal(plm_decode_greedy(w, tc, model.go_id), first)
+            assert torch.equal(plm_decode_greedy(w, tc, model.go_id, f32, f32),
+                               first)
 
 
 @pytest.mark.cuda
@@ -388,6 +393,55 @@ def test_plm_decode_per_row_batch(dev, dtype):
     assert got.shape == (4, 120)
     assert gap <= (1e-4 if dtype == torch.float32 else BF16_MARGIN) * scale, (
         gap, scale)
+
+
+@pytest.mark.cuda
+def test_plm_decode_serves_the_bf16_kernel_by_default(dev):
+    """models/plm.decode of a greedy batch on the card runs plm_decode_bf16
+    once per row at the wrapper's defaults (bf16 weights and cache), the
+    float32 kernel never; each row equals the wrapper's own call."""
+    model = plm.ProsodyLM(seed=8, device="cuda")
+    tc = _rand(np.random.default_rng(13), dev, 3, 60, 256)
+    cuda_lib.reset_launches()
+    with torch.inference_mode():
+        got = plm.decode(model, tc)
+        torch.cuda.synchronize()
+        assert cuda_lib.LAUNCHES["plm_decode_bf16"] == 3
+        assert cuda_lib.LAUNCHES["plm_decode"] == 0
+        for i in range(3):
+            assert torch.equal(plm_decode_greedy(model.packed(), tc[i:i + 1],
+                                                 model.go_id), got[i:i + 1])
+        gap, scale = plain_gap(model.packed(), tc, got, model.go_id,
+                               torch.bfloat16, torch.bfloat16)
+    assert gap <= BF16_MARGIN * scale, (gap, scale)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c", [7, 64, 192, 256])
+@pytest.mark.parametrize("t", [1, 2, 7, 17, 22, 23, 101, 768])
+def test_snakebeta_bf16_every_plan(dev, t, c):
+    """aa_snake_bf16.cu with every segment it is planned for, and on a
+    view whose start is 2 bytes off a 4-byte boundary (the
+    one-channel packing), against the bf16 twin before its final rounding
+    (2^-8 x max|ref|); each call counts one aa_snakebeta_bf16 launch, and
+    two launches are identical."""
+    rng = np.random.default_rng(31 * t + c)
+    x = _rand(rng, dev, 2, t, c).bfloat16()
+    a, be = (torch.exp(_rand(rng, dev, c, scale=0.3)) for _ in range(2))
+    want = snake.composed_snakebeta(x.float(), a, be)
+    xv = torch.empty(2 * t * c + 1, device=dev,
+                     dtype=torch.bfloat16)[1:].view(2, t, c).copy_(x)
+    calls = [lambda s=s: snake._launch(x, a, be, seg=s)
+             for s in snake.BF16_SEGS]
+    calls.append(lambda: snake.fused_aa_snakebeta(xv, a, be))
+    cuda_lib.reset_launches()
+    with torch.inference_mode():
+        for fn in calls:
+            _close_bf16(fn(), want)
+        assert torch.equal(calls[0](), calls[0]())
+    torch.cuda.synchronize()
+    assert cuda_lib.LAUNCHES["aa_snakebeta_bf16"] == len(calls) + 2
+    assert cuda_lib.LAUNCHES["aa_snakebeta"] == 0
 
 
 @pytest.mark.cuda

@@ -110,7 +110,8 @@ def test_decode_kernel_wrapper_on_cpu_is_the_plain_version(plms):
     tc = torch.from_numpy(_tc(9, 6))
     cuda_lib.reset_launches()
     w = tm.packed()
-    assert torch.equal(tdec.plm_decode_greedy(w, tc, tm.go_id),
+    f32 = torch.float32
+    assert torch.equal(tdec.plm_decode_greedy(w, tc, tm.go_id, f32, f32),
                        tdec.plain_decode(w, tc, tm.go_id))
     assert cuda_lib.LAUNCHES["plm_decode"] == 0
     with pytest.raises(ValueError, match=r"\(1, T, C\)"):
