@@ -36,7 +36,10 @@ Phases, in order; any failure exits non-zero:
      kernel's tile plan on the card against the mirror in ops/ampblock.py
      at every launch shape; `snake_conv_bf16_split` lines: the bf16
      kernel's phase split from its stamps at bench.py's SR and Generator
-     shapes);
+     shapes; the bf16 tail, triple_post_bf16.cu, alone at the two tail
+     stages' shapes, `tail_bf16_line`: its error against composed_epilogue
+     within 2^-8 x max|plain|, its plan, device ms, the bf16 bound and a
+     copy of the same bytes);
   4. the decode half (`synthesize`) at the published HierSpeech++ widths
      with seeded random weights: one 3 s prompt, three requests of
      100/250/500 frames (2/5/10 s) through vocoder + SpeechSR-48k, checking
@@ -70,7 +73,9 @@ Phases, in order; any failure exits non-zero:
      for 4 speakers through TTSServer (ms per request, tts_batch calls);
      then every kernel against its plain version at each distinct launch
      shape these paths gave it (`new_shape` lines; the AA-snake and the
-     epilogue with their device ms; bf16 snake_conv launches with
+     epilogue with their device ms, a bf16 tail as `tail_bf16_line` with,
+     at bench.py's, the eval's and the training step's shapes, every
+     segment of its plan; bf16 snake_conv launches with
      "events_ms", those that write float32 also held by their mean error,
      each with its tile plan on the card against the mirror and cuDNN's
      bf16 conv1d of the same conv alone;
@@ -369,11 +374,19 @@ SOURCES = {  # launch-count key: (kernel, source, TPU kernel it replaces)
     "ampblock_bf16": ("ampblock_bf16",
                       "megatts2_hierspeechpp_torch/csrc/snake_conv_bf16.cu",
                       "megatts2_hierspeechpp_tpu/ops/pallas_ampblock.py:151"),
-    "amp_triple_bf16": ("triple_epilogue_bf16",
-                        "megatts2_hierspeechpp_torch/csrc/triple_epilogue.cu",
+    # the stage's tail on the bf16 configuration's own kernel (its average
+    # alone is triple_epilogue.cu's, its convs snake_conv_bf16.cu)
+    "amp_triple_bf16": ("triple_post_bf16",
+                        "megatts2_hierspeechpp_torch/csrc/triple_post_bf16.cu",
                         "megatts2_hierspeechpp_tpu/ops/pallas_amp_triple.py:60"),
 }
 BF16_KERNELS = ("aa_snakebeta_bf16", "ampblock_bf16", "amp_triple_bf16")
+# (B, T, C) of the bf16 tail's launches that also get every segment of its
+# plan (tail_bf16_line): bench.py's SpeechSR-48k and Generator tails (B = 4
+# x 1000 frames), the vocoder CLI's eval and its training step (B = 32)
+TAIL_BF16_SWEEP = ((4, 960000, 32), (4, 320000, 16), (32, 61440, 16),
+                   (32, 10240, 16))
+TAIL_BF16_SWEEP_SEGS = (24, 48, 96, 192, 384, 768, 1536)  # and the plan's own
 # (B, T, C) of the bf16 AA-snake's launches (kernel_bf16 lines): a 500-frame
 # request's rows (4 x 500 samples), bench.py's vocoder at B = 4 x 1000
 # frames, the vocoder CLI's eval (B = 32, 768 samples) and its training
@@ -764,6 +777,64 @@ def kernel_phase(torch, dev):
     return results
 
 
+def tail_bf16_line(torch, rs, post, phase: str, path: str) -> dict:
+    """The bf16 tail (csrc/triple_post_bf16.cu) alone on block outputs rs
+    (B, T, C) and post: its largest error against composed_epilogue, held
+    to BF16_MARGIN x max|plain| (the single rounding of bf16_check), its
+    plan, device ms per launch (profiler; null where it recorded too few),
+    the plain version's ms, the bf16 bound and a copy of the same bytes;
+    at TAIL_BF16_SWEEP shapes also the segments of TAIL_BF16_SWEEP_SEGS
+    shorter than T beside the plan's, each held to the same gate. Prints
+    and returns the line; fails the run past the gate."""
+    from megatts2_hierspeechpp_torch.ops.amp_triple import (
+        _epilogue, composed_epilogue, fused_epilogue, tail_bf16_plan)
+
+    b, t, c = rs[0].shape
+    bf = torch.bfloat16
+    key = ("triple_post_bf16_kernel",)
+
+    def run(seg=None):
+        return _epilogue(*rs, post, out_dtype=bf, seg=seg)
+
+    with torch.inference_mode():
+        ref = composed_epilogue(*rs, post)
+        scale = ref.abs().max().item()
+
+        def err(y):
+            return (y.float() - ref).abs().max().item()
+
+        line = {"phase": phase, "kernel": "triple_post", "name": "triple_post_bf16",
+                "path": path, "shape": f"B={b} T={t} C={c}", "dtype": "bf16",
+                "plan": tail_bf16_plan(b, t, c, sms=torch.cuda.get_device_properties(
+                    rs[0].device).multi_processor_count),
+                "max_abs_err": err(fused_epilogue(*rs, post, bf)),
+                "max_abs_ref": scale,
+                "tolerance": f"{BF16_MARGIN:g} x max|ref| (the plain version)",
+                "device_ms": device_ms(torch, run, key, 10, required=False),
+                "plain_ms": event_ms(torch, lambda: composed_epilogue(*rs, post))[1]}
+        errs = [line["max_abs_err"]]
+        if (b, t, c) in TAIL_BF16_SWEEP:
+            line["sweep"] = {}
+            for seg in sorted({s for s in TAIL_BF16_SWEEP_SEGS if s < t}
+                              | {line["plan"]["seg"]}):
+                errs.append(err(run(seg)))
+                line["sweep"][f"seg={seg}"] = {
+                    "device_ms": device_ms(torch, lambda seg=seg: run(seg), key,
+                                           10, required=False),
+                    "max_abs_err": errs[-1]}
+        del ref
+    n = b * t * c
+    n_bytes = 12.0 * n + 2.0 * b * t + 36.0 * c
+    line["bound_ms"], line["bound_by"] = bound_ms_bf16(
+        n_bytes, (3 + SNAKE_FLOPS + 14) * n + b * t)
+    line["copy_floor_ms"] = copy_floor_ms(torch, rs[0].device, n_bytes)
+    print(json.dumps(line), flush=True)
+    if not all(math.isfinite(e) and e <= BF16_MARGIN * scale for e in errs):
+        fail(f"triple_post_bf16 {path} {line['shape']}: max abs err {errs} > "
+             f"{BF16_MARGIN} x {scale}")
+    return line
+
+
 def kernel_bf16_phase(torch, dev):
     """The three vocoder kernels' bf16 configuration at the serving path's
     shapes (B = 1, T_FRAMES frames, the shapes of kernel_phase; the
@@ -855,7 +926,7 @@ def kernel_bf16_phase(torch, dev):
                       19, 4.0 * (t * c + out_n) + w_bytes,
                       2.0 * (t * c + out_n) + w_bytes, flops, conv_flops,
                       ("snake_conv_bf16_kernel", "triple_avg_kernel",
-                       "triple_post_kernel"),
+                       "triple_post_bf16_kernel"),
                       lambda x=x, bws=bws, ks=ks, dils=dils, post=post, p=packs:
                           fused_amp_triple(x, bws, ks, dils, post, packed=p),
                       (c, t, [(k, d) for k in ks for d in dil + (1, 1, 1)])))
@@ -902,6 +973,12 @@ def kernel_bf16_phase(torch, dev):
         if not check["ok"]:
             fail(f"{name} {label}: {check}")
         results.setdefault(name, []).append(line)
+    # the bf16 tail alone at the two tail stages' shapes
+    results["amp_triple_bf16_tail"] = [
+        tail_bf16_line(torch, [randn(1, t, c, scale=3.0) for _ in range(3)],
+                       (pos(c), pos(c), randn(7, c, scale=0.1 * (7 * c) ** -0.5)),
+                       "kernel_bf16", f"serving, B=1 {T} frames")
+        for c, t in ((16, 320 * T), (32, 960 * T))]
     for shape in BF16_SPLIT_SHAPES:
         print(json.dumps({"phase": "snake_conv_bf16_split",
                           **bf16_split(torch, dev, *shape)}), flush=True)
@@ -1775,7 +1852,9 @@ class LaunchShapes:
                 fail(f"triple_avg of {a[4]} elements after snake_conv {self._conv}")
             key = ("triple_avg", *self._conv, a[5])
         elif name == "triple_post_fwd":
-            key = ("triple_post", a[7], a[8], a[9], a[13])
+            key = ("triple_post", a[7], a[8], a[9], 4)
+        elif name == "triple_post_bf16_fwd":
+            key = ("triple_post", a[7], a[8], a[9], 2)
         elif name == "plm_decode_fwd":
             key = ("plm_decode", a[17], a[28], a[29])
         elif name == "plm_decode_bf16_fwd":
@@ -2180,6 +2259,7 @@ def new_shapes_phase(torch, dev, shapes):
 
     model = None
     convs = {}
+    tails = []
     n_checked = 0
     for key, path in sorted(shapes.seen.items(), key=lambda kv: str(kv[0])):
         kind = key[0]
@@ -2204,6 +2284,14 @@ def new_shapes_phase(torch, dev, shapes):
                     ab * (2.0 * n) + 8.0 * c, SNAKE_FLOPS * n)
                 if ab == 2:
                     line["plan"] = snake_bf16_plan(b, t, c)
+            elif kind == "triple_post" and key[-1] == 2:  # the bf16 tail
+                _, b, t, c, _ = key
+                tails.append(tail_bf16_line(
+                    torch, [randn(b, t, c, scale=3.0) for _ in range(3)],
+                    (pos(c), pos(c), randn(7, c, scale=0.1 * (7 * c) ** -0.5)),
+                    "new_shape", path))
+                n_checked += 1
+                continue
             elif kind in ("triple_avg", "triple_post"):
                 _, b, t, c, yb = key
                 dt = bf if yb == 2 else torch.float32
@@ -2339,13 +2427,15 @@ def new_shapes_phase(torch, dev, shapes):
     for g in convs.values():
         print(json.dumps(g), flush=True)
     print(json.dumps({"phase": "new_shapes", "checked": n_checked}), flush=True)
+    return tails
 
 
 GROUPS = (  # (group, substrings of kernel names), first match wins
     ("plm_decode (ours)", ("plm_decode_kernel", "plm_decode_bf16_kernel")),
     ("aa_snakebeta (ours)", ("aa_snakebeta_kernel", "aa_snakebeta_bf16_kernel")),
     ("snake_conv (ours)", ("snake_conv_kernel", "snake_conv_bf16_kernel")),
-    ("triple_epilogue (ours)", ("triple_avg_kernel", "triple_post_kernel")),
+    ("triple_epilogue (ours)", ("triple_avg_kernel", "triple_post_kernel",
+                                "triple_post_bf16_kernel")),
     # cuDNN runs a small-batch LSTM as one cell kernel and one gemv per step
     ("LSTM cells + gemv", ("RNN", "rnn", "LSTM", "lstm", "gemv")),
     ("cuDNN/cuBLAS conv+gemm", ("conv", "cudnn", "xmma", "gemm", "sgemm",
@@ -2861,7 +2951,8 @@ TRAIN_BWD_TOL = 1e-4        # a kernel's gradients against autograd of its
                             # max|ref| of each tensor, cuDNN deterministic
 TRAIN_FWD_TOL = {"aa_snakebeta": 1e-5, "ampblock": 1e-4, "amp_triple": 1e-4}
 OURS = ("aa_snakebeta_kernel", "aa_snakebeta_bf16_kernel", "snake_conv_kernel",
-        "snake_conv_bf16_kernel", "triple_avg_kernel", "triple_post_kernel")
+        "snake_conv_bf16_kernel", "triple_avg_kernel", "triple_post_kernel",
+        "triple_post_bf16_kernel")
 TRAIN_GROUPS = (  # the rest of a step's kernels, first match wins
     ("optimizer (foreach)", ("multi_tensor_apply",)),
     ("cuDNN/cuBLAS conv+gemm", ("conv", "cudnn", "xmma", "gemm", "sgemm",
@@ -6051,7 +6142,7 @@ def main() -> int:
     mas_phase(torch, dev, card)
     clock("mas")
     torch.cuda.empty_cache()
-    new_shapes_phase(torch, dev, shapes)
+    tails = kernels.pop("amp_triple_bf16_tail") + new_shapes_phase(torch, dev, shapes)
     clock("new_shapes")
 
     # ms: CUDA events around the wrapper on every row, as in earlier runs;
@@ -6081,6 +6172,11 @@ def main() -> int:
                 launches_train_step=train_bf16[key],
                 bound_ms_3xtf32=slowest["bound_ms_3xtf32"],
                 err_over_ref=max(ln["err_over_ref"] for ln in lines))
+            if key == "amp_triple_bf16":  # its tail alone, at every launch shape
+                out[-1]["tail"] = [{k: ln[k] for k in (
+                    "path", "shape", "max_abs_err", "max_abs_ref", "device_ms",
+                    "plain_ms", "bound_ms", "bound_by", "copy_floor_ms")}
+                    for ln in tails]
             continue
         if train_launches.get(key, 0) > out[-1]["launches"]:
             out[-1].update(launches=train_launches[key],

@@ -31,14 +31,10 @@
 // filter; the segment length trades the 5 extra pairs against the
 // warps that fill the card (snake_bf16_plan; chip_smoke.py's kernel_bf16
 // lines sweep it).
-// The snake's sine is the hardware's (__sinf): one multiply by 1 / (2 pi)
-// reduces v = alpha u to revolutions, which the hardware sine takes modulo
-// 1. Its absolute error is about 2^-21.4 plus |v| 2^-23 (the rounding of
-// v / (2 pi)), so sin^2 / beta errs by under (|v| 2^-21 + 2^-19) / beta
-// (tests/test_torch_snake_bf16.py), far inside the bf16 gate of 2^-8 x
-// max|ref|, about 2^-8 |u| at least; sinf, which the float32 arm must
-// take, costs some 40 instructions more a call and gave the same largest
-// error at every bf16 launch shape (PERF.md).
+// The snake's sine is the hardware's (taps.cuh snake_bf16), far inside
+// the bf16 gate of 2^-8 x max|ref|, about 2^-8 |u| at least; sinf, which
+// the float32 arm must take, costs some 40 instructions more a call and
+// gave the same largest error at every bf16 launch shape (PERF.md).
 //
 // Sequence edges follow taps.cuh: x indices clamp to [0, T - 1] and u
 // indices to [0, 2T - 1]. Only the 5 pairs before a segment's first output
@@ -60,12 +56,6 @@ namespace {
 constexpr int kThreads = 128;  // 4 warps, each one (channel chunk, segment)
 constexpr int kPeriod = 6;     // steps in the loop body: the rings' length
 constexpr int kMaxSeg = 384;   // outputs a thread, a multiple of kPeriod
-
-__device__ __forceinline__ float snake_bf16(float u, float alpha,
-                                            float inv_beta) {
-  const float s = __sinf(u * alpha);
-  return u + s * s * inv_beta;
-}
 
 // One row of P channels (P = 2: a packed bf16x2 word; P = 1: one bf16).
 template <int P>

@@ -96,6 +96,18 @@ __device__ __forceinline__ float snake(float u, float alpha, float inv_beta) {
   return u + s * s * inv_beta;
 }
 
+// SnakeBeta in the bf16 configuration (aa_snake_bf16.cu,
+// triple_post_bf16.cu) with the hardware sine (__sinf): one multiply by
+// 1 / (2 pi) reduces v = alpha u to revolutions, which the hardware sine
+// takes modulo 1. Its absolute error is about 2^-21.4 plus |v| 2^-23 (the
+// rounding of v / (2 pi)), so sin^2 / beta errs by under
+// (|v| 2^-21 + 2^-19) / beta (tests/test_torch_snake_bf16.py).
+__device__ __forceinline__ float snake_bf16(float u, float alpha,
+                                            float inv_beta) {
+  const float s = __sinf(u * alpha);
+  return u + s * s * inv_beta;
+}
+
 __device__ __forceinline__ void stage_u(float* us, const float* xs, int w0,
                                         int n, int T, float alpha,
                                         float inv_beta, int row0,

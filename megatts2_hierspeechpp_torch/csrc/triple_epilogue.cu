@@ -4,9 +4,10 @@
 //   y = tanh(conv_post(snake(avg)))   conv_post: C -> 1, k = 7, no bias
 //
 // written straight to the (B, T, 1) waveform. The block outputs are
-// float32; the output is float32, or bf16 in the TPU kernels' bf16
-// configuration (the average, the AA-snake, conv_post and tanh still in
-// float32, rounded once on store).
+// float32. The average is written as float32, or as bf16 in the TPU
+// kernels' bf16 configuration (rounded once on store); the tail here is
+// float32's, and the bf16 configuration's tail is triple_post_bf16.cu,
+// planned for its own error budget.
 //
 // Replaces the averaging and tail of megatts2_hierspeechpp_tpu/ops/
 // pallas_amp_triple.py:_kernel (its blocks run through snake_conv.cu).
@@ -221,25 +222,19 @@ extern "C" int triple_avg_fwd(const float* r0, const float* r1,
 
 // tile and smem_bytes: the caller's plan (ops/amp_triple.py:epilogue_plan),
 // one of kTiles with the shared memory that tile needs, within the limit.
-// stamps: null, or 4 int64 per block (B x ceil(T / tile)). y_bytes: 4 for
-// a float32 waveform, 2 for bf16.
+// stamps: null, or 4 int64 per block (B x ceil(T / tile)). y: the float32
+// waveform.
 extern "C" int triple_post_fwd(const float* r0, const float* r1,
                                const float* r2, const float* alpha,
                                const float* inv_beta, const float* w7,
                                void* y, int B, int T, int C, int tile,
-                               int smem_bytes, long long* stamps, int y_bytes,
+                               int smem_bytes, long long* stamps,
                                void* stream) {
   const bool known = std::find(std::begin(kTiles), std::end(kTiles), tile) !=
                      std::end(kTiles);
   if (B < 1 || T < 1 || C < 1 || !known ||
       smem_bytes != post_smem(C, tile + 8) || smem_bytes > kSmemLimit)
     return (int)cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
-  if (y_bytes == 4)
-    return launch_post<float>(r0, r1, r2, alpha, inv_beta, w7, y, B, T, C,
-                              tile, smem_bytes, stamps, s);
-  if (y_bytes == 2)
-    return launch_post<bf16>(r0, r1, r2, alpha, inv_beta, w7, y, B, T, C,
-                             tile, smem_bytes, stamps, s);
-  return (int)cudaErrorInvalidValue;
+  return launch_post<float>(r0, r1, r2, alpha, inv_beta, w7, y, B, T, C, tile,
+                            smem_bytes, stamps, (cudaStream_t)stream);
 }

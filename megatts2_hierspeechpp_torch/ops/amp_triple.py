@@ -17,9 +17,14 @@ to device memory. Edges are exact, as in ops/ampblock.py, so no strip of
 bf16 configuration (a bf16 x, counted as `amp_triple_bf16`): each block runs
 the AMPBlock's bf16 configuration (ops/ampblock.py, its convs on
 `csrc/snake_conv_bf16.cu` from the blocks' packed weights) but writes its
-output in float32, and the epilogue averages in float32, runs the tail in float32 and
-rounds the stage's output to bf16 once, as the TPU kernel keeps the whole
-stage in float32 in VMEM.
+output in float32, and the epilogue averages in float32, runs the tail in
+float32 and rounds the stage's output to bf16 once, as the TPU kernel keeps
+the whole stage in float32 in VMEM. The average alone is
+`csrc/triple_epilogue.cu`'s with a bf16 store; the tail is a kernel of its
+own, `csrc/triple_post_bf16.cu`, planned for the bf16 budget (a group of
+lanes streams a segment of outputs across the channels, each s(u) computed
+once with the hardware sine, conv_post summed across the lanes by shuffles;
+`tail_bf16_plan`).
 """
 from __future__ import annotations
 
@@ -98,8 +103,58 @@ def epilogue_plan(b: int, t: int, c: int, tile: int | None = None) -> dict:
             "tasks": rows // EPILOGUE_ROWS_PER_TASK * c}
 
 
+# csrc/triple_post_bf16.cu: threads per block (4 warps), steps in its loop
+# body (a segment is a whole number of them), steps before a segment's
+# first output (5 pairs, then conv_post's 6 halo rows), the longest segment
+TAIL_BF16_THREADS = 128
+TAIL_BF16_PERIOD = 6
+TAIL_BF16_LEAD = 11
+TAIL_BF16_MAX_SEG = 2040
+# blocks resident on an SM at the kernel's register budget (its launch
+# bounds), by channels a lane; the H100's SMs
+TAIL_BF16_BLOCKS_PER_SM = {1: 5, 2: 3}
+H100_SMS = 132
+
+
+def tail_bf16_plan(b: int, t: int, c: int, seg: int | None = None,
+                   sms: int = H100_SMS) -> dict:
+    """The bf16 tail kernel's launch plan, as csrc/triple_post_bf16.cu
+    recomputes it: a group of `lanes` lanes (32 at C > 16, else the power
+    of two >= C; 32 / lanes groups a warp) owns one batch row's `seg`
+    consecutive outputs, lane l holding channels l + p x lanes, p < `pack`
+    (1 at C <= 32, else 2); `chunks` walks of the segment cover C, their
+    sums kept in `smem` bytes (4 warps x seg floats) where there is more
+    than one. Groups run segment fastest, then batch row, 4 warps to a
+    block. By default the shortest segment with which every group is
+    resident at once on `sms` SMs (TAIL_BF16_BLOCKS_PER_SM blocks each):
+    one wave, one segment a group, so no group waits for a second wave
+    and the segments of a row are within 6 rows of each other; at most
+    TAIL_BF16_MAX_SEG (more waves past that). ValueError for a segment
+    the kernel does not take (a multiple of 6 up to TAIL_BF16_MAX_SEG)."""
+    if min(b, t, c) < 1:
+        raise ValueError(f"no triple_post_bf16 plan for B={b} T={t} C={c}")
+    pack = 2 if c > 32 else 1
+    lanes = min(32, 1 << (c - 1).bit_length())
+    groups = 32 // lanes
+    chunks = -(-c // (lanes * pack))
+    per_block = TAIL_BF16_THREADS // 32
+    resident = sms * TAIL_BF16_BLOCKS_PER_SM[pack] * per_block * groups
+    if seg is None:
+        per_row = max(1, resident // b)   # segments a batch row may take
+        seg = min(TAIL_BF16_MAX_SEG,
+                  TAIL_BF16_PERIOD * -(-t // (TAIL_BF16_PERIOD * per_row)))
+    if seg % TAIL_BF16_PERIOD or not TAIL_BF16_PERIOD <= seg <= TAIL_BF16_MAX_SEG:
+        raise ValueError(f"no triple_post_bf16 plan for seg={seg}")
+    segs = -(-t // seg)
+    warps = -(-b * segs // groups)
+    return {"seg": seg, "pack": pack, "lanes": lanes, "chunks": chunks,
+            "segs": segs, "warps": warps, "blocks": -(-warps // per_block),
+            "waves": b * segs / resident,
+            "smem": 4 * per_block * seg if chunks > 1 else 0}
+
+
 def _epilogue(r0, r1, r2, post, tile=None, stamps=None,
-              out_dtype=torch.float32):
+              out_dtype=torch.float32, seg=None):
     b, t, c = r0.shape
     dev = r0.device
     for name, r in (("r0", r0), ("r1", r1), ("r2", r2)):
@@ -116,18 +171,31 @@ def _epilogue(r0, r1, r2, post, tile=None, stamps=None,
     cuda_lib.check(pa, "post alpha", dev, (c,))
     cuda_lib.check(pib, "post inv_beta", dev, (c,))
     cuda_lib.check(pw, "post weight", dev, (7, c))
-    plan = epilogue_plan(b, t, c, tile)
     y = torch.empty((b, t, 1), device=dev, dtype=out_dtype)
-    cuda_lib.call("triple_post_fwd", *map(cuda_lib.ptr, (r0, r1, r2, pa, pib, pw, y)),
-                  b, t, c, plan["tile"], plan["smem"], cuda_lib.ptr(stamps),
-                  cuda_lib.act_bytes(y), cuda_lib.stream(dev))
+    ptrs = map(cuda_lib.ptr, (r0, r1, r2, pa, pib, pw, y))
+    if out_dtype == torch.bfloat16:
+        if tile is not None or stamps is not None:
+            raise ValueError("tile and stamps are the float32 tail's; a bf16 "
+                             "tail takes seg")
+        plan = tail_bf16_plan(
+            b, t, c, seg, torch.cuda.get_device_properties(dev).multi_processor_count)
+        cuda_lib.call("triple_post_bf16_fwd", *ptrs, b, t, c, plan["seg"],
+                      plan["pack"], plan["blocks"], plan["smem"],
+                      cuda_lib.stream(dev))
+        return y
+    if seg is not None:
+        raise ValueError("seg is the bf16 tail's plan; a float32 tail takes tile")
+    plan = epilogue_plan(b, t, c, tile)
+    cuda_lib.call("triple_post_fwd", *ptrs, b, t, c, plan["tile"], plan["smem"],
+                  cuda_lib.ptr(stamps), cuda_lib.stream(dev))
     return y
 
 
 def tail_stamps(r0, r1, r2, post):
-    """One launch of the tail kernel with its phase stamps (a diagnostic):
-    (y, stamps) with stamps (B x tiles, 4) int64 SM cycles, per block at
-    its start and after its load + average, AA-snake and conv phases."""
+    """One launch of the float32 tail kernel (csrc/triple_epilogue.cu) with
+    its phase stamps (a diagnostic): (y, stamps) with stamps (B x tiles, 4)
+    int64 SM cycles, per block at its start and after its load + average,
+    AA-snake and conv phases."""
     b, t, c = r0.shape
     x, bb = epilogue_plan(b, t, c)["grid"]
     stamps = torch.zeros((bb * x, 4), dtype=torch.int64, device=r0.device)
@@ -138,9 +206,11 @@ def fused_epilogue(r0, r1, r2, post=None, out_dtype=torch.float32):
     """The epilogue alone on given block outputs (B, T, C) float32: the
     average, or with `post` the (B, T, 1) tail, in `out_dtype` (float32, or
     bf16 for the bf16 configuration). CUDA tensors run
-    `csrc/triple_epilogue.cu`, CPU tensors `composed_epilogue`. Not counted
-    and not differentiable: the stage wrapper is the path's entry point;
-    this one holds the kernel against its plain version."""
+    `csrc/triple_epilogue.cu` (the average in either type, the float32
+    tail) or `csrc/triple_post_bf16.cu` (the bf16 tail); CPU tensors
+    `composed_epilogue`, rounded once to `out_dtype`. Not counted and not
+    differentiable: the stage wrapper is the path's entry point; this one
+    holds the kernels against their plain version."""
     if r0.device.type == "cpu":
         return composed_epilogue(r0, r1, r2, post).to(out_dtype)
     if r0.device.type != "cuda":

@@ -12,7 +12,8 @@ Each C entry point launches on the stream it is given and returns
 `LAUNCHES` counts, per kernel wrapper and configuration, the calls that
 ran CUDA kernels (one per wrapper call, however many launches it takes):
 the vocoder kernels' bf16 configuration counts under its own `_bf16` key
-(the AA-snake's runs `aa_snake_bf16.cu`), as the decode's bf16 weights and
+(the AA-snake's runs `aa_snake_bf16.cu`, the triple's tail
+`triple_post_bf16.cu`), as the decode's bf16 weights and
 cache do (`plm_decode_bf16.cu`; the mixed pairs run `plm_decode.cu` and
 count as `plm_decode`). CPU calls, which take the plain versions, do not
 count.
@@ -60,8 +61,11 @@ _SIGNATURES = {
     # r0, r1, r2, y, n, y_bytes, stream
     "triple_avg_fwd": [_P, _P, _P, _P, _I, _I, _P],
     # r0, r1, r2, alpha, inv_beta, w7, y, B, T, C, tile, smem_bytes, stamps,
-    # y_bytes, stream
-    "triple_post_fwd": [_P] * 7 + [_I] * 5 + [_P, _I, _P],
+    # stream
+    "triple_post_fwd": [_P] * 7 + [_I] * 5 + [_P, _P],
+    # r0, r1, r2, alpha, inv_beta, w7, y, B, T, C, seg, pack, blocks,
+    # smem_bytes, stream
+    "triple_post_bf16_fwd": [_P] * 7 + [_I] * 7 + [_P],
     # tc, pe, emb, wqkv, bqkv, wo, bo, ln, ff0, ff0b, ff1, ff1b, pred, cache,
     # xch, codes, stamps, T, L, D, TC, H, F, BINS, go_id, grid, smem_bytes,
     # xch_pairs, wbytes, cbytes, stream

@@ -68,6 +68,9 @@ KERNEL_SIZES = (3, 5, 7, 11)
 # 128 samples; at B = 2 and T near 128 it takes 32-sample tiles, near 8448 on
 # a 132-SM card the 128-sample ones), and 4097
 LENGTHS = (1, 7, 127, 128, 129, 4097, 8447, 8448, 8449)
+# segments of the bf16 tail's walk (multiples of 6 up to its 2040) beside
+# its plan's own
+TAIL_BF16_SEGS = (6, 24, 48, 96, 384, 2040)
 
 
 @pytest.fixture()
@@ -278,6 +281,41 @@ def test_epilogue_matches_plain(dev, t, c, tail):
                  for r in rs]
         torch.testing.assert_close(amp_triple.fused_epilogue(*views, post), got,
                                    atol=0, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c", [1, 7, 16, 32, 33, 64, 100, 200])
+@pytest.mark.parametrize("t", [1, 2, 5, 12, 13, 23, 24, 25, 35, 47, 48, 60,
+                               97, 200, 401, 1000])
+def test_epilogue_bf16_every_plan(dev, t, c):
+    """The bf16 tail, csrc/triple_post_bf16.cu, B = 2, at its plan's
+    segment, at TAIL_BF16_SEGS (the shortest, the longest and between)
+    and on views 4 bytes off a 16-byte boundary, against
+    composed_epilogue within 2^-8 x max|ref| (bf16_check's single
+    rounding); T = 1 .. 1000 on both sides of the segments and of their
+    11-step lead; C = 1 / 7 / 16 (groups of 1 / 8 / 16 lanes), 32, 33 / 64
+    (two channels a lane), 100 / 200 (2 and 4 channel chunks). Two launches
+    give the same bits; the bf16 average (triple_epilogue.cu) beside it."""
+    rng = np.random.default_rng(7 * t + c)
+    rs = [_rand(rng, dev, 2, t, c, scale=3.0) for _ in range(3)]
+    post = (torch.exp(_rand(rng, dev, c, scale=0.2)),
+            torch.exp(_rand(rng, dev, c, scale=0.2)),
+            _rand(rng, dev, 7, c, scale=0.1 * (7 * c) ** -0.5))
+    bf = torch.bfloat16
+    views = [torch.empty(r.numel() + 1, device=dev)[1:].view_as(r).copy_(r)
+             for r in rs]
+    calls = [lambda s=s: amp_triple._epilogue(*rs, post, out_dtype=bf, seg=s)
+             for s in TAIL_BF16_SEGS]
+    calls.append(lambda: amp_triple.fused_epilogue(*views, post, bf))
+    with torch.inference_mode():
+        want = amp_triple.composed_epilogue(*rs, post)
+        for fn in calls:
+            got = fn()
+            assert got.shape == (2, t, 1)
+            _close_bf16(got, want)
+        assert torch.equal(calls[-1](), calls[-1]())
+        _close_bf16(amp_triple.fused_epilogue(*rs, out_dtype=bf),
+                    amp_triple.composed_epilogue(*rs))
 
 
 @pytest.mark.cuda
