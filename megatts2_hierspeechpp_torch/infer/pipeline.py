@@ -68,6 +68,7 @@ from megatts2_hierspeechpp_torch.ops.stft import (
     mag_pha_stft,
     mel_spectrogram_fixed,
 )
+from megatts2_hierspeechpp_torch.utils.profiling import annotate
 
 LF0_FLOOR = math.log(55.0)  # predicted log-f0 below this is unvoiced: 0
 # kwargs of tts_batch, each with tts()'s meaning
@@ -240,27 +241,28 @@ class TTSPipeline:
               exact: bool) -> _Rows:
         """Phone ids, tones and languages of B texts, zero-padded to the
         longest (exact) or to its _bucket_text; the prompts' mels (one
-        padded length for all rows)."""
-        seqs = [text_frontend.process_text(t) for t in texts]
-        n_max = max(len(ids) for ids, _, _ in seqs)
-        n_pad = n_max if exact else _bucket_text(n_max)
-        arr = np.zeros((3, len(seqs), n_pad), np.int64)
-        for i, seq in enumerate(seqs):
-            arr[:, i, :len(seq[0])] = seq
-        ids, tone, lang = torch.from_numpy(arr).to(self.device)
-        x_len = torch.tensor([len(q[0]) for q in seqs], device=self.device)
-        lens = {p.mel_ttv.shape[1] for p in prompts}
-        if len(lens) != 1:
-            raise ValueError(
-                "per-row prompts must share the padded prompt-mel length "
-                f"(got {sorted(lens)}); prepare_prompt(bucket=True) puts "
-                "speakers on a common 1 s grid")
-        if len({id(p) for p in prompts}) == 1:
-            mel = prompts[0].mel_ttv.repeat(len(prompts), 1, 1)
-        else:
-            mel = torch.cat([p.mel_ttv for p in prompts])
-        mel_len = torch.full((len(prompts),), mel.shape[1], device=self.device)
-        return _Rows(ids, tone, lang, x_len, mel, mel_len)
+        padded length for all rows). The span pipeline.rows."""
+        with annotate("pipeline.rows"):
+            seqs = [text_frontend.process_text(t) for t in texts]
+            n_max = max(len(ids) for ids, _, _ in seqs)
+            n_pad = n_max if exact else _bucket_text(n_max)
+            arr = np.zeros((3, len(seqs), n_pad), np.int64)
+            for i, seq in enumerate(seqs):
+                arr[:, i, :len(seq[0])] = seq
+            ids, tone, lang = torch.from_numpy(arr).to(self.device)
+            x_len = torch.tensor([len(q[0]) for q in seqs], device=self.device)
+            lens = {p.mel_ttv.shape[1] for p in prompts}
+            if len(lens) != 1:
+                raise ValueError(
+                    "per-row prompts must share the padded prompt-mel length "
+                    f"(got {sorted(lens)}); prepare_prompt(bucket=True) puts "
+                    "speakers on a common 1 s grid")
+            if len({id(p) for p in prompts}) == 1:
+                mel = prompts[0].mel_ttv.repeat(len(prompts), 1, 1)
+            else:
+                mel = torch.cat([p.mel_ttv for p in prompts])
+            mel_len = torch.full((len(prompts),), mel.shape[1], device=self.device)
+            return _Rows(ids, tone, lang, x_len, mel, mel_len)
 
     def _prompt_rows(self, texts, prompt):
         """(single, texts, prompts): a str or a list of texts, one prompt or
@@ -275,17 +277,23 @@ class TTSPipeline:
 
     @torch.inference_mode()
     def _frames(self, rows: _Rows, length_scale: float) -> np.ndarray:
-        return self.ttv.predict_frame_lengths(
-            rows.x_ids, rows.tone, rows.lang, rows.x_len, rows.mel_ttv,
-            rows.mel_len, length_scale).cpu().numpy()
+        """The duration pre-pass, read back to the host: the span
+        pipeline.duration."""
+        with annotate("pipeline.duration"):
+            return self.ttv.predict_frame_lengths(
+                rows.x_ids, rows.tone, rows.lang, rows.x_len, rows.mel_ttv,
+                rows.mel_len, length_scale).cpu().numpy()
 
     @torch.inference_mode()
     def _acoustic(self, rows: _Rows, frames: int, length_scale: float = 1.0,
                   mode: str = "plm", top_k: int = 0, seed: int = 1234,
                   codes: Optional[np.ndarray] = None) -> Acoustic:
-        x_frame, g, frame_lengths, frame_mask = self.ttv.inf_extract_tc_latent(
-            rows.x_ids, rows.tone, rows.lang, rows.x_len, rows.mel_ttv,
-            rows.mel_len, 2 * frames, length_scale=length_scale)
+        """The spans pipeline.latent, plm.decode (in models/plm.decode) and
+        pipeline.w2v."""
+        with annotate("pipeline.latent"):
+            x_frame, g, frame_lengths, frame_mask = self.ttv.inf_extract_tc_latent(
+                rows.x_ids, rows.tone, rows.lang, rows.x_len, rows.mel_ttv,
+                rows.mel_len, 2 * frames, length_scale=length_scale)
         b, t_need = x_frame.shape[:2]
         if mode == "plm":
             pcodes = plm_lib.decode(
@@ -302,10 +310,11 @@ class TTSPipeline:
             pcodes = pc.repeat(1, reps)[:, :t_need]
         else:
             raise ValueError(f"unknown acoustic mode {mode!r}")
-        w2v, lf0 = self.ttv.inf_plm_gen(x_frame, g, pcodes[None], frame_mask)
-        # pitch clip (inference_plm.py:169): the vocoder takes log(f0 + 1)
-        # as it comes, with unvoiced frames at 0
-        lf0 = torch.where(lf0 < LF0_FLOOR, torch.zeros_like(lf0), lf0)
+        with annotate("pipeline.w2v"):
+            w2v, lf0 = self.ttv.inf_plm_gen(x_frame, g, pcodes[None], frame_mask)
+            # pitch clip (inference_plm.py:169): the vocoder takes log(f0 + 1)
+            # as it comes, with unvoiced frames at 0
+            lf0 = torch.where(lf0 < LF0_FLOOR, torch.zeros_like(lf0), lf0)
         return Acoustic(w2v, lf0, frame_mask, x_frame, pcodes, frame_lengths)
 
     def duration(self, text, prompt, length_scale: float = 1.0,
@@ -345,22 +354,24 @@ class TTSPipeline:
 
         With return_intermediates, also returns the Acoustic outputs cut to
         the request's frames and the waveform before normalisation (on the
-        device)."""
+        device). The span pipeline.call."""
         self._check_tts(use_plm, codes)
         ratio = self._check_output_sr(output_sr)  # fail before any compute
-        if prompt is None:
-            if prompt_audio is None:
-                raise ValueError("need prompt_audio or prompt features")
-            prompt = self.prepare_prompt(prompt_audio, denoise_ratio)
-        mode = "given" if codes is not None else ("plm" if use_plm else "prompt")
-        rows = self._rows([text], [prompt], exact)
-        frames = int(self._frames(rows, length_scale)[0])
-        t_voc = frames if exact else _bucket(frames)
-        ac = self._acoustic(rows, t_voc, length_scale, mode, top_k, seed, codes)
-        wav = self._vocode(prompt, ac, noise_scale_vc, seed, denoise_ratio,
-                           output_sr)
-        raw = wav[0, :int(320 * frames * ratio)]
-        out = _peak_normalise(raw.float().cpu().numpy())
+        with annotate("pipeline.call"):
+            if prompt is None:
+                if prompt_audio is None:
+                    raise ValueError("need prompt_audio or prompt features")
+                prompt = self.prepare_prompt(prompt_audio, denoise_ratio)
+            mode = "given" if codes is not None else ("plm" if use_plm else "prompt")
+            rows = self._rows([text], [prompt], exact)
+            frames = int(self._frames(rows, length_scale)[0])
+            t_voc = frames if exact else _bucket(frames)
+            ac = self._acoustic(rows, t_voc, length_scale, mode, top_k, seed, codes)
+            wav = self._vocode(prompt, ac, noise_scale_vc, seed, denoise_ratio,
+                               output_sr)
+            with annotate("pipeline.output"):
+                raw = wav[0, :int(320 * frames * ratio)]
+                out = _peak_normalise(raw.float().cpu().numpy())
         if return_intermediates:
             return out, ac.cut(0, frames), raw
         return out
@@ -380,7 +391,7 @@ class TTSPipeline:
         True)); their style pairs are each pooled at the prompt's own
         length (prompt_style, cached), so each row computes what its own
         tts() call does. Unknown kwargs raise rather than give other audio
-        than tts() would."""
+        than tts() would. The span pipeline.call."""
         unknown = set(kw) - BATCH_KW
         if unknown:
             raise ValueError(
@@ -398,24 +409,28 @@ class TTSPipeline:
                                  "`prompt`/`prompt_audio`, not both")
             if len(prompts) != b:
                 raise ValueError(f"{len(prompts)} prompts for {b} texts")
-            rows = self._rows(texts, prompts, exact=False)
-        else:
-            if prompt is None:
-                if prompt_audio is None:
-                    raise ValueError("need prompt_audio, prompt or prompts")
-                prompt = self.prepare_prompt(prompt_audio, denoise_ratio)
-            rows = self._rows(texts, [prompt] * b, exact=False)
-        length_scale = kw.get("length_scale", 1.0)
-        seed = kw.get("seed", 1234)
-        frames = self._frames(rows, length_scale)
-        ac = self._acoustic(rows, _bucket(int(frames.max())), length_scale,
-                            "plm" if use_plm else "prompt", kw.get("top_k", 0),
-                            seed)
-        style = (list(prompts) if prompts is not None else prompt)
-        wav = self._vocode(style, ac, kw.get("noise_scale_vc", 0.333), seed,
-                           denoise_ratio, output_sr).float().cpu().numpy()
-        return [_peak_normalise(wav[i, :int(320 * int(frames[i]) * ratio)])
-                for i in range(b)]
+        elif prompt is None and prompt_audio is None:
+            raise ValueError("need prompt_audio, prompt or prompts")
+        with annotate("pipeline.call"):
+            if prompts is not None:
+                rows = self._rows(texts, prompts, exact=False)
+            else:
+                if prompt is None:
+                    prompt = self.prepare_prompt(prompt_audio, denoise_ratio)
+                rows = self._rows(texts, [prompt] * b, exact=False)
+            length_scale = kw.get("length_scale", 1.0)
+            seed = kw.get("seed", 1234)
+            frames = self._frames(rows, length_scale)
+            ac = self._acoustic(rows, _bucket(int(frames.max())), length_scale,
+                                "plm" if use_plm else "prompt", kw.get("top_k", 0),
+                                seed)
+            style = (list(prompts) if prompts is not None else prompt)
+            wav = self._vocode(style, ac, kw.get("noise_scale_vc", 0.333), seed,
+                               denoise_ratio, output_sr)
+            with annotate("pipeline.output"):
+                wav = wav.float().cpu().numpy()
+                return [_peak_normalise(wav[i, :int(320 * int(frames[i]) * ratio)])
+                        for i in range(b)]
 
     def tts_stream(self, text: str, prompt_audio: Optional[np.ndarray] = None,
                    denoise_ratio: float = 0.0, noise_scale_vc: float = 0.333,
@@ -443,22 +458,29 @@ class TTSPipeline:
         output_sr != 16000 super-resolves each piece with `sr_halo` real
         samples on each inner side and one chunk of lookahead (the SR
         stack's right halo is the next chunk); a final raw chunk shorter
-        than sr_halo is merged into the previous piece."""
+        than sr_halo is merged into the previous piece.
+
+        The span pipeline.call covers the work before the chunks (the
+        vocoder's latent in pipeline.vocode); each chunk's decode opens
+        vocoder.generator on its own."""
         self._check_tts(use_plm)
         ratio = self._check_output_sr(output_sr)
         ck, h = chunk_frames, halo_frames
         if ck < h:
             raise ValueError("chunk_frames must be >= halo_frames")
-        if prompt is None:
-            if prompt_audio is None:
-                raise ValueError("need prompt_audio or prompt features")
-            prompt = self.prepare_prompt(prompt_audio, denoise_ratio)
-        rows = self._rows([text], [prompt], exact=False)
-        frames = int(self._frames(rows, length_scale)[0])
-        t_voc = _bucket(frames)
-        ac = self._acoustic(rows, t_voc, length_scale,
-                            "plm" if use_plm else "prompt", top_k, seed)
-        z, e, g = self._latent(prompt, ac, noise_scale_vc, seed, denoise_ratio)
+        with annotate("pipeline.call"):
+            if prompt is None:
+                if prompt_audio is None:
+                    raise ValueError("need prompt_audio or prompt features")
+                prompt = self.prepare_prompt(prompt_audio, denoise_ratio)
+            rows = self._rows([text], [prompt], exact=False)
+            frames = int(self._frames(rows, length_scale)[0])
+            t_voc = _bucket(frames)
+            ac = self._acoustic(rows, t_voc, length_scale,
+                                "plm" if use_plm else "prompt", top_k, seed)
+            with annotate("pipeline.vocode"):
+                z, e, g = self._latent(prompt, ac, noise_scale_vc, seed,
+                                       denoise_ratio)
 
         if t_voc <= ck + h:
             segments = [("full", 0, t_voc)]
@@ -513,24 +535,28 @@ class TTSPipeline:
                 denoise_ratio: float, output_sr: int) -> torch.Tensor:
         """(B, N) waveform at output_sr over the whole budget, uncut. style:
         a PromptFeatures or a list of one per row. The posterior noise comes
-        from torch.Generator().manual_seed(seed + 1)."""
-        gen = torch.Generator().manual_seed(seed + 1)
-        f0 = ac.lf0[..., None]
-        st = self._style(style)
-        if isinstance(st, tuple):
-            wav = self.vocoder.voice_conversion(
-                ac.w2v, ac.frame_mask, *st, f0, noise_scale, gen, denoise_ratio)
-        else:
-            wav = self.vocoder.voice_conversion_from_style(
-                ac.w2v, ac.frame_mask, st, f0, noise_scale, gen, denoise_ratio)
-        if self._check_output_sr(output_sr) != 1.0:
-            wav = self.speechsr(wav)
-        return wav[..., 0]
+        from torch.Generator().manual_seed(seed + 1). The span
+        pipeline.vocode."""
+        with annotate("pipeline.vocode"):
+            gen = torch.Generator().manual_seed(seed + 1)
+            f0 = ac.lf0[..., None]
+            with annotate("vocoder.style"):
+                st = self._style(style)
+            if isinstance(st, tuple):
+                wav = self.vocoder.voice_conversion(
+                    ac.w2v, ac.frame_mask, *st, f0, noise_scale, gen, denoise_ratio)
+            else:
+                wav = self.vocoder.voice_conversion_from_style(
+                    ac.w2v, ac.frame_mask, st, f0, noise_scale, gen, denoise_ratio)
+            if self._check_output_sr(output_sr) != 1.0:
+                wav = self.speechsr(wav)
+            return wav[..., 0]
 
     @torch.inference_mode()
     def _latent(self, prompt: PromptFeatures, ac: Acoustic, noise_scale: float,
                 seed: int, denoise_ratio: float):
-        mel, mask = self._style(prompt)
+        with annotate("vocoder.style"):
+            mel, mask = self._style(prompt)
         return self.vocoder.vc_latent(
             ac.w2v, ac.frame_mask, mel, mask, ac.lf0[..., None], noise_scale,
             torch.Generator().manual_seed(seed + 1), denoise_ratio)

@@ -17,10 +17,25 @@ current where the server was built, so PyTorch's operations and the
 port's kernels (ops/cuda_lib.py launches on the current stream) share one
 stream.
 
+Counters, always on (`stats()`, a snapshot): requests `submitted`,
+`served` (a waveform returned) and `failed` (an exception set); pipeline
+`calls` and the `rows` they carried; `drains` of the queue and the
+`groups` they made; `queue_s_sum` / `queue_s_max`, each request's seconds
+from `submit` to the start of the call that serves it (time.perf_counter);
+`depth`, the queue's size now. `submit` stamps a request once; only the
+worker adds to the sums.
+
+Spans (utils/profiling.annotate; recorded by a profiler started in the
+worker thread): `server.wait` (blocked on an empty queue), `server.drain`
+(the straggler window and the grouping), `server.call` (one group; its
+args are the request ids, numbered from 1 at `submit`, and its rows) and
+under it `server.reply` (setting the group's futures).
+
 Usage:
     server = TTSServer(pipeline, max_batch=8, max_wait_ms=15)
     fut = server.submit("ni3 hao3 sp", prompt=prompt_feats, seed=7)
     wav = fut.result()
+    server.stats()["queue_s_sum"]
     server.close()
 """
 from __future__ import annotations
@@ -39,6 +54,10 @@ import torch
 # kwargs tts_batch takes with tts()'s meaning; a request with any other
 # (codes=..., exact=..., return_intermediates=...) runs alone through tts()
 from megatts2_hierspeechpp_torch.infer.pipeline import BATCH_KW as _BATCHABLE_KW
+from megatts2_hierspeechpp_torch.utils.profiling import annotate
+
+# the counters of stats(), each a sum since the server started
+_COUNTS = ("submitted", "served", "failed", "calls", "rows", "drains", "groups")
 
 
 @dataclass
@@ -47,7 +66,14 @@ class _Request:
     prompt_key: int
     prompt: Any  # PromptFeatures
     kw: Dict[str, Any]
+    id: int = 0
+    t_submit: float = 0.0   # time.perf_counter at submit
     future: Future = field(default_factory=Future)
+
+
+def _group_args(rs: list) -> str:
+    """server.call's args: the group's request ids and rows."""
+    return f"ids={[r.id for r in rs]} rows={len(rs)}"
 
 
 class TTSServer:
@@ -62,6 +88,9 @@ class TTSServer:
                         if isinstance(dev, torch.device) and dev.type == "cuda"
                         else None)
         self._q: "queue.Queue[Optional[_Request]]" = queue.Queue()
+        self._lock = threading.Lock()   # the counters
+        self._stats = dict.fromkeys(_COUNTS, 0)
+        self._stats.update(queue_s_sum=0.0, queue_s_max=0.0)
         self._worker = threading.Thread(target=self._run, daemon=True)
         self._closed = False
         self._worker.start()
@@ -75,8 +104,25 @@ class TTSServer:
         if self._closed:
             raise RuntimeError("server closed")
         req = _Request(text=text, prompt_key=id(prompt), prompt=prompt, kw=kw)
+        with self._lock:
+            self._stats["submitted"] += 1
+            req.id = self._stats["submitted"]
+        req.t_submit = time.perf_counter()
         self._q.put(req)
         return req.future
+
+    def stats(self) -> dict:
+        """A snapshot of the counters (module docstring) and the queue's
+        current `depth`."""
+        with self._lock:
+            out = dict(self._stats)
+        out["depth"] = self._q.qsize()
+        return out
+
+    def _count(self, **add):
+        with self._lock:
+            for k, v in add.items():
+                self._stats[k] += v
 
     def close(self):
         self._closed = True
@@ -110,10 +156,14 @@ class TTSServer:
                   else contextlib.nullcontext())
         with torch.inference_mode(), stream:
             while True:
-                req = self._q.get()
+                with annotate("server.wait"):
+                    req = self._q.get()
                 if req is None:
                     return
-                for rs in self._groups(self._drain(req)):
+                with annotate("server.drain"):
+                    groups = self._groups(self._drain(req))
+                self._count(drains=1, groups=len(groups))
+                for rs in groups:
                     self._serve(rs)
 
     @staticmethod
@@ -132,20 +182,32 @@ class TTSServer:
         return list(groups.values()) + singles
 
     def _serve(self, rs: list) -> None:
-        try:
-            if len(rs) == 1:
-                r = rs[0]
-                wavs = [self.pipeline.tts(r.text, prompt=r.prompt, **r.kw)]
-            elif len({r.prompt_key for r in rs}) == 1:
-                wavs = self.pipeline.tts_batch(
-                    [r.text for r in rs], prompt=rs[0].prompt, **rs[0].kw)
-            else:
-                wavs = self.pipeline.tts_batch(
-                    [r.text for r in rs], prompts=[r.prompt for r in rs],
-                    **rs[0].kw)
-            for r, w in zip(rs, wavs):
-                r.future.set_result(np.asarray(w))
-        except Exception as e:  # the group's own futures; keep serving
-            for r in rs:
-                if not r.future.done():
+        t = time.perf_counter()
+        waits = [t - r.t_submit for r in rs]
+        with self._lock:
+            st = self._stats
+            st["calls"] += 1
+            st["rows"] += len(rs)
+            st["queue_s_sum"] += sum(waits)
+            st["queue_s_max"] = max(st["queue_s_max"], *waits)
+        with annotate("server.call", rs, _group_args):
+            try:
+                if len(rs) == 1:
+                    r = rs[0]
+                    wavs = [self.pipeline.tts(r.text, prompt=r.prompt, **r.kw)]
+                elif len({r.prompt_key for r in rs}) == 1:
+                    wavs = self.pipeline.tts_batch(
+                        [r.text for r in rs], prompt=rs[0].prompt, **rs[0].kw)
+                else:
+                    wavs = self.pipeline.tts_batch(
+                        [r.text for r in rs], prompts=[r.prompt for r in rs],
+                        **rs[0].kw)
+                with annotate("server.reply"):
+                    for r, w in zip(rs, wavs):
+                        r.future.set_result(np.asarray(w))
+                self._count(served=len(rs))
+            except Exception as e:  # the group's own futures; keep serving
+                failed = [r for r in rs if not r.future.done()]
+                for r in failed:
                     r.future.set_exception(e)
+                self._count(served=len(rs) - len(failed), failed=len(failed))

@@ -50,6 +50,7 @@ from megatts2_hierspeechpp_torch.ops.plm_decode import (
     sine_positions,
 )
 from megatts2_hierspeechpp_torch.parallel import mesh
+from megatts2_hierspeechpp_torch.utils.profiling import annotate
 
 
 NEG_INF = -1e9
@@ -326,16 +327,17 @@ def decode(model: ProsodyLM, tc_latent: torch.Tensor, top_k: int = 0,
     runs in float32, the counterpart of the JAX float32 scan. An explicit
     `weight_dtype` / `cache_dtype` holds on either route. (JAX decodes a
     B > 1 batch in its scan; here each row is decoded as JAX decodes a
-    B = 1 request.)"""
-    w = model.packed()
-    tc_latent = tc_latent.float()
-    f32 = torch.float32
-    if top_k:
-        return plain_decode(w, tc_latent, model.go_id, top_k, temperature,
-                            generator, weight_dtype or f32, cache_dtype or f32)
-    if tc_latent.device.type == "cpu":
-        weight_dtype, cache_dtype = weight_dtype or f32, cache_dtype or f32
-    dts = {k: v for k, v in (("weight_dtype", weight_dtype),
-                             ("cache_dtype", cache_dtype)) if v is not None}
-    return torch.cat([plm_decode_greedy(w, tc_latent[i:i + 1], model.go_id, **dts)
-                      for i in range(tc_latent.shape[0])])
+    B = 1 request.) The span plm.decode."""
+    with annotate("plm.decode"):
+        w = model.packed()
+        tc_latent = tc_latent.float()
+        f32 = torch.float32
+        if top_k:
+            return plain_decode(w, tc_latent, model.go_id, top_k, temperature,
+                                generator, weight_dtype or f32, cache_dtype or f32)
+        if tc_latent.device.type == "cpu":
+            weight_dtype, cache_dtype = weight_dtype or f32, cache_dtype or f32
+        dts = {k: v for k, v in (("weight_dtype", weight_dtype),
+                                 ("cache_dtype", cache_dtype)) if v is not None}
+        return torch.cat([plm_decode_greedy(w, tc_latent[i:i + 1], model.go_id, **dts)
+                          for i in range(tc_latent.shape[0])])

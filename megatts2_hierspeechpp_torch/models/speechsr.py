@@ -19,8 +19,9 @@ from megatts2_hierspeechpp_torch.nn.activations import AASnakeBeta
 from megatts2_hierspeechpp_torch.nn.conv import Conv1d, WNConv1d
 from megatts2_hierspeechpp_torch.nn.init import init_weights
 from megatts2_hierspeechpp_torch.nn.resblocks import (
-    AMPBlock, fused_triple_enabled, stage_packs)
+    AMPBlock, blocks_mean, fused_triple_enabled, stage_packs)
 from megatts2_hierspeechpp_torch.ops.amp_triple import fused_amp_triple
+from megatts2_hierspeechpp_torch.utils.profiling import annotate
 
 
 def interp_linear(x, out_len: int):
@@ -95,19 +96,18 @@ class SpeechSR(nn.Module):
         self.to(dev)
 
     def forward(self, x):
-        """x: (B, T, 1) 16 kHz waveform -> (B, T * rate, 1)."""
-        y = self.conv_pre(x)
-        y = interp_linear(y, int(y.shape[1] * self.rate_num // self.rate_den))
-        if fused_triple_enabled(y.shape[-1]):
-            pa, pib = self.activation_post.fused_params()
-            pw = self.conv_post.weight[0].t().contiguous()
-            return fused_amp_triple(
-                y, [b.fused_weights() for b in self.resblocks], self.ks,
-                self.dils, post=(pa, pib, pw),
-                packed=stage_packs(self.resblocks, y))
-        xs = None
-        for blk in self.resblocks:
-            r = blk(y)
-            xs = r if xs is None else xs + r
-        y = self.activation_post(xs / len(self.ks))
-        return torch.tanh(self.conv_post(y))
+        """x: (B, T, 1) 16 kHz waveform -> (B, T * rate, 1). The span
+        speechsr, the stage's weights in weights.prep."""
+        with annotate("speechsr"):
+            y = self.conv_pre(x)
+            y = interp_linear(y, int(y.shape[1] * self.rate_num // self.rate_den))
+            if fused_triple_enabled(y.shape[-1]):
+                with annotate("weights.prep"):
+                    pa, pib = self.activation_post.fused_params()
+                    pw = self.conv_post.weight[0].t().contiguous()
+                    bws = [b.fused_weights() for b in self.resblocks]
+                    packs = stage_packs(self.resblocks, y)
+                return fused_amp_triple(y, bws, self.ks, self.dils,
+                                        post=(pa, pib, pw), packed=packs)
+            y = self.activation_post(blocks_mean(self.resblocks, y))
+            return torch.tanh(self.conv_post(y))

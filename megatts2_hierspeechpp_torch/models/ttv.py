@@ -51,6 +51,7 @@ from megatts2_hierspeechpp_torch.nn.styleencoder import StyleEncoder
 from megatts2_hierspeechpp_torch.nn.wavenet import WN
 from megatts2_hierspeechpp_torch.parallel import mesh
 from megatts2_hierspeechpp_torch.utils.masking import feature_mask
+from megatts2_hierspeechpp_torch.utils.profiling import annotate
 
 
 class TextEncoder(nn.Module):
@@ -262,15 +263,16 @@ class TTVModel(nn.Module):
     def _durations(self, x_ids, tone, language, x_lengths, mrte_mel,
                    mrte_mel_lengths, length_scale):
         """(x, g, x_mask, dur): text + MRTE + duration predictor; dur (B, N)
-        frames at 100 Hz."""
-        x_mask = feature_mask(x_lengths, x_ids.shape[1])
-        mrte_mask = feature_mask(mrte_mel_lengths, mrte_mel.shape[1])
-        g = self.emb_g(mrte_mel, mrte_mask)
-        x = self._text_mrte(x_ids, tone, language, x_mask, mrte_mel,
-                            mrte_mask, g)
-        logw = self.duration_predictor(x, x_mask, g)
-        dur = torch.ceil(torch.exp(logw) * x_mask * length_scale)[..., 0]
-        return x, g, x_mask, dur
+        frames at 100 Hz. The span ttv.durations."""
+        with annotate("ttv.durations"):
+            x_mask = feature_mask(x_lengths, x_ids.shape[1])
+            mrte_mask = feature_mask(mrte_mel_lengths, mrte_mel.shape[1])
+            g = self.emb_g(mrte_mel, mrte_mask)
+            x = self._text_mrte(x_ids, tone, language, x_mask, mrte_mel,
+                                mrte_mask, g)
+            logw = self.duration_predictor(x, x_mask, g)
+            dur = torch.ceil(torch.exp(logw) * x_mask * length_scale)[..., 0]
+            return x, g, x_mask, dur
 
     def _upsample_to_frames(self, x, dur, x_lengths, out_length: int):
         rng = self.RangePredictor(x, dur, x_lengths)

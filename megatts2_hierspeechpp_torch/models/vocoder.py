@@ -23,6 +23,11 @@ Posterior noise is noise_scale * N(0, 1) drawn on the CPU from the caller's
 torch.Generator and moved to the model's device, so the same seed gives the
 same noise on every device.
 
+Spans (utils/profiling.annotate) on the inference path: vocoder.style,
+vocoder.prior, vocoder.noise, vocoder.flow, vocoder.source and
+vocoder.generator, and weights.prep around each narrow stage's
+`fused_weights` / packed-weight lookup.
+
 `dtype` (None: float32) is the JAX modules' compute dtype, handed to every
 member: each conv, projection and attention product takes its operands in
 it, while parameters stay float32 and the masks, the posterior statistics
@@ -50,10 +55,11 @@ from megatts2_hierspeechpp_torch.nn.conv import (
 from megatts2_hierspeechpp_torch.nn.dit import ResidualCouplingBlockTransformer
 from megatts2_hierspeechpp_torch.nn.init import init_weights
 from megatts2_hierspeechpp_torch.nn.resblocks import (
-    AMPBlock, fused_triple_enabled, stage_packs)
+    AMPBlock, blocks_mean, fused_triple_enabled, stage_packs)
 from megatts2_hierspeechpp_torch.nn.styleencoder import StyleEncoder
 from megatts2_hierspeechpp_torch.nn.wavenet import WN
 from megatts2_hierspeechpp_torch.ops.amp_triple import fused_amp_triple
+from megatts2_hierspeechpp_torch.utils.profiling import annotate
 
 
 # state_dict prefixes of the members a training build adds
@@ -228,15 +234,13 @@ class SourceNetwork(nn.Module):
             y = up(y)
             blocks = self.resblocks[i * n:(i + 1) * n]
             if fused_triple_enabled(y.shape[-1]):
-                y = fused_amp_triple(y, [b.fused_weights() for b in blocks],
-                                     self.resblock_kernels, ((1, 3, 5),) * n,
-                                     packed=stage_packs(blocks, y))
+                with annotate("weights.prep"):
+                    bws = [b.fused_weights() for b in blocks]
+                    packs = stage_packs(blocks, y)
+                y = fused_amp_triple(y, bws, self.resblock_kernels,
+                                     ((1, 3, 5),) * n, packed=packs)
             else:
-                xs = None
-                for blk in blocks:
-                    r = blk(y)
-                    xs = r if xs is None else xs + r
-                y = xs / float(n)
+                y = blocks_mean(blocks, y)
         y = self.activation_post(y)
         return y, self.conv_post(y)
 
@@ -326,21 +330,18 @@ class Generator(nn.Module):
             blocks = self.resblocks[i * n:(i + 1) * n]
             last = i == len(self.ups) - 1
             if fused_triple_enabled(y.shape[-1]):
-                bws = [b.fused_weights() for b in blocks]
+                with annotate("weights.prep"):
+                    bws = [b.fused_weights() for b in blocks]
+                    packs = stage_packs(blocks, y)
+                    if last:
+                        pa, pib = self.activation_post.fused_params()
+                        pw = self.conv_post.weight[0].t().contiguous()
                 if last:
-                    pa, pib = self.activation_post.fused_params()
-                    pw = self.conv_post.weight[0].t().contiguous()
                     return fused_amp_triple(y, bws, self.ks, self.dils,
-                                            post=(pa, pib, pw),
-                                            packed=stage_packs(blocks, y))
-                y = fused_amp_triple(y, bws, self.ks, self.dils,
-                                     packed=stage_packs(blocks, y))
+                                            post=(pa, pib, pw), packed=packs)
+                y = fused_amp_triple(y, bws, self.ks, self.dils, packed=packs)
             else:
-                xs = None
-                for blk in blocks:
-                    r = blk(y)
-                    xs = r if xs is None else xs + r
-                y = xs / n
+                y = blocks_mean(blocks, y)
         y = self.activation_post(y)
         return torch.tanh(self.conv_post(y))
 
@@ -404,15 +405,19 @@ class HierVocoder(nn.Module):
         self.to(dev)
 
     def _vc_core(self, src_w2v, src_mask, g, f0, noise_scale, generator):
-        m_p, logs_p = self.enc_p_l(src_w2v, f0, src_mask, g)
-        noise = _noise(m_p.shape, m_p, generator)
-        if noise is not None:
-            z = (m_p + noise * torch.exp(logs_p) * noise_scale) * src_mask
-        else:
-            z = m_p * src_mask
-        z = self.flow_l.reverse(z, src_mask, g)
-        z = self.flow.reverse(z, src_mask, g)
-        e, _ = self.sn(z, g)
+        with annotate("vocoder.prior"):
+            m_p, logs_p = self.enc_p_l(src_w2v, f0, src_mask, g)
+        with annotate("vocoder.noise"):
+            noise = _noise(m_p.shape, m_p, generator)
+            if noise is not None:
+                z = (m_p + noise * torch.exp(logs_p) * noise_scale) * src_mask
+            else:
+                z = m_p * src_mask
+        with annotate("vocoder.flow"):
+            z = self.flow_l.reverse(z, src_mask, g)
+            z = self.flow.reverse(z, src_mask, g)
+        with annotate("vocoder.source"):
+            e, _ = self.sn(z, g)
         return z, e, g
 
     def forward(self, x_mel, w2v, x_mask, f0, generator=None):
@@ -432,11 +437,12 @@ class HierVocoder(nn.Module):
                   denoise_ratio: float = 0.0):
         """Everything before the Generator: returns (z, e, g). The style of a
         2-row mel batch [orig; denoised] is interpolated by denoise_ratio."""
-        g_all = self.emb_g(trg_mel, trg_mask)
-        if g_all.shape[0] > 1:
-            g = (1 - denoise_ratio) * g_all[:1] + denoise_ratio * g_all[1:2]
-        else:
-            g = g_all
+        with annotate("vocoder.style"):
+            g_all = self.emb_g(trg_mel, trg_mask)
+            if g_all.shape[0] > 1:
+                g = (1 - denoise_ratio) * g_all[:1] + denoise_ratio * g_all[1:2]
+            else:
+                g = g_all
         return self._vc_core(src_w2v, src_mask, g, f0, noise_scale, generator)
 
     def style_pairs(self, trg_mel, trg_mask):
@@ -451,7 +457,8 @@ class HierVocoder(nn.Module):
         """vc_latent with style pairs computed beforehand: g_pair (1 or B,
         2, C) from style_pairs, [orig; denoised] interpolated by
         denoise_ratio per row."""
-        g = (1 - denoise_ratio) * g_pair[:, 0] + denoise_ratio * g_pair[:, 1]
+        with annotate("vocoder.style"):
+            g = (1 - denoise_ratio) * g_pair[:, 0] + denoise_ratio * g_pair[:, 1]
         return self._vc_core(src_w2v, src_mask, g, f0, noise_scale, generator)
 
     def voice_conversion_from_style(self, src_w2v, src_mask, g_pair, f0,
@@ -462,11 +469,12 @@ class HierVocoder(nn.Module):
         z, e, g = self.vc_latent_from_style(src_w2v, src_mask, g_pair, f0,
                                             noise_scale, generator,
                                             denoise_ratio)
-        return self.dec(z, e, g=g)
+        return self.decode_latent(z, e, g)
 
     def decode_latent(self, z, e, g):
         """Generator-only decode of vc_latent outputs."""
-        return self.dec(z, e, g=g)
+        with annotate("vocoder.generator"):
+            return self.dec(z, e, g=g)
 
     def voice_conversion(self, src_w2v, src_mask, trg_mel, trg_mask, f0,
                          noise_scale: float = 0.333, generator=None,
@@ -474,7 +482,7 @@ class HierVocoder(nn.Module):
         """Reference voice_conversion_noise_control -> (B, 320T, 1)."""
         z, e, g = self.vc_latent(src_w2v, src_mask, trg_mel, trg_mask, f0,
                                  noise_scale, generator, denoise_ratio)
-        return self.dec(z, e, g=g)
+        return self.decode_latent(z, e, g)
 
     # ---- training (a build with train=True) ----
 

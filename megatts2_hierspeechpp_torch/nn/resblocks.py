@@ -10,7 +10,8 @@ both devices. `dtype` is the convs' compute dtype; the fused wrappers take
 their activation's dtype (bf16: the kernels' bf16 configuration) with the
 weights of `fused_weights`, which stay float32, and on the card the bf16
 configuration's packed conv weights (`AMPBlock.packed_bf16`, packed once
-per parameter version).
+per parameter version). A stage of blocks run one by one (`blocks_mean`)
+prepares their weights together, in the span weights.prep.
 """
 from __future__ import annotations
 
@@ -23,6 +24,7 @@ from megatts2_hierspeechpp_torch.nn.activations import AASnakeBeta
 from megatts2_hierspeechpp_torch.nn.basic import leaky_relu
 from megatts2_hierspeechpp_torch.nn.conv import WNConv1d, get_padding
 from megatts2_hierspeechpp_torch.ops.ampblock import fused_ampblock, pack_bf16
+from megatts2_hierspeechpp_torch.utils.profiling import annotate
 
 
 def fused_triple_enabled(channels: int) -> bool:
@@ -36,6 +38,23 @@ def stage_packs(blocks, x):
     if x.dtype != torch.bfloat16 or x.device.type != "cuda":
         return None
     return [b.packed_bf16() for b in blocks]
+
+
+def blocks_mean(blocks, x):
+    """The mean of the AMPBlocks' outputs on x (a stage that
+    fused_amp_triple does not take); at C <= 128 each block's
+    fused_ampblock weights are prepared first, together, in the span
+    weights.prep."""
+    if x.shape[-1] <= 128:
+        with annotate("weights.prep"):
+            prep = [b.fused_inputs(x) for b in blocks]
+    else:
+        prep = [None] * len(blocks)
+    xs = None
+    for blk, fused in zip(blocks, prep):
+        r = blk(x, fused)
+        xs = r if xs is None else xs + r
+    return xs / len(blocks)
 
 
 class ResBlock1(nn.Module):
@@ -118,12 +137,18 @@ class AMPBlock(nn.Module):
                 self._packed = (key, (pack_bf16(w1), pack_bf16(w2)))
         return self._packed[1]
 
-    def forward(self, x):
+    def fused_inputs(self, x):
+        """(fused_weights(), packed bf16 weights or None): a fused_ampblock
+        call's weights on x (C <= 128)."""
+        packed = (self.packed_bf16() if x.dtype == torch.bfloat16
+                  and x.device.type == "cuda" else None)
+        return self.fused_weights(), packed
+
+    def forward(self, x, fused=None):
+        """`fused`: fused_inputs(x), where the caller prepared it."""
         if x.shape[-1] <= 128:
-            packed = (self.packed_bf16() if x.dtype == torch.bfloat16
-                      and x.device.type == "cuda" else None)
-            return fused_ampblock(x, *self.fused_weights(),
-                                  kernel_size=self.kernel_size,
+            weights, packed = fused if fused is not None else self.fused_inputs(x)
+            return fused_ampblock(x, *weights, kernel_size=self.kernel_size,
                                   dilations=self.dilation, packed=packed)
         for i in range(len(self.dilation)):
             xt = self.activations[2 * i](x)

@@ -29,6 +29,8 @@ from pathlib import Path
 
 import torch
 
+from megatts2_hierspeechpp_torch.utils.profiling import annotate
+
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
@@ -194,10 +196,10 @@ def plain_vjp(fn, saved, needs_grad, ct, *static):
     saved primals, which recomputes in the primals' dtypes (a bf16 x runs
     the bf16 twin). The cotangent is cast to the primal output's dtype (as
     the JAX custom_vjp does): a bf16 discriminator may hand a bf16
-    cotangent to a float32 output, and the reverse. Runs in a "plain_vjp"
-    profiler range, so a trace can tell its recompute and backward from
-    the rest of a step."""
-    with torch.enable_grad(), torch.profiler.record_function("plain_vjp"):
+    cotangent to a float32 output, and the reverse. Runs in the "plain_vjp"
+    span (utils/profiling.annotate), so a trace can tell its recompute and
+    backward from the rest of a step."""
+    with torch.enable_grad(), annotate("plain_vjp"):
         xs = [t.detach().requires_grad_(n) for t, n in zip(saved, needs_grad)]
         out = fn(*xs, *static)
         wrt = [x for x, n in zip(xs, needs_grad) if n]
