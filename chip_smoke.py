@@ -319,6 +319,7 @@ BF16_MARGIN = 2.0 ** -8
 MMA_F32_MEAN_TOL = 1e-4
 BF16_LATENTS = 3        # T=500 latents of the bf16 comparison
 BF16_LENGTHS = (1, 37, 1100)  # the bf16 decode's other lengths (plm_bf16)
+ROWS_T = (500, 800)     # lengths of the bf16 decode's multi-row launch (plm_bf16)
 PLM_REPEATS = 10        # launches at the main path's T that must give the same codes
 BATCH_ROWS = 4          # serve_batch's rows (one shared prompt) and the per-row decode
 SPEAKER_ROWS = 3        # serve_batch's rows with one prompt each
@@ -1441,15 +1442,19 @@ def plm_bf16_phase(torch, dev):
     BF16_LATENTS latents, beside the kernel's gap and agreement with the
     twin on the card, as a yardstick, the twin on the CPU's (its sums in
     another order); at BF16_LENGTHS its ms and the same gate. Then the
-    per-row greedy decode of a batch of BATCH_ROWS through models/plm.decode
-    in float32 and in bf16: one launch per row, the codes held by the
-    teacher-forced gap against plain_decode's batch in the same dtypes. The
-    bf16 batch is this configuration's path: its counts are zeroed just
-    before it and read just after."""
+    greedy decode of a batch of BATCH_ROWS through models/plm.decode in
+    float32 (one launch a row) and in bf16 (ceil(BATCH_ROWS / MAX_ROWS)
+    launches), the codes held by the teacher-forced gap against
+    plain_decode's batch in the same dtypes. The bf16 batch is this
+    configuration's path: its counts are zeroed just before it and read just
+    after. "rows": the multi-row launch (MAX_ROWS rows of other latents) at
+    ROWS_T: its ms beside one row's, each row's codes against its own
+    one-row launch (fails unless equal), rows a launch (cuda_lib.ROWS) and
+    its stamps' split."""
     from megatts2_hierspeechpp_torch.models.plm import ProsodyLM, decode
     from megatts2_hierspeechpp_torch.ops import cuda_lib
     from megatts2_hierspeechpp_torch.ops.plm_decode import (
-        cluster_choice, plain_decode, plain_gap, plm_decode_greedy)
+        MAX_ROWS, cluster_choice, plain_decode, plain_gap, plm_decode_greedy)
 
     bf, fl = torch.bfloat16, torch.float32
     model = ProsodyLM(seed=99, device=dev)
@@ -1525,7 +1530,33 @@ def plm_bf16_phase(torch, dev):
         fail(f"plm_decode bf16 T={t}: {PLM_REPEATS - same} of {PLM_REPEATS} "
              "repeated launches gave other codes")
 
-    # per-row greedy batch through the public decode
+    line["rows"] = []
+    for tr in ROWS_T:  # one launch of MAX_ROWS rows against each row's own
+        tcr = torch.randn(MAX_ROWS, tr, 256, generator=gen).to(dev)
+        with torch.inference_mode():
+            torch.cuda.synchronize()
+            cuda_lib.reset_launches()
+            got = plm_decode_greedy(w, tcr, go)
+            torch.cuda.synchronize()
+            counts = (cuda_lib.LAUNCHES["plm_decode_bf16"],
+                      cuda_lib.ROWS["plm_decode_bf16"])
+            one = torch.cat([plm_decode_greedy(w, tcr[i:i + 1], go)
+                             for i in range(MAX_ROWS)])
+            ms_r = time_ms(torch, lambda: plm_decode_greedy(w, tcr, go), 3)
+            ms_1 = time_ms(torch, lambda: plm_decode_greedy(w, tcr[:1], go), 3)
+        same_r = [bool(torch.equal(got[i], one[i])) for i in range(MAX_ROWS)]
+        line["rows"].append({
+            "T": tr, "rows": MAX_ROWS, "ms": ms_r, "one_row_ms": ms_1,
+            "ms_per_row": ms_r / MAX_ROWS, "launches": counts[0],
+            "rows_per_launch": counts[1] / counts[0],
+            "rows_equal_one_row_launch": same_r,
+            "split": plm_split_bf16(torch, w, tcr, go)})
+        if not all(same_r) or counts != (1, MAX_ROWS):
+            print(json.dumps(line), flush=True)
+            fail(f"plm_decode bf16 {MAX_ROWS} rows T={tr}: rows equal their "
+                 f"one-row launches {same_r}, launches and rows {counts}")
+
+    # greedy batch through the public decode
     tcb = torch.randn(BATCH_ROWS, t, 256, generator=gen).to(dev)
     for dt, key in ((torch.float32, "plm_decode"), (bf, "plm_decode_bf16")):
         with torch.inference_mode():
@@ -1545,12 +1576,12 @@ def plm_bf16_phase(torch, dev):
               "ms": batch_ms}
         print(json.dumps(ln), flush=True)
         want = dict.fromkeys(counts, 0)
-        want[key] = BATCH_ROWS
+        want[key] = BATCH_ROWS if dt == torch.float32 else -(-BATCH_ROWS // MAX_ROWS)
         if counts != want:
-            fail(f"per-row decode {dt}: kernel calls {counts}, expected {want}")
+            fail(f"batch decode {dt}: kernel calls {counts}, expected {want}")
         margin = TF_MARGIN if dt == torch.float32 else BF16_MARGIN
         if not gap_b <= margin * scale_b:
-            fail(f"per-row decode {dt}: teacher-forced gap {gap_b} > "
+            fail(f"batch decode {dt}: teacher-forced gap {gap_b} > "
                  f"{margin} x {scale_b}")
         line["launches" if dt == bf else "launches_f32"] = counts[key]
     return line
@@ -1820,7 +1851,8 @@ class LaunchShapes:
     the shape. Keys: ("aa_snakebeta", B, T, C, activation bytes),
     ("snake_conv", B, T, C, k, d, with the residual, io flags),
     ("triple_avg" | "triple_post", B, T, C, output bytes), ("plm_decode", T,
-    weight bytes, cache bytes); each with the path that first launched it.
+    weight bytes, cache bytes[, rows a bf16 launch]); each with the path
+    that first launched it.
     Activation bytes 2 and io flags > 0 are the bf16 configuration."""
 
     def __init__(self, cuda_lib):
@@ -1858,7 +1890,7 @@ class LaunchShapes:
         elif name == "plm_decode_fwd":
             key = ("plm_decode", a[17], a[28], a[29])
         elif name == "plm_decode_bf16_fwd":
-            key = ("plm_decode", a[17], 2, 2)
+            key = ("plm_decode", a[17], 2, 2, a[26])
         else:
             return
         self.seen.setdefault(key, self.path)
@@ -2007,12 +2039,13 @@ def serve_batch_phase(torch, pipe, prompt, ls, shapes):
     texts with one shared prompt, then SPEAKER_ROWS of them with one
     bucketed synthetic speaker each (prepare_prompt(bucket=True)). Each
     batch is warmed up, then run once with its counts zeroed (one tts
-    call's, with a plm_decode_bf16 launch per row) and timed on the host
+    call's, with a plm_decode_bf16 launch per MAX_ROWS rows) and timed on the host
     clock; each row is held against its own tts(exact=False) call
     (check_rows: fed the row's codes where a checked near tie flipped), and the
     batch's served codes at the bf16 decode's gate (ServedCodes). Last, the
     shared-prompt batch once more under the profiler."""
     from megatts2_hierspeechpp_torch.ops import cuda_lib
+    from megatts2_hierspeechpp_torch.ops.plm_decode import MAX_ROWS
 
     kw = dict(length_scale=ls, output_sr=48000, noise_scale_vc=0.0, seed=3)
     texts = serve_texts(pipe, prompt, ls, BATCH_ROWS)
@@ -2040,7 +2073,7 @@ def serve_batch_phase(torch, pipe, prompt, ls, shapes):
             args["texts"], args.get("prompts") or prompt, ls)]
         rows = check_rows(torch, pipe, label, args, prompt, kw, outs, singles,
                           frames, codes, alone)
-        want = dict(TTS_CALLS, plm_decode_bf16=b)
+        want = dict(TTS_CALLS, plm_decode_bf16=-(-b // MAX_ROWS))
         audio_s = sum(len(o) for o in outs) / 48000
         line = {"phase": "serve_batch", "prompts": label, "rows": b,
                 "frames": frames, "ms": ms, "audio_s": audio_s,
@@ -2361,19 +2394,20 @@ def new_shapes_phase(torch, dev, shapes):
                         torch, dev, b, t, c, [(k, d)]))
                 kind = "snake_conv_bf16" if mma else "snake_conv"
                 del x, res, y, ref
-            else:  # plm_decode at a new length
-                _, t, wb, cb = key
+            else:  # plm_decode at a new length (and rows a launch)
+                _, t, wb, cb, *rows = key
                 if model is None:
                     model = ProsodyLM(seed=99, device=dev)
                 dts = {4: torch.float32, 2: torch.bfloat16}
-                tc = randn(1, t, 256)
+                tc = randn(rows[0] if rows else 1, t, 256)
                 codes = plm_decode_greedy(model.packed(), tc, model.go_id,
                                           dts[wb], dts[cb])
                 err, scale = (teacher_forced_gap(model, tc, codes) if wb == cb == 4
                               else plain_gap(model.packed(), tc, codes,
                                              model.go_id, dts[wb], dts[cb]))
                 kind = "plm_gap" if wb == cb == 4 else "plm_gap_bf16"
-                line.update(shape=f"T={t} weight bytes {wb} cache bytes {cb}")
+                line.update(shape=f"T={t} weight bytes {wb} cache bytes {cb}"
+                                  f" rows {tc.shape[0]}")
         bf16_io = kind == "snake_conv_bf16" or (
             kind in ("aa_snakebeta", "triple_avg", "triple_post") and key[-1] == 2)
         if bf16_io:  # the bf16 configuration: bf16_check's single rounding
@@ -2431,7 +2465,8 @@ def new_shapes_phase(torch, dev, shapes):
 
 
 GROUPS = (  # (group, substrings of kernel names), first match wins
-    ("plm_decode (ours)", ("plm_decode_kernel", "plm_decode_bf16_kernel")),
+    ("plm_decode (ours)", ("plm_decode_kernel", "plm_decode_bf16_kernel",
+                           "plm_decode_rows_kernel")),
     ("aa_snakebeta (ours)", ("aa_snakebeta_kernel", "aa_snakebeta_bf16_kernel")),
     ("snake_conv (ours)", ("snake_conv_kernel", "snake_conv_bf16_kernel")),
     ("triple_epilogue (ours)", ("triple_avg_kernel", "triple_post_kernel",

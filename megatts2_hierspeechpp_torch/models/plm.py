@@ -19,10 +19,12 @@ the same input, no causal mask), kept for its checkpoints.
 float32, as the JAX kernel takes a bf16 one) on the card goes to the
 kernel wrapper (`ops/plm_decode.py`) at the kernel's defaults, bf16
 weights and bf16 KV cache, the JAX package's serving configuration; a
-batch of B rows is B such calls, one per row (greedy causal decode is
-independent per row). On the CPU the greedy rows, and top-k sampling
-anywhere, take the plain KV-cached loop in float32, the JAX float32
-scan's counterpart. A caller's weight / cache dtypes hold on every route.
+batch of B rows goes in groups of up to MAX_ROWS rows, one launch a group,
+each row's codes its own one-row launch's (greedy causal decode is
+independent per row); other dtypes go one row a launch. On the CPU the
+greedy rows, and top-k sampling anywhere, take the plain KV-cached loop in
+float32, the JAX float32 scan's counterpart. A caller's weight / cache
+dtypes hold on every route.
 
 `dtype` (None: float32) is the JAX modules' compute dtype of the training
 forwards: the projections, the attention products and the softmax take it
@@ -44,6 +46,7 @@ from megatts2_hierspeechpp_torch.nn.attention import Encoder
 from megatts2_hierspeechpp_torch.nn.basic import Dropout, Linear
 from megatts2_hierspeechpp_torch.nn.init import init_weights
 from megatts2_hierspeechpp_torch.ops.plm_decode import (
+    MAX_ROWS,
     PLMWeights,
     plain_decode,
     plm_decode_greedy,
@@ -321,23 +324,38 @@ def decode(model: ProsodyLM, tc_latent: torch.Tensor, top_k: int = 0,
     (ops/pallas_plm_decode.py:310).
 
     Routed as the JAX `decode` routes it: a greedy decode on the card runs
-    the decode kernel once per row at the kernel's defaults, bf16 weights
-    and bf16 cache (plm_decode_bf16.cu), as JAX sends a B = 1 greedy decode
-    to its kernel; on the CPU (row by row) and for sampling the plain loop
-    runs in float32, the counterpart of the JAX float32 scan. An explicit
-    `weight_dtype` / `cache_dtype` holds on either route. (JAX decodes a
-    B > 1 batch in its scan; here each row is decoded as JAX decodes a
-    B = 1 request.) The span plm.decode."""
-    with annotate("plm.decode"):
+    the decode kernel at the kernel's defaults, bf16 weights and bf16 cache
+    (plm_decode_bf16.cu), as JAX sends a B = 1 greedy decode to its kernel,
+    the rows in order in groups of up to MAX_ROWS, one launch a group, each
+    row's codes those of its own one-row launch; any other dtype pair one
+    row a launch (plm_decode.cu); on the CPU (row by row) and for sampling
+    the plain loop runs in float32, the counterpart of the JAX float32 scan.
+    An explicit `weight_dtype` / `cache_dtype` holds on either route. (JAX
+    decodes a B > 1 batch in its scan; here each row is decoded as JAX
+    decodes a B = 1 request.) The span plm.decode, its args the rows and
+    the kernel wrapper's calls."""
+    f32, bf = torch.float32, torch.bfloat16
+    if top_k:
+        with annotate("plm.decode"):
+            return plain_decode(model.packed(), tc_latent.float(), model.go_id,
+                                top_k, temperature, generator,
+                                weight_dtype or f32, cache_dtype or f32)
+    on_card = tc_latent.device.type != "cpu"
+    if not on_card:
+        weight_dtype, cache_dtype = weight_dtype or f32, cache_dtype or f32
+    dts = {k: v for k, v in (("weight_dtype", weight_dtype),
+                             ("cache_dtype", cache_dtype)) if v is not None}
+    step = (MAX_ROWS if on_card and (weight_dtype or bf) == (cache_dtype or bf) == bf
+            else 1)
+    rows = tc_latent.shape[0]
+    with annotate("plm.decode", (rows, -(-rows // step)), _decode_args):
         w = model.packed()
         tc_latent = tc_latent.float()
-        f32 = torch.float32
-        if top_k:
-            return plain_decode(w, tc_latent, model.go_id, top_k, temperature,
-                                generator, weight_dtype or f32, cache_dtype or f32)
-        if tc_latent.device.type == "cpu":
-            weight_dtype, cache_dtype = weight_dtype or f32, cache_dtype or f32
-        dts = {k: v for k, v in (("weight_dtype", weight_dtype),
-                                 ("cache_dtype", cache_dtype)) if v is not None}
-        return torch.cat([plm_decode_greedy(w, tc_latent[i:i + 1], model.go_id, **dts)
-                          for i in range(tc_latent.shape[0])])
+        return torch.cat([plm_decode_greedy(w, tc_latent[i:i + step],
+                                            model.go_id, **dts)
+                          for i in range(0, rows, step)])
+
+
+def _decode_args(a: tuple) -> str:
+    """plm.decode's args: the rows and the kernel wrapper's calls."""
+    return f"rows={a[0]} launches={a[1]}"

@@ -16,7 +16,8 @@ the vocoder kernels' bf16 configuration counts under its own `_bf16` key
 `triple_post_bf16.cu`), as the decode's bf16 weights and
 cache do (`plm_decode_bf16.cu`; the mixed pairs run `plm_decode.cu` and
 count as `plm_decode`). CPU calls, which take the plain versions, do not
-count.
+count. `ROWS` counts the rows those `plm_decode_bf16` launches decoded (up
+to ops/plm_decode.MAX_ROWS a launch); `reset_launches` clears both.
 """
 from __future__ import annotations
 
@@ -40,6 +41,7 @@ NVCC_FLAGS = ARCH_FLAGS + ["-O3", "-std=c++17", "-Xcompiler", "-fPIC",
 LAUNCHES = {"aa_snakebeta": 0, "ampblock": 0, "amp_triple": 0,
             "plm_decode": 0, "plm_decode_bf16": 0, "aa_snakebeta_bf16": 0,
             "ampblock_bf16": 0, "amp_triple_bf16": 0}
+ROWS = {"plm_decode_bf16": 0}
 # activation dtypes of the vocoder kernels: float32, or the bf16
 # configuration (bf16 in and out, float32 inside)
 ACT_DTYPES = (torch.float32, torch.bfloat16)
@@ -73,11 +75,11 @@ _SIGNATURES = {
     # xch_pairs, wbytes, cbytes, stream
     "plm_decode_fwd": [_P] * 17 + [_I] * 13 + [_P],
     # tc, pe, emb, wqkv, bqkv, wo, bo, ln, ff0, ff0b, ff1, ff1b, pred, cache,
-    # xch, codes, stamps, T, L, D, TC, H, F, BINS, go_id, cluster,
+    # xch, codes, stamps, T, L, D, TC, H, F, BINS, go_id, cluster, rows,
     # smem_bytes, xch_pairs, stream
-    "plm_decode_bf16_fwd": [_P] * 17 + [_I] * 11 + [_P],
-    # cluster, smem_bytes, &max_active_clusters
-    "plm_decode_bf16_clusters": [_I, _I, _P],
+    "plm_decode_bf16_fwd": [_P] * 17 + [_I] * 12 + [_P],
+    # cluster, rows, smem_bytes, &max_active_clusters
+    "plm_decode_bf16_clusters": [_I, _I, _I, _P],
     # iscratch, n, stream
     "plm_barrier_probe": [_P, _I, _P],
 }
@@ -86,8 +88,9 @@ _lib = None
 
 
 def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    for counts in (LAUNCHES, ROWS):
+        for k in counts:
+            counts[k] = 0
 
 
 def _nvcc() -> str:

@@ -38,6 +38,11 @@ inside a layer through distributed shared memory and mbarriers, between
 layers through L2 (see the source). `cluster_plan` is its per-CTA layout
 at a cluster size, `cluster_choice` the size the card can run; a shape
 that fits no size raises ValueError, with no fallback to `plm_decode.cu`.
+That kernel also decodes up to MAX_ROWS rows of one length in one launch,
+row j in column j of every product's B fragment (its multi-row layout:
+`cluster_plan(..., columns=MAX_ROWS)` at the one-row launch's cluster
+size, `rows_choice`), each row's codes bit for bit its one-row launch's;
+`models/plm.decode` sends a bf16 batch in groups of MAX_ROWS.
 The mixed configurations stay on `plm_decode.cu`, where bf16 halves a
 block's share of the matrices (`plan`). `plain_gap` checks greedy codes
 against the plain loop in either dtype;
@@ -75,6 +80,12 @@ MAX_HEAD_DIM = 96
 MAX_KEY_CHUNK = 128
 KEY_CHUNK_STEP = 16
 WARPS = 16
+THREADS = 32 * WARPS
+# its multi-row kernel: the columns (rows a launch at most), the keys of a
+# warp's four-key softmax steps (the key chunk), and the key stages' ring
+MAX_ROWS = 4
+GROUP_KEYS = 4 * WARPS
+RING_SLOTS = 2
 STAMP_COLUMNS = ("ready", "qkv_out", "qkv_in", "part_out", "part_in",
                  "xc_out", "xc_in", "h_out", "h_in", "e_out", "xl_in",
                  "arg_out", "wall", "ln1", "qkv_rows", "ln2", "ff0_rows")
@@ -152,8 +163,8 @@ def check_plan(d: int, f: int, n_layers: int, bins: int, grid: int,
 
 @functools.lru_cache(maxsize=64)
 def cluster_plan(d: int, f: int, n_layers: int, bins: int, n_heads: int,
-                 cluster: int, weight_dtype: torch.dtype = torch.bfloat16
-                 ) -> dict:
+                 cluster: int, weight_dtype: torch.dtype = torch.bfloat16,
+                 columns: int = 1) -> dict:
     """The bf16 kernel's per-CTA layout at cluster size `cluster` (`make_plan`
     in csrc/plm_decode_bf16.cu, which checks "bytes" and "pairs" against its
     own), or ValueError when it does not fit: the matrices' row blocks per
@@ -162,13 +173,21 @@ def cluster_plan(d: int, f: int, n_layers: int, bins: int, n_heads: int,
     units), head rows padded to "hdp", key splits per head ("nsplit"), keys
     per staged chunk ("key_chunk"), the CTA's dynamic shared memory in bytes
     (at most SMEM_LIMIT with the static arrays) and the exchange buffer's
-    length in 64-bit pairs. Only bf16 weights have this plan."""
+    length in 64-bit pairs. Only bf16 weights have this plan.
+
+    `columns` 1 is the one-row kernel's layout; 2 to MAX_ROWS the multi-row
+    kernel's at that many columns (per row: x, which also holds xc and the
+    logits' input, qkv, the partials, which h follows, and the products'
+    bf16 input; pred passes through a ring of RING_SLOTS stages of
+    GROUP_KEYS keys instead of staying resident)."""
     if weight_dtype != torch.bfloat16:
         raise ValueError("plm_decode_bf16: the cluster plan is for bf16 "
                          f"weights only, got {weight_dtype}")
     if cluster not in CLUSTER_SIZES:
         raise ValueError(f"plm_decode_bf16: cluster size {cluster} not in "
                          f"{CLUSTER_SIZES}")
+    if columns < 1:
+        raise ValueError(f"plm_decode_bf16: {columns} columns")
     hd = d // n_heads
     if d % n_heads or d % 4 or f % 4 or hd > MAX_HEAD_DIM or n_heads > cluster:
         raise ValueError(f"plm_decode_bf16 does not take D={d}, F={f}, "
@@ -178,42 +197,58 @@ def cluster_plan(d: int, f: int, n_layers: int, bins: int, n_heads: int,
               "pred": _up4(_cdiv(bins, cluster))}
     rd, rf = _up(d, 8), _up(f, 8)
     hdp, nsplit, ps = _up(hd, 8), cluster // n_heads, _up4(hd + 2)
-    weights = ((blocks["wqkv"] + blocks["wo"] + blocks["ff0"] + blocks["pred"])
-               * rd + blocks["ff1"] * rf)  # bf16 elements, a multiple of 8
-    floats = (weights // 2 + 4 * d
-              + _up4(blocks["wqkv"] + blocks["wo"] + blocks["ff0"] + blocks["ff1"])
-              + 3 * rd + _up4(3 * d) + rf        # x xc xl, qkv, h
-              + _up(max(rd, rf), 16) // 2        # the products' bf16 input
-              + n_heads * nsplit * ps + WARPS * ps    # partials, warp states
-              + WARPS * 16)                           # products' split-K sums
-    avail = max(0, SMEM_LIMIT - STATIC_SMEM - 4 * floats)
-    key_chunk = min(MAX_KEY_CHUNK, avail // (4 * hdp)) // KEY_CHUNK_STEP * KEY_CHUNK_STEP
-    if key_chunk < KEY_CHUNK_STEP:
+    layer = ((blocks["wqkv"] + blocks["wo"] + blocks["ff0"]) * rd
+             + blocks["ff1"] * rf)  # bf16 elements, a multiple of 8
+    n_bias = _up4(blocks["wqkv"] + blocks["wo"] + blocks["ff0"] + blocks["ff1"])
+    vb = _up(max(rd, rf), 16) // 2   # the products' bf16 input
+    if columns == 1:
+        floats = ((layer + blocks["pred"] * rd) // 2 + 4 * d + n_bias
+                  + 3 * rd + _up4(3 * d) + rf        # x xc xl, qkv, h
+                  + vb
+                  + n_heads * nsplit * ps + WARPS * ps    # partials, warp states
+                  + WARPS * 16)                           # products' split-K sums
+        avail = max(0, SMEM_LIMIT - STATIC_SMEM - 4 * floats)
+        key_chunk = (min(MAX_KEY_CHUNK, avail // (4 * hdp))
+                     // KEY_CHUNK_STEP * KEY_CHUNK_STEP)
+        nbytes = 4 * floats + 4 * hdp * key_chunk
+        fits = key_chunk >= KEY_CHUNK_STEP
+    else:
+        outs = _up4(max(blocks["pred"], blocks["wo"], blocks["ff1"]))
+        row = rd + _up4(3 * d) + max(n_heads * nsplit * ps, rf) + vb + outs
+        floats = (layer // 2 + 4 * d + n_bias + columns * row
+                  + max(WARPS * 16 * columns, columns * WARPS * ps))
+        stage = max(RING_SLOTS * GROUP_KEYS * hdp, blocks["pred"] * rd // 2)
+        key_chunk, nbytes = GROUP_KEYS, 4 * (floats + stage)
+        fits = (nbytes + STATIC_SMEM <= SMEM_LIMIT
+                and max(blocks["wqkv"], blocks["ff0"], outs) <= THREADS // columns)
+    if not fits:
         raise ValueError(
             f"plm_decode_bf16: a CTA's share does not fit its shared memory "
-            f"at cluster size {cluster} (D={d}, F={f}, bins={bins}: "
-            f"{4 * floats + STATIC_SMEM} B before the key stages, of "
-            f"{SMEM_LIMIT})")
+            f"at cluster size {cluster}, {columns} columns (D={d}, F={f}, "
+            f"bins={bins}: {4 * floats + STATIC_SMEM} B before the key "
+            f"stages, of {SMEM_LIMIT})")
     return {"blocks": blocks, "rd": rd, "rf": rf, "hd": hd, "hdp": hdp,
-            "nsplit": nsplit, "key_chunk": key_chunk,
-            "bytes": 4 * floats + 4 * hdp * key_chunk,
-            "pairs": 2 * ((n_layers - 1) * d + 2 * cluster)}
+            "nsplit": nsplit, "key_chunk": key_chunk, "columns": columns,
+            "bytes": nbytes,
+            "pairs": 2 * columns * ((n_layers - 1) * d + 2 * cluster)}
 
 
 def cache_shape(n_layers: int, n_heads: int, nsplit: int, t: int,
                 hdp: int) -> tuple:
-    """The bf16 kernel's KV cache: (L, H, nsplit, cdiv(T, nsplit), 2, hdp);
-    key k of head h in split k % nsplit at slot k // nsplit."""
+    """A row's KV cache in the bf16 kernel: (L, H, nsplit, cdiv(T, nsplit),
+    2, hdp); key k of head h in split k % nsplit at slot k // nsplit. A
+    launch of R rows takes (R, *cache_shape)."""
     return (n_layers, n_heads, nsplit, _cdiv(t, nsplit), 2, hdp)
 
 
 def cache_index(layer: int, token: int, kv: int, head: int, dim: int,
-                shape: tuple) -> int:
-    """Flat index of (layer, token, k or v, head, dim) in a cache of
-    `shape` (cache_shape)."""
-    _, n_heads, nsplit, slots, _, hdp = shape
-    return (((((layer * n_heads + head) * nsplit + token % nsplit) * slots
-              + token // nsplit) * 2 + kv) * hdp + dim)
+                shape: tuple, row: int = 0) -> int:
+    """Flat index of (layer, token, k or v, head, dim) of row `row` in the
+    caches of a launch, each of `shape` (cache_shape)."""
+    n_layers, n_heads, nsplit, slots, _, hdp = shape
+    return ((((((row * n_layers + layer) * n_heads + head) * nsplit
+               + token % nsplit) * slots + token // nsplit) * 2 + kv) * hdp
+            + dim)
 
 
 def pick_cluster(d: int, f: int, n_layers: int, bins: int, n_heads: int,
@@ -238,7 +273,36 @@ def pick_cluster(d: int, f: int, n_layers: int, bins: int, n_heads: int,
                      + "; ".join(why))
 
 
+def pick_rows(d: int, f: int, n_layers: int, bins: int, n_heads: int,
+              cluster: int, max_active) -> Optional[dict]:
+    """The multi-row kernel's plan (MAX_ROWS columns) at the one-row
+    launch's cluster size `cluster`, or None where its rows could not keep
+    their one-row launches' codes or it cannot run: the one-row key chunk
+    is not a multiple of GROUP_KEYS (its four-key softmax steps would group
+    other keys), the plan does not fit, or the card holds fewer than
+    n_layers clusters of it (max_active(size, bytes))."""
+    if cluster_plan(d, f, n_layers, bins, n_heads, cluster)["key_chunk"] % GROUP_KEYS:
+        return None
+    try:
+        layout = cluster_plan(d, f, n_layers, bins, n_heads, cluster,
+                              columns=MAX_ROWS)
+    except ValueError:
+        return None
+    return layout if max_active(cluster, layout["bytes"]) >= n_layers else None
+
+
 _CHOICE: dict = {}
+
+
+def _max_active(device: torch.device, columns: int, seen: dict):
+    def max_active(n, nbytes):
+        out = ctypes.c_int(0)
+        with torch.cuda.device(device):
+            cuda_lib.call("plm_decode_bf16_clusters", n, columns, nbytes,
+                          ctypes.byref(out))
+        seen[n] = out.value
+        return out.value
+    return max_active
 
 
 def cluster_choice(d: int, f: int, n_layers: int, bins: int, n_heads: int,
@@ -248,17 +312,23 @@ def cluster_choice(d: int, f: int, n_layers: int, bins: int, n_heads: int,
     key = (torch.cuda.get_device_name(device), d, f, n_layers, bins, n_heads)
     if key not in _CHOICE:
         seen = {}
-
-        def max_active(n, nbytes):
-            out = ctypes.c_int(0)
-            with torch.cuda.device(device):
-                cuda_lib.call("plm_decode_bf16_clusters", n, nbytes,
-                              ctypes.byref(out))
-            seen[n] = out.value
-            return out.value
-
-        n, layout = pick_cluster(d, f, n_layers, bins, n_heads, max_active)
+        n, layout = pick_cluster(d, f, n_layers, bins, n_heads,
+                                 _max_active(device, 1, seen))
         _CHOICE[key] = (n, layout, seen)
+    return _CHOICE[key]
+
+
+def rows_choice(d: int, f: int, n_layers: int, bins: int, n_heads: int,
+                device: torch.device) -> Optional[dict]:
+    """pick_rows on `device` at cluster_choice's size (queried once per
+    device and shape): the multi-row kernel's plan, or None where a launch
+    of several rows goes row by row."""
+    key = ("rows", torch.cuda.get_device_name(device), d, f, n_layers, bins,
+           n_heads)
+    if key not in _CHOICE:
+        n = cluster_choice(d, f, n_layers, bins, n_heads, device)[0]
+        _CHOICE[key] = pick_rows(d, f, n_layers, bins, n_heads, n,
+                                 _max_active(device, MAX_ROWS, {}))
     return _CHOICE[key]
 
 
@@ -482,6 +552,8 @@ def _launch(w: PLMWeights, tc_latent: torch.Tensor, go_id: int,
         raise ValueError("plm_decode needs T >= 1")
     if wbytes == cbytes == 2:
         return _launch_bf16(w, tc_latent, go_id, stamps)
+    if tc_latent.shape[0] != 1:
+        raise ValueError("plm_decode.cu decodes one row a launch")
     if d % 4 or f % 4 or d % h or d > 512 or tc_dim >= d or h > MAX_PARTS:
         raise ValueError(f"plm_decode kernel does not take D={d}, F={f}, H={h}")
     grid = min(torch.cuda.get_device_properties(dev).multi_processor_count,
@@ -506,51 +578,70 @@ def _launch(w: PLMWeights, tc_latent: torch.Tensor, go_id: int,
 
 def _launch_bf16(w: PLMWeights, tc_latent: torch.Tensor, go_id: int,
                  stamps: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """One launch of csrc/plm_decode_bf16.cu: bf16 weights and cache."""
+    """csrc/plm_decode_bf16.cu, bf16 weights and cache: the R =
+    tc_latent.shape[0] rows (1 to MAX_ROWS) in one token loop, one launch;
+    row by row where the multi-row kernel does not run on this card
+    (rows_choice)."""
     dev = tc_latent.device
-    _, t, tc_dim = tc_latent.shape
+    rows, t, tc_dim = tc_latent.shape
     n_layers, d = w.wo.shape[0], w.wo.shape[1]
     f, bins = w.ff0.shape[1], w.pred.shape[0]
     h = w.n_heads
     if d > 512 or tc_dim >= d:
         raise ValueError(f"plm_decode_bf16 does not take D={d}, TC={tc_dim}")
+    if not 1 <= rows <= MAX_ROWS:
+        raise ValueError(f"plm_decode_bf16 takes 1 to {MAX_ROWS} rows a "
+                         f"launch, got {rows}")
     n, layout = cluster_choice(d, f, n_layers, bins, h, dev)[:2]
+    if rows > 1:
+        layout = rows_choice(d, f, n_layers, bins, h, dev)
+        if layout is None:
+            return torch.cat([_launch_bf16(w, tc_latent[i:i + 1], go_id, stamps)
+                              for i in range(rows)])
     pe, weights = _kernel_inputs(w, tc_latent, layout["rd"], layout["rf"],
                                  torch.bfloat16)
-    cache = torch.empty(cache_shape(n_layers, h, layout["nsplit"], t,
-                                    layout["hdp"]),
+    cache = torch.empty((rows,) + cache_shape(n_layers, h, layout["nsplit"], t,
+                                              layout["hdp"]),
                         dtype=torch.bfloat16, device=dev)
     # epochs start at 1: a zeroed buffer holds no stale pair
     xch = torch.zeros(layout["pairs"], dtype=torch.int64, device=dev)
-    codes = torch.empty(t, dtype=torch.int32, device=dev)
+    codes = torch.empty(rows, t, dtype=torch.int32, device=dev)
     p = cuda_lib.ptr
     cuda_lib.call("plm_decode_bf16_fwd", p(tc_latent), p(pe),
                   *map(p, weights), p(cache), p(xch), p(codes), p(stamps), t,
-                  n_layers, d, tc_dim, h, f, bins, go_id, n, layout["bytes"],
-                  layout["pairs"], cuda_lib.stream(dev))
+                  n_layers, d, tc_dim, h, f, bins, go_id, n, rows,
+                  layout["bytes"], layout["pairs"], cuda_lib.stream(dev))
     cuda_lib.LAUNCHES["plm_decode_bf16"] += 1
-    return codes[None]
+    cuda_lib.ROWS["plm_decode_bf16"] += rows
+    return codes
 
 
 def plm_decode_greedy(w: PLMWeights, tc_latent: torch.Tensor,
                       go_id: int = 1024,
                       weight_dtype: torch.dtype = torch.bfloat16,
                       cache_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
-    """Greedy decode, tc_latent (1, T, TC) float32 -> codes (1, T) int32.
+    """Greedy decode, tc_latent (B, T, TC) float32 -> codes (B, T) int32.
 
-    CUDA tensors run a kernel (B=1, any T >= 1): bf16 weights and cache
-    csrc/plm_decode_bf16.cu, every other configuration csrc/plm_decode.cu;
-    CPU tensors run the plain version in the same dtypes. Weights and cache
-    in bf16 (the default, the TPU kernel's serving configuration,
-    `pallas_plm_decode.plm_decode_greedy`) or float32; a launch counts
-    under its source: `plm_decode_bf16` for bf16 weights and cache,
-    `plm_decode` for every other pair."""
-    if tc_latent.dim() != 3 or tc_latent.shape[0] != 1:
+    CUDA tensors run a kernel (any T >= 1): bf16 weights and cache
+    csrc/plm_decode_bf16.cu, B = 1 to MAX_ROWS rows in one launch, each
+    row's codes its own one-row launch's; every other configuration
+    csrc/plm_decode.cu, B = 1. CPU tensors run the plain version in the same
+    dtypes, row by row. Weights and cache in bf16 (the default, the TPU
+    kernel's serving configuration, `pallas_plm_decode.plm_decode_greedy`)
+    or float32; a launch counts under its source: `plm_decode_bf16` for
+    bf16 weights and cache (its rows in `cuda_lib.ROWS`), `plm_decode` for
+    every other pair."""
+    bf16 = weight_dtype == cache_dtype == torch.bfloat16
+    if (tc_latent.dim() != 3 or not 1 <= tc_latent.shape[0] <= MAX_ROWS
+            or (tc_latent.shape[0] > 1 and not bf16)):
         raise ValueError(
-            f"plm_decode takes tc_latent (1, T, C), got {tuple(tc_latent.shape)}")
+            f"plm_decode takes tc_latent (B, T, C), B = 1 (1 to {MAX_ROWS} "
+            f"with bf16 weights and cache), got {tuple(tc_latent.shape)}")
     if tc_latent.device.type == "cpu":
-        return plain_decode(w, tc_latent, go_id, weight_dtype=weight_dtype,
-                            cache_dtype=cache_dtype)
+        return torch.cat([plain_decode(w, tc_latent[i:i + 1], go_id,
+                                       weight_dtype=weight_dtype,
+                                       cache_dtype=cache_dtype)
+                          for i in range(tc_latent.shape[0])])
     if tc_latent.device.type != "cuda":
         raise ValueError(f"unsupported device {tc_latent.device}")
     return _launch(w, tc_latent.contiguous(), go_id, None, weight_dtype,
@@ -562,8 +653,9 @@ def phase_stamps(w: PLMWeights, tc_latent: torch.Tensor,
                  weight_dtype: torch.dtype = torch.bfloat16,
                  cache_dtype: torch.dtype = torch.bfloat16
                  ) -> tuple[torch.Tensor, torch.Tensor]:
-    """One kernel launch that also records clocks: (codes (1, T), stamps
-    int64). Counts as a launch. The dtypes default as plm_decode_greedy's.
+    """One kernel launch that also records clocks: (codes (B, T), stamps
+    int64). Counts as a launch. The dtypes and rows as plm_decode_greedy's
+    (B > 1: the multi-row kernel, whose stamps are the same columns).
 
     float32 and the mixed configurations (plm_decode.cu): stamps (T, 5L + 1,
     3), block 0's clocks twice per phase. Phase k of layer i is row 5i + k

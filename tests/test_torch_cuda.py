@@ -54,7 +54,7 @@ from megatts2_hierspeechpp_torch.nn.conv import conv1d_op
 from megatts2_hierspeechpp_torch.ops import amp_triple, ampblock, cuda_lib, snake
 from megatts2_hierspeechpp_torch.ops.f0 import yin_f0
 from megatts2_hierspeechpp_torch.ops.plm_decode import (
-    plain_decode, plain_gap, plm_decode_greedy)
+    MAX_ROWS, plain_decode, plain_gap, plm_decode_greedy)
 from megatts2_hierspeechpp_torch.ops.resample import activation1d
 from megatts2_hierspeechpp_torch.ops.stft import mag_pha_stft
 
@@ -413,9 +413,10 @@ def test_plm_decode_bf16_kernel_matches_its_plain_twin(dev, t, wdt, cdt):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_plm_decode_per_row_batch(dev, dtype):
-    """A greedy batch decodes row by row: B kernel launches, never the
-    plain loop; each row's codes are its own single-row decode's, and pass
-    the teacher-forced check against plain_decode's batch."""
+    """A greedy batch of 4 rows: float32 one kernel launch a row, bf16 one
+    launch of all 4 (ceil(B / MAX_ROWS)), never the plain loop; each row's
+    codes are its own single-row decode's, and pass the teacher-forced
+    check against plain_decode's batch."""
     model = plm.ProsodyLM(seed=6, device="cuda")
     tc = _rand(np.random.default_rng(11), dev, 4, 120, 256)
     key = "plm_decode" if dtype == torch.float32 else "plm_decode_bf16"
@@ -423,7 +424,8 @@ def test_plm_decode_per_row_batch(dev, dtype):
     with torch.inference_mode():
         got = plm.decode(model, tc, weight_dtype=dtype, cache_dtype=dtype)
         torch.cuda.synchronize()
-        assert cuda_lib.LAUNCHES[key] == 4
+        assert cuda_lib.LAUNCHES[key] == (4 if dtype == torch.float32
+                                          else -(-4 // MAX_ROWS))
         for i in range(4):
             assert torch.equal(plm.decode(model, tc[i:i + 1], weight_dtype=dtype,
                                           cache_dtype=dtype), got[i:i + 1])
@@ -436,15 +438,17 @@ def test_plm_decode_per_row_batch(dev, dtype):
 @pytest.mark.cuda
 def test_plm_decode_serves_the_bf16_kernel_by_default(dev):
     """models/plm.decode of a greedy batch on the card runs plm_decode_bf16
-    once per row at the wrapper's defaults (bf16 weights and cache), the
-    float32 kernel never; each row equals the wrapper's own call."""
+    at the wrapper's defaults (bf16 weights and cache), ceil(B / MAX_ROWS)
+    launches of all B rows, the float32 kernel never; each row equals the
+    wrapper's own one-row call."""
     model = plm.ProsodyLM(seed=8, device="cuda")
     tc = _rand(np.random.default_rng(13), dev, 3, 60, 256)
     cuda_lib.reset_launches()
     with torch.inference_mode():
         got = plm.decode(model, tc)
         torch.cuda.synchronize()
-        assert cuda_lib.LAUNCHES["plm_decode_bf16"] == 3
+        assert cuda_lib.LAUNCHES["plm_decode_bf16"] == -(-3 // MAX_ROWS)
+        assert cuda_lib.ROWS["plm_decode_bf16"] == 3
         assert cuda_lib.LAUNCHES["plm_decode"] == 0
         for i in range(3):
             assert torch.equal(plm_decode_greedy(model.packed(), tc[i:i + 1],
@@ -452,6 +456,31 @@ def test_plm_decode_serves_the_bf16_kernel_by_default(dev):
         gap, scale = plain_gap(model.packed(), tc, got, model.go_id,
                                torch.bfloat16, torch.bfloat16)
     assert gap <= BF16_MARGIN * scale, (gap, scale)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t", [1, 37, 120, 800])
+@pytest.mark.parametrize("rows", [2, 3, MAX_ROWS])
+def test_plm_decode_rows_equal_their_one_row_launches(dev, rows, t):
+    """One launch of the multi-row kernel (bf16 weights and cache) on rows
+    of different latents: each row's codes equal its own one-row launch's
+    bit for bit (the same sums in the same order, column by column), one
+    launch of `rows` rows counted, and a repeated launch gives the same
+    codes."""
+    model = plm.ProsodyLM(seed=9, device="cuda")
+    tc = _rand(np.random.default_rng(100 * rows + t), dev, rows, t, 256)
+    w = model.packed()
+    cuda_lib.reset_launches()
+    with torch.inference_mode():
+        got = plm_decode_greedy(w, tc, model.go_id)
+        torch.cuda.synchronize()
+        assert (cuda_lib.LAUNCHES["plm_decode_bf16"],
+                cuda_lib.ROWS["plm_decode_bf16"]) == (1, rows)
+        assert torch.equal(plm_decode_greedy(w, tc, model.go_id), got)
+        one = torch.cat([plm_decode_greedy(w, tc[i:i + 1], model.go_id)
+                         for i in range(rows)])
+    assert got.shape == (rows, t) and got.dtype == torch.int32
+    assert torch.equal(got, one), (got != one).sum(1).tolist()
 
 
 @pytest.mark.cuda

@@ -105,7 +105,8 @@ def test_plain_decode_batched_and_top_k(plms):
 
 def test_decode_kernel_wrapper_on_cpu_is_the_plain_version(plms):
     """On a CPU tensor the kernel wrapper takes the plain version and counts
-    no launch; it refuses a batch."""
+    no launch; it refuses a batch in float32 and more than MAX_ROWS rows in
+    bf16 (a bf16 batch up to MAX_ROWS is its rows' one-row calls)."""
     _, _, tm = plms
     tc = torch.from_numpy(_tc(9, 6))
     cuda_lib.reset_launches()
@@ -114,8 +115,12 @@ def test_decode_kernel_wrapper_on_cpu_is_the_plain_version(plms):
     assert torch.equal(tdec.plm_decode_greedy(w, tc, tm.go_id, f32, f32),
                        tdec.plain_decode(w, tc, tm.go_id))
     assert cuda_lib.LAUNCHES["plm_decode"] == 0
-    with pytest.raises(ValueError, match=r"\(1, T, C\)"):
-        tdec.plm_decode_greedy(w, torch.cat([tc, tc]), tm.go_id)
+    with pytest.raises(ValueError, match=r"\(B, T, C\), B = 1"):
+        tdec.plm_decode_greedy(w, torch.cat([tc, tc]), tm.go_id, f32, f32)
+    with pytest.raises(ValueError, match=r"\(B, T, C\), B = 1"):
+        tdec.plm_decode_greedy(w, torch.cat([tc] * (tdec.MAX_ROWS + 1)), tm.go_id)
+    assert torch.equal(tdec.plm_decode_greedy(w, torch.cat([tc, tc]), tm.go_id),
+                       torch.cat([tdec.plm_decode_greedy(w, tc, tm.go_id)] * 2))
 
 
 def test_packed_weights_are_cached_until_load():

@@ -7,7 +7,11 @@ units, a CTA's shared memory fits the H100's 232,448 bytes, the KV cache
 layout addresses every (layer, token, k/v, head, dim) once; a width that
 does not fit raises, float32 weights are refused, the cluster size is the
 largest that fits and runs L clusters at once, and the constants are the
-CUDA source's."""
+CUDA source's. The multi-row layout (`columns` > 1): one column is the
+one-row layout, every column count up to MAX_ROWS fits at 16 CTAs and one
+more does not, each row's cache addresses every entry once, and the
+multi-row kernel runs only where its rows keep their one-row launches'
+sums (`pick_rows`)."""
 import re
 from pathlib import Path
 
@@ -174,5 +178,80 @@ def test_cluster_constants_match_the_cuda_source():
     assert const("kThreads") // 32 == dec.WARPS
     for line in ("p.bq = up4(cdiv(3 * D, N));", "p.rd = upn(D, 8);",
                  "p.hdp = upn(p.hd, 8);", "p.nsplit = N / H;",
-                 "p.x_parity = (L - 1) * D + 2 * N;"):
+                 "p.x_parity = ((L - 1) * D + 2 * N) * C;"):
+        assert line in src
+
+
+def test_one_column_is_the_one_row_layout():
+    lay = dec.cluster_plan(D, F, L, BINS, H, 16, columns=1)
+    assert lay == dec.cluster_plan(D, F, L, BINS, H, 16)
+    assert (lay["bytes"], lay["key_chunk"], lay["columns"]) == (226_112, 128, 1)
+
+
+@pytest.mark.parametrize("columns", range(1, dec.MAX_ROWS + 1))
+def test_every_column_count_fits_at_16(columns):
+    lay = dec.cluster_plan(D, F, L, BINS, H, 16, columns=columns)
+    assert lay["bytes"] + dec.STATIC_SMEM <= dec.SMEM_LIMIT
+    assert lay["pairs"] == 2 * columns * ((L - 1) * D + 2 * 16)
+    if columns > 1:
+        # a chunk is one four-key step of every warp; pred's block fits the
+        # ring of stages it passes through
+        assert lay["key_chunk"] == dec.GROUP_KEYS == 4 * dec.WARPS
+        stage = 4 * dec.RING_SLOTS * dec.GROUP_KEYS * lay["hdp"]
+        assert 2 * lay["blocks"]["pred"] * lay["rd"] <= stage
+    assert {1: 226_112, 4: 231_184}.get(columns, lay["bytes"]) == lay["bytes"]
+
+
+def test_one_column_more_does_not_fit():
+    with pytest.raises(ValueError, match="shared memory"):
+        dec.cluster_plan(D, F, L, BINS, H, 16, columns=dec.MAX_ROWS + 1)
+
+
+@pytest.mark.parametrize("t", [1, 37, 500, 1100])
+def test_each_rows_cache_addresses_every_entry_once(t):
+    """A launch of MAX_ROWS rows takes (rows, *cache_shape): every (row,
+    layer, token, k/v, head, dim < hd) its own element, row r's inside its
+    own region."""
+    lay = dec.cluster_plan(D, F, L, BINS, H, 16, columns=dec.MAX_ROWS)
+    shape = dec.cache_shape(L, H, lay["nsplit"], t, lay["hdp"])
+    size = int(np.prod(shape))
+    row, layer, token, kv, head, dim = np.meshgrid(
+        np.arange(dec.MAX_ROWS), np.arange(L), np.arange(t), np.arange(2),
+        np.arange(H), np.arange(D // H), indexing="ij")
+    idx = dec.cache_index(layer, token, kv, head, dim, shape, row).ravel()
+    assert np.unique(idx).size == idx.size
+    assert ((idx // size) == row.ravel()).all()
+    assert idx.min() >= 0 and idx.max() < dec.MAX_ROWS * size
+
+
+@pytest.mark.parametrize("cluster,active,runs", [
+    (16, 7, True),    # the H100: 7 clusters of 16 at once
+    (16, 3, False),   # fewer clusters resident than layers
+    (15, 7, False),   # one-row key chunk 112: other four-key steps
+    (14, 7, False),
+    (13, 7, False),
+])
+def test_pick_rows_only_where_rows_keep_their_sums(cluster, active, runs):
+    got = dec.pick_rows(D, F, L, BINS, H, cluster, lambda n, nbytes: active)
+    if runs:
+        assert got == dec.cluster_plan(D, F, L, BINS, H, cluster,
+                                       columns=dec.MAX_ROWS)
+    else:
+        assert got is None
+
+
+def test_column_limit_matches_the_cuda_source():
+    src = (Path(dec.__file__).parents[1] / "csrc" / "plm_decode_bf16.cu").read_text()
+
+    def const(name):
+        return re.search(rf"constexpr int {name} = ([^;]+);", src).group(1)
+
+    assert int(const("kMaxRows")) == dec.MAX_ROWS
+    assert const("kGroupKeys") == "4 * kWarps" and dec.GROUP_KEYS == 4 * dec.WARPS
+    assert int(const("kRingSlots")) == dec.RING_SLOTS
+    assert "plm_decode_rows_kernel<kMaxRows>" in src
+    for line in ("p.o_ln = p.o_pred / 2;", "p.so = up4(imax(p.bp, imax(p.bo, p.b1)));",
+                 "p.sp = imax(H * p.nsplit * p.ps, p.rf);",
+                 "p.o_stage = p.o_red + imax(kWarps * 16 * C, C * kWarps * p.ps);",
+                 "const int stage = imax(kRingSlots * kGroupKeys * p.hdp, p.bp * p.rd / 2);"):
         assert line in src

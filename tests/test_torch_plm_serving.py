@@ -5,9 +5,10 @@ The JAX `decode` sends a B = 1 greedy decode on the accelerator to its
 kernel at the kernel's defaults, bf16 weights and bf16 KV cache
 (`pallas_plm_decode.plm_decode_greedy`); its CPU path and sampling are the
 float32 scan. The port's `plm_decode_greedy` takes the same defaults, and
-`models/plm.decode` routes a greedy decode on a card to it once per row
-with those defaults, the CPU and sampling to the float32 plain loop; an
-explicit dtype holds on either route. A tensor on the meta device stands
+`models/plm.decode` routes a greedy decode on a card to it with those
+defaults, a bf16 batch in groups of MAX_ROWS rows (other dtypes one row a
+call), the CPU and sampling to the float32 plain loop; an explicit dtype
+holds on either route. A tensor on the meta device stands
 for one on a card where only the route is checked.
 
 Small configuration as tests/test_torch_plm.py: ProsodyLM(n_layers=2,
@@ -116,17 +117,18 @@ class _Spy:
 
 @pytest.mark.parametrize("b", [1, 3])
 def test_card_route_is_the_kernel_per_row_at_its_defaults(plms, monkeypatch, b):
-    """A greedy decode off the CPU calls the kernel wrapper once per row
-    and passes no dtype, so the wrapper's bf16 defaults hold (each row of a
-    batch is decoded as JAX decodes a B = 1 request); an explicit pair is
-    passed on; sampling never reaches the wrapper."""
+    """A greedy decode off the CPU calls the kernel wrapper and passes no
+    dtype, so the wrapper's bf16 defaults hold: a batch of up to MAX_ROWS
+    rows in one call (each row decoded as JAX decodes a B = 1 request, its
+    codes its own one-row launch's); an explicit float32 pair is passed on,
+    one row a call; sampling never reaches the wrapper."""
     _, _, tm = plms
     kernel, plain = _Spy(), _Spy()
     monkeypatch.setattr(tplm, "plm_decode_greedy", kernel)
     monkeypatch.setattr(tplm, "plain_decode", plain)
     tc = torch.from_numpy(_tc(11, 15, b=b)).to("meta")
     assert tplm.decode(tm, tc).shape == (b, 11)
-    assert kernel.calls == [((1, 11, 44), (), {})] * b
+    assert kernel.calls == [((b, 11, 44), (), {})]
     kernel.calls.clear()
     tplm.decode(tm, tc, weight_dtype=F32, cache_dtype=F32)
     assert kernel.calls == [((1, 11, 44), (), {"weight_dtype": F32,
@@ -135,3 +137,91 @@ def test_card_route_is_the_kernel_per_row_at_its_defaults(plms, monkeypatch, b):
     tplm.decode(tm, tc, top_k=5)
     assert kernel.calls == [] and len(plain.calls) == 1
     assert plain.calls[0][1][-2:] == (F32, F32)
+
+
+class _RowSpy:
+    """Stands in for the kernel wrapper: records each call's rows and
+    dtypes, and returns as codes each row's index in the whole batch (the
+    calls' rows counted in order), so the concatenation's order shows."""
+
+    def __init__(self):
+        self.calls, self.rows = [], 0
+
+    def __call__(self, w, tc, go_id=1024, **kw):
+        b, t = tc.shape[:2]
+        self.calls.append((b, kw))
+        codes = torch.arange(self.rows, self.rows + b, dtype=torch.int32)
+        self.rows += b
+        return codes[:, None].expand(b, t)
+
+
+@pytest.mark.parametrize("b,groups", [(8, [4, 4]), (5, [4, 1]), (1, [1]),
+                                      (4, [4]), (9, [4, 4, 1])])
+def test_card_route_groups_bf16_rows(plms, monkeypatch, b, groups):
+    """bf16 weights and cache (the defaults, or named): the rows in order in
+    groups of MAX_ROWS, one wrapper call a group, concatenated in order; the
+    span's args are the rows and the calls."""
+    _, _, tm = plms
+    assert tdec.MAX_ROWS == 4
+    spans = []
+    real = tplm.annotate
+
+    def annotate(name, args=None, fmt=str):
+        spans.append((name, None if args is None else fmt(args)))
+        return real(name, args, fmt)
+
+    monkeypatch.setattr(tplm, "annotate", annotate)
+    tc = torch.from_numpy(_tc(7, 16, b=b)).to("meta")
+    for kw in ({}, {"weight_dtype": BF, "cache_dtype": BF}):
+        spy = _RowSpy()
+        monkeypatch.setattr(tplm, "plm_decode_greedy", spy)
+        got = tplm.decode(tm, tc, **kw)
+        assert [n for n, _ in spy.calls] == groups
+        assert all(k == kw for _, k in spy.calls)
+        assert torch.equal(got, torch.arange(b, dtype=torch.int32)[:, None]
+                           .expand(b, 7))
+    assert spans == [("plm.decode", f"rows={b} launches={len(groups)}")] * 2
+
+
+@pytest.mark.parametrize("kw", [{"weight_dtype": F32, "cache_dtype": F32},
+                                {"weight_dtype": BF, "cache_dtype": F32},
+                                {"weight_dtype": F32, "cache_dtype": BF},
+                                {"top_k": 3}])
+def test_other_decodes_stay_per_row(plms, monkeypatch, kw):
+    """float32, the mixed pairs and top-k sampling never group rows: one
+    wrapper call a row, or the plain loop."""
+    _, _, tm = plms
+    spy, plain = _RowSpy(), _Spy()
+    monkeypatch.setattr(tplm, "plm_decode_greedy", spy)
+    monkeypatch.setattr(tplm, "plain_decode", plain)
+    tc = torch.from_numpy(_tc(7, 17, b=8)).to("meta")
+    tplm.decode(tm, tc, **kw)
+    if "top_k" in kw:
+        assert spy.calls == [] and len(plain.calls) == 1
+    else:
+        assert [n for n, _ in spy.calls] == [1] * 8
+
+
+def test_wrapper_takes_rows_in_bf16_only(plms):
+    """The wrapper takes up to MAX_ROWS rows with bf16 weights and cache
+    (on the CPU its plain twin row by row, each row its own call's codes)
+    and one row in any other pair."""
+    _, _, tm = plms
+    w = tm.packed()
+    tc = torch.from_numpy(_tc(9, 18, b=tdec.MAX_ROWS + 1))
+    got = tdec.plm_decode_greedy(w, tc[:3], tm.go_id)
+    assert torch.equal(got, torch.cat([tdec.plm_decode_greedy(w, tc[i:i + 1], tm.go_id)
+                                       for i in range(3)]))
+    with pytest.raises(ValueError, match="B = 1"):
+        tdec.plm_decode_greedy(w, tc, tm.go_id)
+    for dts in ((F32, F32), (BF, F32), (F32, BF)):
+        with pytest.raises(ValueError, match="B = 1"):
+            tdec.plm_decode_greedy(w, tc[:2], tm.go_id, *dts)
+
+
+def test_reset_clears_the_row_count():
+    cuda_lib.ROWS["plm_decode_bf16"] = 7
+    cuda_lib.LAUNCHES["plm_decode_bf16"] = 2
+    cuda_lib.reset_launches()
+    assert cuda_lib.ROWS == {"plm_decode_bf16": 0}
+    assert cuda_lib.LAUNCHES["plm_decode_bf16"] == 0
